@@ -1,0 +1,72 @@
+"""Shared helpers for the JAX-vs-port parity tests (tests/test_torch_*).
+
+Both packages get the same inputs and the same weights: the JAX model's
+parameter tree is filled leaf by leaf from a numpy seed (Flax's own
+init leaves every FrozenBatchNorm at the identity, which would never
+test the BN fold) and converted to the port with
+``state_dict_from_jax``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def jax_model_and_random_variables(seed: int = 0, size: int = 64):
+    """WRN38 + CAM_CASA_WGAP_tf (float32) with every parameter leaf
+    drawn from ``seed``: He-normal kernels (the last conv of each
+    residual branch scaled by 0.1 so activations stay O(1) through the
+    stack), random BN affine and statistics with var > 0."""
+    import flax.traverse_util as trav
+    import jax
+    import jax.numpy as jnp
+
+    from wseg_tpu.config import cfg
+    from wseg_tpu.models import get_model
+
+    cfg.NET.MODEL = "CAM_CASA_WGAP_tf"
+    cfg.NET.BACKBONE = "resnet38"
+    cfg.NET.DTYPE = "float32"
+    model = get_model(cfg.NET, num_classes=21)
+    key = jax.random.PRNGKey(0)
+    # only the parameter shapes are needed: trace init, do not run it
+    shapes = jax.eval_shape(lambda: model.init(
+        {"params": key, "dropout": key, "sg": key},
+        jnp.zeros((1, size, size, 3), jnp.float32), train=False))
+    flat = trav.flatten_dict(shapes["params"])
+    rng = np.random.RandomState(seed)
+    out = {}
+    for path, v in sorted(flat.items()):
+        leaf, shape = path[-1], v.shape
+        if leaf == "kernel":
+            a = rng.randn(*shape) * np.sqrt(2.0 / np.prod(shape[:-1]))
+            last = ("conv_branch2b2" if path[:-2] + ("conv_branch2b2",
+                                                      "kernel") in flat
+                    else "conv_branch2b1")
+            if path[-2] == last:
+                a = a * 0.1
+        elif leaf == "scale":
+            a = 1.0 + 0.1 * rng.randn(*shape)
+        elif leaf == "mean":
+            a = 0.1 * rng.randn(*shape)
+        elif leaf == "var":
+            a = np.maximum(np.abs(1.0 + 0.1 * rng.randn(*shape)), 0.5)
+        else:  # biases
+            a = 0.05 * rng.randn(*shape)
+        out[path] = a.astype(np.float32)
+    return model, {"params": trav.unflatten_dict(out)}
+
+
+def port_model_from_jax(variables, dtype: str = "float32"):
+    """The port's flagship model carrying ``variables``' weights."""
+    from wseg_tpu_torch.config import _default_cfg
+    from wseg_tpu_torch.models import get_model
+    from wseg_tpu_torch.utils.convert import state_dict_from_jax
+
+    net = _default_cfg().NET
+    net.MODEL = "CAM_CASA_WGAP_tf"
+    net.BACKBONE = "resnet38"
+    net.DTYPE = dtype
+    model = get_model(net, num_classes=21)
+    model.load_state_dict(state_dict_from_jax(variables), strict=True)
+    return model

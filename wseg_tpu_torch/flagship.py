@@ -1,0 +1,106 @@
+"""The flagship serving setup, shared by ``chip_smoke.py`` and
+``profile_slice``: the configuration (``configs/voc_resnet38.yaml``),
+a seeded random-weight WRN38 + CAM_CASA_WGAP_tf on the card behind a
+``MultiScaleServer`` with the fast-CRF postprocess, synthetic VOC-sized
+images, and the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import importlib.util
+import os
+import subprocess
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FLAGSHIP_CFG = os.path.join(REPO, "configs", "voc_resnet38.yaml")
+THRESHS = (0.0, 0.1)
+# ``--set`` overrides equal to configs/voc_resnet38.yaml, for machines
+# without pyyaml (tests/test_torch_serving.py checks the equality)
+FLAGSHIP_SET = [
+    "NUM_GPUS", "1",
+    "DATASET.CROP_SIZE", "384", "DATASET.SCALE_FROM", "0.9",
+    "DATASET.SCALE_TO", "1.0", "DATASET.ROOT", "./data",
+    "DATASET.NAME", "sbd", "DATASET.FILENAME", "train_augvoc",
+    "TRAIN.BATCH_SIZE", "8", "TRAIN.NUM_EPOCHS", "25",
+    "TRAIN.NUM_WORKERS", "8", "TRAIN.PRETRAIN", "5",
+    "NET.BACKBONE", "resnet38", "NET.MODEL", "CAM_CASA_WGAP_tf",
+    "NET.PRE_WEIGHTS_PATH",
+    "./weights/ilsvrc-cls_rna-a1_cls1000_ep-0001.pth",
+    "NET.LR", "0.001", "NET.OPT", "SGD", "NET.LOSS", "SoftMargin",
+    "NET.WEIGHT_DECAY", "0.0005", "NET.PAMR_ITER", "10",
+    "NET.FOCAL_LAMBDA", "0.01", "NET.FOCAL_P", "3", "NET.SG_PSI", "0.3",
+    "TEST.METHOD", "multiscale", "TEST.DATA_ROOT", "./data",
+    "TEST.FLIP", "True", "TEST.BATCH_SIZE", "8",
+    "TEST.PAD_SIZE", "[1024, 1024]", "TEST.SCALES", "[1, 0.5, 1.5, 2.0]",
+    "TEST.FP_CUT_SCORE", "0.1", "TEST.BG_POW", "3",
+    "TEST.USE_GT_LABELS", "True",
+]
+
+
+def card_line() -> str:
+    """``name, power.limit`` as nvidia-smi reports them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def load_flagship_cfg() -> str:
+    """Merge the flagship YAML into the port's cfg (or, without pyyaml,
+    the equivalent ``--set`` list)."""
+    from wseg_tpu_torch.config import cfg_from_file, cfg_from_list
+
+    if importlib.util.find_spec("yaml") is not None:
+        cfg_from_file(FLAGSHIP_CFG)
+        return "configs/voc_resnet38.yaml"
+    cfg_from_list(FLAGSHIP_SET)
+    return "--set overrides equal to configs/voc_resnet38.yaml (no pyyaml)"
+
+
+def build_flagship_server(device="cuda", seed: int = 0):
+    """Seeded random-weight flagship model on ``device``, wrapped in a
+    ``MultiScaleServer`` with the fast-CRF device postprocess (as
+    ``infer_val`` builds it).  Reads the port's global cfg."""
+    from wseg_tpu_torch.config import cfg
+    from wseg_tpu_torch.engine.infer import make_device_postprocess
+    from wseg_tpu_torch.engine.serving import MultiScaleServer
+    from wseg_tpu_torch.models import get_model
+    from wseg_tpu_torch.models.backbones.common import (
+        seeded_init_,
+        stabilize_scratch_init,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with torch.device(device):
+        model = get_model(cfg.NET, num_classes=int(cfg.TEST.NUM_CLASSES))
+    seeded_init_(model, torch.Generator(device=device).manual_seed(seed))
+    stabilize_scratch_init(model, 0.1)
+    pp = make_device_postprocess(
+        THRESHS, THRESHS, crf_iters=10, bg_pow=float(cfg.TEST.BG_POW),
+        crf_dtype=str(cfg.TEST.CRF_DTYPE),
+        crf_stride=int(cfg.TEST.CRF_STRIDE),
+        crf_tap_div=float(cfg.TEST.CRF_TAP_DIV),
+        crf_full_stride=int(cfg.TEST.CRF_FULL_STRIDE),
+        crf_refine_iters=int(cfg.TEST.CRF_REFINE_ITERS),
+        crf_mode=str(cfg.TEST.CRF_MODE))
+    return MultiScaleServer(
+        model, cfg.TEST, max_batch=int(cfg.TEST.BATCH_SIZE), postprocess=pp)
+
+
+def synthetic_images(sizes, seed: int = 0):
+    """Smooth random photos (blocky colour fields plus noise) of the
+    given (width, height) sizes, with 1-3 random GT classes each."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for (w, h) in sizes:
+        low = rng.rand(h // 25 + 1, w // 25 + 1, 3) * 255.0
+        img = np.repeat(np.repeat(low, 25, 0), 25, 1)[:h, :w]
+        img = np.clip(img + rng.randn(h, w, 3) * 8.0, 0, 255)
+        labels = np.zeros(20, np.float32)
+        labels[rng.choice(20, size=rng.randint(1, 4), replace=False)] = 1
+        out.append((img.astype(np.uint8), labels))
+    return out
