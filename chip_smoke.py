@@ -6,15 +6,28 @@
 from the repository root.  Phases, each printing its own lines:
 
 1. environment: torch/CUDA versions and the card (fails without CUDA);
-2. build: compiles every hand-written kernel from ``wseg_tpu_torch/csrc``;
+2. build: compiles every hand-written kernel from ``wseg_tpu_torch/csrc``
+   (one nvcc per source, all started together);
 3. kernel vs plain: the bilateral-message kernel against its plain
    PyTorch version at the flagship shapes, error and median times;
-4. slice: WRN38 + CAM_CASA_WGAP_tf at full width (bfloat16, seeded
-   random weights) serves 8 VOC-sized synthetic images through
+4. serving slice: WRN38 + CAM_CASA_WGAP_tf at full width (bfloat16,
+   seeded random weights) serves 8 VOC-sized synthetic images through
    ``MultiScaleServer`` with the fast-CRF device postprocess; checks
    the label maps, the kernel's launch count, finite scores, and the
    writer math on the card against the same math on the CPU;
-5. the card line, the kernel JSON line, and last ``{"ok": true, ...}``.
+5. PAMR kernels vs plain: the affinity and propagation kernels against
+   their plain versions at the flagship shapes (guide (8, 48, 48, 3),
+   mask (8, 48, 48, 21), dilations 1-24, 10 steps), errors and times;
+6. train slice: the flagship trainer's model on the card (float32
+   parameters, bfloat16 compute, crop 384, batch 8, mask loss on), 2
+   warm-up and 6 timed SGD steps on seeded synthetic batches; checks
+   finite losses, trained parameters moved and frozen ones bit-equal,
+   one affinity and one propagation launch per step, and the refined
+   masks of the kernel path against the plain path on the same card;
+7. entry point: ``python -m wseg_tpu_torch.train`` (``main``) trains one
+   short epoch + validation on a synthetic VOC directory and writes a
+   checkpoint, which ``wseg_tpu_torch.infer_val`` loads and serves;
+8. the card line, the kernel JSON line, and last ``{"ok": true, ...}``.
 
 Any failed check raises, so the script exits non-zero and prints no
 ``ok`` line.
@@ -24,9 +37,13 @@ from __future__ import annotations
 
 import importlib.util
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 # (width, height) of the served images: VOC's common sizes, two each
 VOC_SIZES = [(500, 375), (375, 500), (500, 333), (333, 500)] * 2
@@ -34,6 +51,16 @@ VOC_SIZES = [(500, 375), (375, 500), (500, 333), (333, 500)] * 2
 # half grid of a 384x512 merge canvas
 KERNEL_SHAPE = (8, 21, 192, 256)
 KERNEL_REL_TOL = 1e-5
+# flagship PAMR shapes: batch 8, the 384 crop at stride 8, 21 classes
+PAMR_SHAPE = (8, 48, 48, 21)
+PAMR_DIL = (1, 2, 4, 8, 12, 24)
+PAMR_ITER = 10
+PAMR_REL_TOL = 1e-5
+WARMUP_STEPS, TIMED_STEPS = 2, 6
+# the card's published peaks (H100 SXM data sheet): HBM bytes/s and
+# float32 FLOP/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
 
 
 def check(cond, msg):
@@ -59,6 +86,20 @@ def cuda_median_ms(fn, reps: int, warmup: int = 2) -> float:
     return times[len(times) // 2]
 
 
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time for ``nbytes`` of compulsory traffic and ``flops``
+    float32 operations on the card, and which of the two bounds it."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def valid_tap_pixels(taps, h: int, w: int) -> int:
+    """(tap, pixel) pairs whose displaced pixel lies inside an h x w image."""
+    return sum(max(0, h - abs(dy)) * max(0, w - abs(dx)) for dy, dx in taps)
+
+
 def phase_env() -> str:
     import torch
 
@@ -73,21 +114,27 @@ def phase_env() -> str:
     print(f"device 0: {torch.cuda.get_device_name(0)}; count "
           f"{torch.cuda.device_count()}; nvidia-smi: {smi}", flush=True)
     avail = {m: importlib.util.find_spec(m) is not None
-             for m in ("yaml", "PIL", "cv2", "triton")}
+             for m in ("yaml", "PIL", "cv2", "triton", "sklearn")}
     print(f"optional modules: {avail}", flush=True)
     return smi
 
 
 def phase_build(card: str) -> None:
     from wseg_tpu_torch import _build
-    from wseg_tpu_torch.ops import crf_bilateral
+    from wseg_tpu_torch.ops import crf_bilateral, pamr_cuda
 
+    names = ("crf_bilateral", "pamr")
     t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(names)) as pool:
+        list(pool.map(_build.build, names))
     crf_bilateral._library()
+    pamr_cuda._library()
     dt = time.perf_counter() - t0
-    print(f"build crf_bilateral.cu: {dt:.2f} s ({card})", flush=True)
-    for line in _build.build.log.get("crf_bilateral", "").splitlines():
-        print(f"  nvcc: {line}", flush=True)
+    print(f"build {', '.join(n + '.cu' for n in names)} in parallel: "
+          f"{dt:.2f} s ({card})", flush=True)
+    for name in names:
+        for line in _build.build.log.get(name, "").splitlines():
+            print(f"  nvcc {name}: {line}", flush=True)
 
 
 def phase_kernel(card: str) -> dict:
@@ -123,11 +170,14 @@ def phase_kernel(card: str) -> dict:
     print(f"kernel median {ms:.4f} / {ms2:.4f} ms, plain median "
           f"{plain_ms:.4f} / {plain_ms2:.4f} ms (two rounds; {card})",
           flush=True)
+    nbytes = 2 * q.numel() * 4 + wt.numel() * 2
+    flops = 2 * b * c * valid_tap_pixels(taps, h, w)
     return {"name": "bilateral_message_cm", "route": "cuda",
             "source": "wseg_tpu_torch/csrc/crf_bilateral.cu",
             "replaces": "wseg_tpu/ops/crf_pallas.py:87",
             "max_abs_err": max_abs, "ms": min(ms, ms2),
-            "plain_ms": min(plain_ms, plain_ms2)}
+            "plain_ms": min(plain_ms, plain_ms2), **bound(nbytes, flops),
+            "library_ms": None}
 
 
 def phase_slice(card: str) -> int:
@@ -253,16 +303,264 @@ def phase_slice(card: str) -> int:
     return launches
 
 
+def phase_pamr_kernels(card: str) -> list:
+    """Both PAMR kernels against their plain versions at the flagship
+    shapes: (affinity entry, propagation entry) without launches."""
+    import torch
+
+    from wseg_tpu_torch.ops.pamr_cuda import (
+        pamr_affinity_cm,
+        pamr_affinity_cm_reference,
+        pamr_propagate_cm,
+        pamr_propagate_cm_reference,
+        pamr_taps,
+    )
+
+    b, h, w, c = PAMR_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    guide = torch.rand((b, h, w, 3), generator=gen, device="cuda")
+    mask = torch.softmax(torch.randn((b, h, w, c), generator=gen,
+                                     device="cuda") * 3, dim=-1)
+    im_cm = guide.permute(0, 3, 1, 2).contiguous()
+    m_cm = mask.permute(0, 3, 1, 2).contiguous()
+    aff = pamr_affinity_cm(im_cm, PAMR_DIL)
+    aff_ref = pamr_affinity_cm_reference(im_cm, PAMR_DIL)
+    out = pamr_propagate_cm(aff_ref, m_cm, PAMR_DIL, PAMR_ITER)
+    out_ref = pamr_propagate_cm_reference(aff_ref, m_cm, PAMR_DIL,
+                                          PAMR_ITER)
+    torch.cuda.synchronize()
+    t = len(PAMR_DIL) * 8
+    taps9 = [tap for d in PAMR_DIL for tap in pamr_taps((d,)) + [(0, 0)]]
+    # affinity: per pixel and channel 4 ops per sigma tap (mean, then
+    # deviation squared and summed) + 4 per logit tap; 3 per softmax tap
+    aff_flops = b * h * w * (3 * 4 * len(taps9) + 3 * 4 * t + 3 * t)
+    entries = []
+    for name, src, got, want, plain, kernel, nbytes, flops in (
+            ("pamr_affinity_cm", "wseg_tpu/ops/pamr_pallas.py:203", aff,
+             aff_ref, lambda: pamr_affinity_cm_reference(im_cm, PAMR_DIL),
+             lambda: pamr_affinity_cm(im_cm, PAMR_DIL),
+             (im_cm.numel() + aff.numel()) * 4, aff_flops),
+            ("pamr_propagate_cm", "wseg_tpu/ops/pamr_pallas.py:117", out,
+             out_ref,
+             lambda: pamr_propagate_cm_reference(aff_ref, m_cm, PAMR_DIL,
+                                                 PAMR_ITER),
+             lambda: pamr_propagate_cm(aff_ref, m_cm, PAMR_DIL, PAMR_ITER),
+             (aff_ref.numel() + 2 * m_cm.numel()) * 4,
+             # edge replication: every tap reads a pixel, none is skipped
+             2 * b * c * PAMR_ITER * t * h * w)):
+        max_abs = float((got - want).abs().max())
+        rel = max_abs / float(want.abs().max())
+        print(f"kernel {name} at {PAMR_SHAPE}, dilations {PAMR_DIL}, "
+              f"{PAMR_ITER} steps: max_abs_err {max_abs:.3e}, rel "
+              f"{rel:.3e} (tol {PAMR_REL_TOL:g})", flush=True)
+        check(rel <= PAMR_REL_TOL, f"{name} disagrees with plain: rel {rel}")
+        p1 = cuda_median_ms(plain, reps=10)
+        k1 = cuda_median_ms(kernel, reps=30)
+        k2 = cuda_median_ms(kernel, reps=30)
+        p2 = cuda_median_ms(plain, reps=10)
+        bnd = bound(nbytes, flops)
+        print(f"kernel {name} median {k1:.4f} / {k2:.4f} ms, plain median "
+              f"{p1:.4f} / {p2:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
+              f"({bnd['bound_by']}) ({card})", flush=True)
+        entries.append({"name": name, "route": "cuda",
+                        "source": "wseg_tpu_torch/csrc/pamr.cu",
+                        "replaces": src, "max_abs_err": max_abs,
+                        "ms": min(k1, k2), "plain_ms": min(p1, p2), **bnd,
+                        "library_ms": None})
+    return entries
+
+
+def phase_train(card: str) -> dict:
+    """Full-width train steps; returns the PAMR launch counts."""
+    import numpy as np
+    import torch
+
+    from wseg_tpu_torch.config import cfg, reset_cfg
+    from wseg_tpu_torch.engine.train_loop import (
+        normalise_batch_image,
+        train_step,
+    )
+    from wseg_tpu_torch.engine.trainer import build_train_model
+    from wseg_tpu_torch.flagship import (
+        load_flagship_cfg,
+        synthetic_train_batch,
+    )
+    from wseg_tpu_torch.models.stage_net import _clean_only
+    from wseg_tpu_torch.ops.pamr import pamr
+    from wseg_tpu_torch.ops.pamr_cuda import (
+        pamr_affinity_cm,
+        pamr_propagate_cm,
+    )
+    from wseg_tpu_torch.optim import FROZEN, make_optimizer
+
+    reset_cfg()
+    src = load_flagship_cfg()
+    crop, bs = int(cfg.DATASET.CROP_SIZE), int(cfg.TRAIN.BATCH_SIZE)
+    check(crop == 384 and bs == 8 and cfg.NET.DTYPE == "bfloat16"
+          and bool(cfg.DATASET.DEVICE_JITTER),
+          f"not the flagship train config: crop {crop}, batch {bs}, "
+          f"{cfg.NET.DTYPE}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    model = build_train_model(dev, seed=0)
+    opt, labels = make_optimizer(cfg.NET, model)
+    params = dict(model.named_parameters())
+    check(all(p.dtype == torch.float32 for p in params.values()),
+          "training parameters must be float32")
+    init = {n: p.detach().clone() for n, p in params.items()}
+    print(f"train model ({src}): {sum(p.numel() for p in params.values())} "
+          f"float32 params, autocast {model.amp_dtype}, crop {crop}, batch "
+          f"{bs}, PAMR {model.pamr_kernel} x {model.pamr_iter}, built in "
+          f"{time.perf_counter() - t0:.2f} s ({card})", flush=True)
+
+    rng = np.random.RandomState(0)
+    batches = [synthetic_train_batch(rng, bs, crop) for _ in range(
+        WARMUP_STEPS + TIMED_STEPS)]
+    kw = dict(device_jitter=True, loss_name=str(cfg.NET.LOSS),
+              mask_loss_bce=float(cfg.NET.MASK_LOSS_BCE))
+    times, losses = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pamr_affinity_cm.launches = 0
+    pamr_propagate_cm.launches = 0
+    for i, batch in enumerate(batches):
+        before = (pamr_affinity_cm.launches, pamr_propagate_cm.launches)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        metrics = train_step(model, opt, batch, 1.0, **kw)
+        torch.cuda.synchronize()
+        if i >= WARMUP_STEPS:
+            times.append((time.perf_counter() - t) * 1e3)
+        delta = (pamr_affinity_cm.launches - before[0],
+                 pamr_propagate_cm.launches - before[1])
+        check(delta == (1, 1), f"step {i}: PAMR launches {delta}, "
+              "expected one affinity and one propagation")
+        losses.append({k: float(v) for k, v in metrics.items()})
+    launches = {"pamr_affinity_cm": pamr_affinity_cm.launches,
+                "pamr_propagate_cm": pamr_propagate_cm.launches}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(all(np.isfinite(v) for m in losses for v in m.values()),
+          f"non-finite losses: {losses}")
+    times.sort()
+    med = times[len(times) // 2]
+    print(f"train steps (after {WARMUP_STEPS} warm-up): median {med:.2f} "
+          f"ms, min {times[0]:.2f} ms, max {times[-1]:.2f} ms over "
+          f"{TIMED_STEPS} = {bs * 1e3 / med:.2f} images/s; peak memory "
+          f"{peak:.2f} GiB; PAMR launches {launches} ({card})", flush=True)
+    print(f"losses, first and last step: {losses[0]} / {losses[-1]}",
+          flush=True)
+
+    moved = frozen_same = n_train = n_frozen = 0
+    for n, p in params.items():
+        same = torch.equal(p.detach(), init[n])
+        if labels[n] == FROZEN:
+            n_frozen += 1
+            frozen_same += same
+        else:
+            n_train += 1
+            moved += not same
+    print(f"parameters: {moved} of {n_train} trained tensors moved, "
+          f"{frozen_same} of {n_frozen} frozen tensors bit-equal", flush=True)
+    check(frozen_same == n_frozen, "a frozen parameter changed")
+    check(moved == n_train, "a trained parameter did not move")
+
+    # the refined masks of one step's inputs: kernel path vs plain path
+    model.eval()
+    batch = batches[-1]
+    with torch.no_grad():
+        image, raw = normalise_batch_image(batch["image"], batch["jitter"])
+        with torch.autocast("cuda", dtype=model.amp_dtype):
+            logits, _ = model._features(image)
+        src_masks = _clean_only(torch.softmax(logits.float(), dim=-1),
+                                batch["labels"])
+        dec_k = pamr(raw, src_masks, model.pamr_kernel, model.pamr_iter,
+                     impl="auto")
+        dec_p = pamr(raw, src_masks, model.pamr_kernel, model.pamr_iter,
+                     impl="lax")
+    err = float((dec_k - dec_p).abs().max())
+    print(f"masks_dec (B, 48, 48, 21) kernel path vs plain path on the card: "
+          f"max_abs_err {err:.3e} (tol 1e-5)", flush=True)
+    check(err <= 1e-5, f"masks_dec kernel vs plain: {err}")
+    del model, opt, params, init, batches
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_entry(card: str) -> None:
+    """``wseg_tpu_torch.train.main`` for one short epoch + validation on
+    a synthetic VOC, then ``infer_val`` on its checkpoint."""
+    import torch
+
+    from wseg_tpu_torch import infer_val, train
+    from wseg_tpu_torch.config import reset_cfg
+    from wseg_tpu_torch.flagship import FLAGSHIP_CFG, write_synthetic_voc
+    from wseg_tpu_torch.utils.checkpoints import model_file
+
+    tmp = tempfile.mkdtemp(prefix="wseg_smoke_")
+    try:
+        root = write_synthetic_voc(os.path.join(tmp, "data"), n_train=16,
+                                   n_val=4)
+        common = ["--dataset", "pascal_voc", "--cfg", FLAGSHIP_CFG,
+                  "--exp", "smoke", "--run", "r0",
+                  "--snapshot-dir", os.path.join(tmp, "snap"),
+                  "--logdir", os.path.join(tmp, "logs"), "--workers", "2",
+                  "--device", "cuda"]
+        sets = ["--set", "DATASET.ROOT", root, "TEST.DATA_ROOT", root,
+                "TRAIN.NUM_EPOCHS", "0", "TRAIN.PRETRAIN", "0"]
+        reset_cfg()
+        t0 = time.perf_counter()
+        trainer = train.main(common + sets)
+        dt = time.perf_counter() - t0
+        check(trainer.checkpoint.checkpoints, "the trainer saved nothing")
+        suffix = trainer.checkpoint.checkpoints[-1]
+        snap = trainer.args.snapshot_dir
+        check(os.path.isfile(model_file(snap, suffix)),
+              f"no checkpoint file for {suffix}")
+        print(f"entry point: train.main, 1 epoch of 16 + validation of 4 "
+              f"synthetic 500x375 images in {dt:.2f} s, checkpoint "
+              f"{suffix} ({card})", flush=True)
+        del trainer
+        torch.cuda.empty_cache()
+
+        reset_cfg()
+        check(infer_val._find_snapshot(suffix, snap) == model_file(snap,
+                                                                   suffix),
+              "infer_val does not find the trainer's checkpoint")
+        out = os.path.join(tmp, "masks")
+        t0 = time.perf_counter()
+        infer_val.main(common + ["--resume", suffix, "--infer-list",
+                                 os.path.join(root, "val_voc.txt"),
+                                 "--mask-output-dir", out] + sets)
+        dt = time.perf_counter() - t0
+        n = {sub: len(os.listdir(os.path.join(out + "_0", sub)))
+             for sub in ("no_crf", "crf")}
+        check(n == {"no_crf": 4, "crf": 4}, f"infer_val wrote {n}")
+        print(f"entry point: infer_val loaded {suffix} and wrote {n} PNGs "
+              f"at threshold 0.0 in {dt:.2f} s ({card})", flush=True)
+    finally:
+        reset_cfg()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     card = phase_env()
     phase_build(card)
     kern = phase_kernel(card)
     kern["launches"] = phase_slice(card)
     check(kern["launches"] > 0, "the slice never launched the kernel")
+    pamr_kernels = phase_pamr_kernels(card)
+    launches = phase_train(card)
+    for entry in pamr_kernels:
+        entry["launches"] = launches[entry["name"]]
+        check(entry["launches"] > 0, f"the train slice never launched "
+              f"{entry['name']}")
+    phase_entry(card)
     import torch
 
     print(card, flush=True)
-    print(json.dumps({"kernels": [kern]}), flush=True)
+    print(json.dumps({"kernels": [kern] + pamr_kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -75,7 +75,7 @@ def test_port_cli_writes_the_same_pngs(tmp_path):
     _root_infer_val().main(argv("jax"))
     reset_port_cfg()
     try:
-        port_cli.main(argv("port"))
+        port_cli.main(argv("port") + ["--device", "cpu"])
     finally:
         reset_port_cfg()
 
@@ -96,3 +96,28 @@ def test_port_cli_writes_the_same_pngs(tmp_path):
     assert n_files == 12
     # the GT-overlay strips are written too
     assert len(os.listdir(tmp_path / "port_0" / "vis")) == 3
+
+
+def test_port_cli_without_a_card_raises(tmp_path):
+    """``--device`` defaults to cuda: without a card the entry point
+    raises instead of serving on the CPU."""
+    import pytest
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    from wseg_tpu_torch import infer_val as port_cli
+    from wseg_tpu_torch.config import reset_cfg as reset_port_cfg
+
+    root = make_synthetic_voc(str(tmp_path / "data"), n_train=0, n_val=1)
+    cfg_file = _write_cfg(tmp_path, root)
+    reset_port_cfg()
+    try:
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            port_cli.main(["--cfg", cfg_file,
+                           "--snapshot-dir", str(tmp_path / "snap"),
+                           "--logdir", str(tmp_path / "logs"),
+                           "--infer-list", os.path.join(root, "val_voc.txt"),
+                           "--mask-output-dir", str(tmp_path / "out")])
+    finally:
+        reset_port_cfg()
+    assert not (tmp_path / "out_0").exists()

@@ -1,7 +1,9 @@
-"""Pascal VOC host helpers: filelists, labels from masks, the palette.
+"""Pascal VOC host helpers and the training dataset.
 
-The pieces of ``wseg_tpu/data/pascal_voc.py`` that inference needs,
-without its image-library imports.
+Filelists, labels from masks, the palette (what inference needs, with
+no image-library import at module level) and ``VOCSegmentation``, the
+augmenting train/validation dataset of ``wseg_tpu/data/pascal_voc.py``
+(uint8 transfer; PIL is imported when the dataset is built).
 """
 
 from __future__ import annotations
@@ -67,3 +69,59 @@ def read_filelist(path: str, root: str = "") -> List[Tuple[str, str]]:
                 if len(parts) > 1 else ""
             entries.append((img, msk))
     return entries
+
+
+class VOCSegmentation:
+    """Training/validation dataset with joint augmentation.
+
+    ``__getitem__`` -> (image uint8 HWC, labels (C-1,) float32, name,
+    mask HW int32[, jitter (9,) float32]).  ``augment`` (training):
+    random resized crop to ``CROP_SIZE``, horizontal flip, and colour
+    jitter, either on the host or, with ``device_jitter``, sampled here
+    after the pipeline from the same rng (its position in the stream is
+    the host jitter's) and applied by the train step on the device.
+    Without ``augment`` (validation): resize + centre crop.
+    """
+
+    def __init__(self, data_cfg, split: str, augment: bool = True,
+                 seed: int = 0, device_jitter: bool = False):
+        from wseg_tpu_torch.data import transforms as tf
+
+        self.root = data_cfg.ROOT
+        self.split = split
+        self.entries = read_filelist(
+            os.path.join(self.root, split + ".txt"), self.root)
+        self.augment = augment
+        crop = int(data_cfg.CROP_SIZE)
+        self.device_jitter = bool(device_jitter and augment)
+        if augment:
+            jit = [] if self.device_jitter else [tf.MaskColourJitter(p=1.0)]
+            self.transform = tf.Compose([
+                tf.MaskRandResizedCrop(crop, float(data_cfg.SCALE_FROM),
+                                       float(data_cfg.SCALE_TO)),
+                tf.MaskHFlip(), *jit, tf.MaskToUint8()])
+        else:
+            self.transform = tf.Compose([tf.MaskCenterCrop(crop),
+                                         tf.MaskToUint8()])
+        self.rng = np.random.RandomState(seed)
+
+    def __len__(self):
+        return len(self.entries)
+
+    def __getitem__(self, index: int):
+        from PIL import Image
+
+        from wseg_tpu_torch.ops.jitter import sample_colour_jitter
+
+        img_path, mask_path = self.entries[index]
+        with Image.open(img_path) as im:
+            image = im.convert("RGB")
+        with Image.open(mask_path) as m:
+            mask = m.copy()
+        image, mask = self.transform(image, mask, self.rng)
+        mask_np = np.asarray(mask, np.int32)
+        out = (image, labels_from_mask(mask_np), os.path.basename(img_path),
+               mask_np)
+        if self.device_jitter:
+            out = out + (sample_colour_jitter(self.rng, p=1.0),)
+        return out

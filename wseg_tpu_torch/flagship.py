@@ -1,8 +1,9 @@
-"""The flagship serving setup, shared by ``chip_smoke.py`` and
-``profile_slice``: the configuration (``configs/voc_resnet38.yaml``),
+"""The flagship setup shared by ``chip_smoke.py``, ``profile_slice`` and
+``profile_train``: the configuration (``configs/voc_resnet38.yaml``),
 a seeded random-weight WRN38 + CAM_CASA_WGAP_tf on the card behind a
 ``MultiScaleServer`` with the fast-CRF postprocess, synthetic VOC-sized
-images, and the card's name and power limit.
+images, seeded synthetic training batches, a synthetic VOC directory
+on disk, and the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -104,3 +105,64 @@ def synthetic_images(sizes, seed: int = 0):
         labels[rng.choice(20, size=rng.randint(1, 4), replace=False)] = 1
         out.append((img.astype(np.uint8), labels))
     return out
+
+
+def synthetic_train_batch(rng: np.random.RandomState, batch: int,
+                          crop: int):
+    """One training batch as the loader delivers it under
+    ``DATASET.DEVICE_JITTER``: uint8 crops (blocky colour fields plus
+    noise), 1-3 labels per image, jitter parameters; on the card."""
+    from wseg_tpu_torch.ops.jitter import sample_colour_jitter
+
+    images, labels, jitter = [], [], []
+    for _ in range(batch):
+        low = rng.rand(crop // 32 + 1, crop // 32 + 1, 3) * 255.0
+        img = np.repeat(np.repeat(low, 32, 0), 32, 1)[:crop, :crop]
+        img = np.clip(img + rng.randn(crop, crop, 3) * 8.0, 0, 255)
+        images.append(img.astype(np.uint8))
+        lab = np.zeros(20, np.float32)
+        lab[rng.choice(20, size=rng.randint(1, 4), replace=False)] = 1
+        labels.append(lab)
+        jitter.append(sample_colour_jitter(rng, p=1.0))
+    return {"image": torch.from_numpy(np.stack(images)).cuda(),
+            "labels": torch.from_numpy(np.stack(labels)).cuda(),
+            "jitter": torch.from_numpy(np.stack(jitter)).cuda()}
+
+
+def write_synthetic_voc(root: str, n_train: int, n_val: int) -> str:
+    """JPEGImages/, SegmentationClass/ and the ``train_augvoc.txt`` /
+    ``val_voc.txt`` filelists under ``root``: 500x375 images, each a
+    noisy background with 1-2 rectangles whose GT mask carries their
+    class."""
+    from PIL import Image
+
+    from wseg_tpu_torch.data.pascal_voc import get_palette
+
+    rng = np.random.RandomState(0)
+    for sub in ("JPEGImages", "SegmentationClass"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    palette = get_palette()
+    w, h = 500, 375
+    lines = []
+    for i in range(n_train + n_val):
+        img = np.clip(rng.randn(h, w, 3) * 20 + 128, 0, 255).astype(np.uint8)
+        mask = np.zeros((h, w), np.uint8)
+        for _ in range(rng.randint(1, 3)):
+            cls = rng.randint(1, 21)
+            x0, y0 = rng.randint(0, w // 2), rng.randint(0, h // 2)
+            x1 = x0 + rng.randint(w // 4, w // 2)
+            y1 = y0 + rng.randint(h // 4, h // 2)
+            img[y0:y1, x0:x1] = palette[3 * cls:3 * cls + 3]
+            mask[y0:y1, x0:x1] = cls
+        name = f"syn{i:04d}"
+        Image.fromarray(img).save(os.path.join(root, "JPEGImages",
+                                               name + ".jpg"))
+        m = Image.fromarray(mask, mode="P")
+        m.putpalette(palette)
+        m.save(os.path.join(root, "SegmentationClass", name + ".png"))
+        lines.append(f"/JPEGImages/{name}.jpg /SegmentationClass/{name}.png\n")
+    with open(os.path.join(root, "train_augvoc.txt"), "w") as f:
+        f.writelines(lines[:n_train])
+    with open(os.path.join(root, "val_voc.txt"), "w") as f:
+        f.writelines(lines[n_train:])
+    return root

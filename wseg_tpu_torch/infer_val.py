@@ -3,11 +3,13 @@
 
     python -m wseg_tpu_torch.infer_val --cfg configs/voc_resnet38.yaml \
         --infer-list data/val_voc.txt --resume snapshot.pth \
-        --mask-output-dir results/
+        --mask-output-dir results/ [--device cuda]
 
-Loads a port or reference ``.pth`` snapshot, serves every image of the
-filelist through ``MultiScaleServer`` (device views, merge and fast-CRF
-writer math) and writes indexed PNGs per threshold to
+Loads a port or reference ``.pth`` snapshot (a path, or a suffix
+``eNNNXsS.SSS`` that the port's trainer wrote under
+``--snapshot-dir``), serves every image of the filelist through
+``MultiScaleServer`` (device views, merge and fast-CRF writer math) on
+``--device`` and writes indexed PNGs per threshold to
 ``<mask-output-dir>_<thresh>/{no_crf,crf,vis}``.
 """
 
@@ -22,7 +24,7 @@ import numpy as np
 import torch
 
 from wseg_tpu_torch.config import cfg, cfg_from_file, cfg_from_list
-from wseg_tpu_torch.opts import get_arguments
+from wseg_tpu_torch.opts import get_arguments, get_device
 
 # (prospect_thresh, crf) per writer; the first TEST_ID entries are active
 TEST_ID = [0, 1]
@@ -31,8 +33,11 @@ CRFS = [True, True, False, False, False]
 
 
 def _find_snapshot(resume: str, snapshot_dir: str) -> str:
+    from wseg_tpu_torch.utils.checkpoints import model_file
+
     for cand in (resume, os.path.join(snapshot_dir, resume),
-                 os.path.join(snapshot_dir, resume + ".pth")):
+                 os.path.join(snapshot_dir, resume + ".pth"),
+                 model_file(snapshot_dir, resume)):
         if cand and os.path.isfile(cand):
             return cand
     return ""
@@ -59,7 +64,7 @@ def main(argv):
     # matmuls round to uint8 / argmax downstream)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    device = get_device(args)
 
     nc = int(cfg.TEST.NUM_CLASSES)
     model = get_model(cfg.NET, num_classes=nc)

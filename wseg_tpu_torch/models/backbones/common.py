@@ -1,4 +1,5 @@
-"""Backbone building blocks: the frozen BatchNorm and the conv helper.
+"""Backbone building blocks: the frozen BatchNorm, channel dropout and
+the conv helper.
 
 ``FrozenBatchNorm`` is the backbone BN of the reference recipe (stats
 and affine both frozen, ``wseg_tpu/models/backbones/common.py``): a
@@ -33,6 +34,22 @@ class FrozenBatchNorm(nn.Module):
         add = self.bias.float() - self.running_mean.float() * mul
         return (x * mul.to(x.dtype)[None, :, None, None]
                 + add.to(x.dtype)[None, :, None, None])
+
+
+class Dropout2d(nn.Dropout2d):
+    """Channel dropout (whole channels of NCHW, kept ones scaled by
+    1 / (1 - p)) that draws from an explicit ``torch.Generator``: set
+    ``.generator`` (on the activations' device) before training; without
+    one it draws from torch's default generator, as ``nn.Dropout2d``."""
+
+    generator = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        keep = torch.rand((x.shape[0], x.shape[1], 1, 1), device=x.device,
+                          generator=self.generator) >= self.p
+        return x * (keep.to(x.dtype) / (1.0 - self.p))
 
 
 def conv(in_ch: int, out_ch: int, kernel: int = 3, stride: int = 1,

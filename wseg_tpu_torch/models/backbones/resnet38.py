@@ -1,11 +1,13 @@
-"""WideResNet-38 trunk (test mode), module names as the reference's.
+"""WideResNet-38 trunk, module names as the reference's.
 
 Mirror of ``wseg_tpu/models/backbones/resnet38.py``: pre-activation
 residual blocks, output stride 8, dilation 2 in b5, bottleneck blocks
-b6/b7 at dilation 4, final BN+ReLU to 4096 channels.  Every BN is a
-``FrozenBatchNorm``.  Channel dropout in b6/b7 is a no-op in test mode
-and is left out.  Layout NCHW inside; ``forward`` returns the tap dict
-(``conv3``, ``conv3_pre``, ``conv4``, ``conv5``, ``conv6``).
+b6/b7 at dilation 4 with channel dropout (``Dropout2d`` after
+``bn_branch2b1`` and after ``bn_branch2b2``, rates 0.3 in b6 and 0.5 in
+b7; active in ``.train()`` mode only), final BN+ReLU to 4096 channels.
+Every BN is a ``FrozenBatchNorm``.  Layout NCHW inside; ``forward``
+returns the tap dict (``conv3``, ``conv3_pre``, ``conv4``, ``conv5``,
+``conv6``).
 """
 
 from __future__ import annotations
@@ -16,7 +18,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from wseg_tpu_torch.models.backbones.common import FrozenBatchNorm, conv
+from wseg_tpu_torch.models.backbones.common import (
+    Dropout2d,
+    FrozenBatchNorm,
+    conv,
+)
 
 
 class ResBlock(nn.Module):
@@ -45,11 +51,13 @@ class ResBlock(nn.Module):
 
 
 class ResBlockBot(nn.Module):
-    """Pre-activation 1x1/3x3/1x1 bottleneck."""
+    """Pre-activation 1x1/3x3/1x1 bottleneck with channel dropout."""
 
     def __init__(self, in_ch: int, out: int, stride: int = 1,
-                 dilation: int = 1):
+                 dilation: int = 1, dropout: float = 0.0):
         super().__init__()
+        self.dropout_2b1 = Dropout2d(dropout)
+        self.dropout_2b2 = Dropout2d(dropout)
         self.bn_branch2a = FrozenBatchNorm(in_ch)
         self.conv_branch1 = conv(in_ch, out, 1, stride)
         self.conv_branch2a = conv(in_ch, out // 4, 1, stride)
@@ -63,9 +71,9 @@ class ResBlockBot(nn.Module):
         x_bn_relu = b
         shortcut = self.conv_branch1(b)
         b = self.conv_branch2a(b)
-        b = F.relu(self.bn_branch2b1(b))
+        b = self.dropout_2b1(F.relu(self.bn_branch2b1(b)))
         b = self.conv_branch2b1(b)
-        b = F.relu(self.bn_branch2b2(b))
+        b = self.dropout_2b2(F.relu(self.bn_branch2b2(b)))
         b = self.conv_branch2b2(b)
         return shortcut + b, x_bn_relu
 
@@ -88,8 +96,8 @@ class ResNet38(nn.Module):
         self.b5 = ResBlock(512, 512, 1024, 1, first_dilation=1, dilation=2)
         self.b5_1 = ResBlock(1024, 512, 1024, dilation=2)
         self.b5_2 = ResBlock(1024, 512, 1024, dilation=2)
-        self.b6 = ResBlockBot(1024, 2048, 1, 4)
-        self.b7 = ResBlockBot(2048, 4096, 1, 4)
+        self.b6 = ResBlockBot(1024, 2048, 1, 4, dropout=0.3)
+        self.b7 = ResBlockBot(2048, 4096, 1, 4, dropout=0.5)
         self.bn7 = FrozenBatchNorm(4096)
 
     def fan_out(self) -> int:

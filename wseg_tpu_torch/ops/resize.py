@@ -41,8 +41,11 @@ def _interp_matrix(n_in: int, n_out: int, align_corners: bool) -> np.ndarray:
 @functools.lru_cache(maxsize=256)
 def _interp_matrix_on(n_in: int, n_out: int, align_corners: bool,
                       device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(_interp_matrix(n_in, n_out, align_corners)).to(
-        device)
+    # a normal tensor even when first built under inference_mode
+    # (serving), so that training can save it for backward
+    with torch.inference_mode(False):
+        return torch.from_numpy(
+            _interp_matrix(n_in, n_out, align_corners)).to(device)
 
 
 def resize_bilinear(x: torch.Tensor, size, align_corners: bool = True):

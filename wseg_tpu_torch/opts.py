@@ -1,4 +1,6 @@
-"""CLI argument parsing: the same flags as ``wseg_tpu/opts.py``."""
+"""CLI argument parsing: the same flags as ``wseg_tpu/opts.py``, plus
+``--device`` (default ``cuda``): every entry point of the port runs on
+that device and never picks another one itself."""
 
 from __future__ import annotations
 
@@ -45,6 +47,8 @@ def add_global_arguments(parser: argparse.ArgumentParser):
                         help="Use the attention loss")
     parser.add_argument("--profile-dir", type=str, default="",
                         help="Profiler trace directory")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="torch device to run on (cuda, cuda:N, cpu)")
 
 
 def maybe_create_dir(path: str):
@@ -60,6 +64,19 @@ def check_global_arguments(args):
     args.snapshot_dir = os.path.join(args.snapshot_dir, args.dataset,
                                      args.exp, args.run)
     maybe_create_dir(args.snapshot_dir)
+
+
+def get_device(args):
+    """The ``--device`` of ``args`` as a torch.device; raises if it is a
+    CUDA device and no card is present (no fallback to the CPU)."""
+    import torch
+
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"--device {args.device}: torch.cuda.is_available() is False; "
+            "pass --device cpu to run on the CPU")
+    return device
 
 
 def get_arguments(args_in: Sequence[str]):
