@@ -22,8 +22,11 @@ from the repository root.  Phases, each printing its own lines:
    parameters, bfloat16 compute, crop 384, batch 8, mask loss on), 2
    warm-up and 6 timed SGD steps on seeded synthetic batches; checks
    finite losses, trained parameters moved and frozen ones bit-equal,
-   one affinity and one propagation launch per step, and the refined
-   masks of the kernel path against the plain path on the same card;
+   one affinity and one propagation launch per step; then one more step
+   whose labels agree with the pseudo-GT of a sharpened head (see
+   ``sharpen_head_and_label``), where the mask loss must be non-zero;
+   and the refined masks of the kernel path against the plain path on
+   the same card;
 7. entry point: ``python -m wseg_tpu_torch.train`` (``main``) trains one
    short epoch + validation on a synthetic VOC directory and writes a
    checkpoint, which ``wseg_tpu_torch.infer_val`` loads and serves;
@@ -57,6 +60,8 @@ PAMR_DIL = (1, 2, 4, 8, 12, 24)
 PAMR_ITER = 10
 PAMR_REL_TOL = 1e-5
 WARMUP_STEPS, TIMED_STEPS = 2, 6
+# the class that the mask-loss step's sharpened head gives its images
+MASK_CLASS = 1
 # the card's published peaks (H100 SXM data sheet): HBM bytes/s and
 # float32 FLOP/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -370,6 +375,60 @@ def phase_pamr_kernels(card: str) -> list:
     return entries
 
 
+def sharpen_head_and_label(model, batch, cls: int = MASK_CLASS):
+    """Give ``batch`` labels under which the mask loss counts; returns
+    (labels (B, 20), images that count).
+
+    The seeded head's masks are nearly uniform, so no class reaches
+    ``pseudo_gtmask``'s floor of 0.2 and the mask loss is 0.  Here fc8
+    keeps two columns, the background and ``cls``, along + and - the top
+    principal direction of its input features (taken orthogonal to their
+    mean, so that its sign splits the pixels), scaled to logits of up to
+    20: masks as peaked as a trained head's.  Each image is then labelled
+    with the classes of the pseudo-GT of its refined masks.  PAMR is
+    linear in each channel and cleaning only zeroes channels, so these
+    labels leave that pseudo-GT as it was: an image whose pseudo-GT holds
+    the background and ``cls`` counts in the loss.  The dropout draws of
+    the probes are the step's own (the generator is rewound)."""
+    import torch
+
+    from wseg_tpu_torch.engine.train_loop import normalise_batch_image
+    from wseg_tpu_torch.models.backbones.common import Dropout2d
+    from wseg_tpu_torch.ops.pseudo_mask import pseudo_gtmask
+
+    gen = next(m.generator for m in model.modules()
+               if isinstance(m, Dropout2d))
+    state = gen.get_state()
+    feats = {}
+    hook = model.fc8.register_forward_hook(
+        lambda mod, inp, out: feats.update(x=inp[0]))
+    with torch.no_grad():
+        image, raw = normalise_batch_image(batch["image"], batch["jitter"])
+        ones = torch.ones_like(batch["labels"])
+        try:
+            model(image, raw, ones)
+        finally:
+            hook.remove()
+        x = feats["x"][0].float().flatten(1).T          # image 0's pixels
+        mean = x.mean(dim=0)
+        centred = x - mean
+        u = torch.linalg.eigh(centred.T @ centred).eigenvectors[:, -1]
+        v = u - (u @ mean) * mean / (mean @ mean)
+        v = v * (20.0 / float(torch.quantile((x @ v).abs(), 0.9)))
+        w = torch.zeros_like(model.fc8.weight)
+        w[0, :, 0, 0] = v
+        w[cls, :, 0, 0] = -v
+        model.fc8.weight.copy_(w)
+        gen.set_state(state)
+        out = model(image, raw, ones)
+        gen.set_state(state)
+        present = pseudo_gtmask(out.masks_dec).amax(dim=(1, 2)) > 0
+    fg = present[:, 1:]
+    has_fg = fg.any(dim=-1, keepdim=True)
+    labels = torch.where(has_fg, fg.float(), batch["labels"])
+    return labels, int((present[:, 0] & has_fg[:, 0]).sum())
+
+
 def phase_train(card: str) -> dict:
     """Full-width train steps; returns the PAMR launch counts."""
     import numpy as np
@@ -386,7 +445,7 @@ def phase_train(card: str) -> dict:
         synthetic_train_batch,
     )
     from wseg_tpu_torch.models.stage_net import _clean_only
-    from wseg_tpu_torch.ops.pamr import pamr
+    from wseg_tpu_torch.ops.pamr import pamr, pamr_reference
     from wseg_tpu_torch.ops.pamr_cuda import (
         pamr_affinity_cm,
         pamr_propagate_cm,
@@ -475,14 +534,28 @@ def phase_train(card: str) -> dict:
             logits, _ = model._features(image)
         src_masks = _clean_only(torch.softmax(logits.float(), dim=-1),
                                 batch["labels"])
-        dec_k = pamr(raw, src_masks, model.pamr_kernel, model.pamr_iter,
-                     impl="auto")
-        dec_p = pamr(raw, src_masks, model.pamr_kernel, model.pamr_iter,
-                     impl="lax")
+        dec_k = pamr(raw, src_masks, model.pamr_kernel, model.pamr_iter)
+        dec_p = pamr_reference(raw, src_masks, model.pamr_kernel,
+                               model.pamr_iter)
     err = float((dec_k - dec_p).abs().max())
     print(f"masks_dec (B, 48, 48, 21) kernel path vs plain path on the card: "
           f"max_abs_err {err:.3e} (tol 1e-5)", flush=True)
     check(err <= 1e-5, f"masks_dec kernel vs plain: {err}")
+    model.train()
+
+    batch = synthetic_train_batch(rng, bs, crop)
+    batch["labels"], n_counted = sharpen_head_and_label(model, batch)
+    before = (pamr_affinity_cm.launches, pamr_propagate_cm.launches)
+    metrics = {k: float(v) for k, v in
+               train_step(model, opt, batch, 1.0, **kw).items()}
+    delta = (pamr_affinity_cm.launches - before[0],
+             pamr_propagate_cm.launches - before[1])
+    print(f"mask-loss step: {n_counted} of {bs} images hold background + "
+          f"their labels in the pseudo-GT; losses {metrics}", flush=True)
+    check(delta == (1, 1), f"mask-loss step: PAMR launches {delta}")
+    check(n_counted > 0 and metrics["loss_mask"] > 0
+          and all(np.isfinite(v) for v in metrics.values()),
+          f"the refined masks did not reach the loss: {metrics}")
     del model, opt, params, init, batches
     torch.cuda.empty_cache()
     return launches

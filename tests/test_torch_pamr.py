@@ -163,6 +163,22 @@ def test_kernels_match_plain_on_card(b, h, w, dil):
 
 
 @pytest.mark.gpu
+def test_pamr_refuses_plain_versions_on_card():
+    _card()
+    from wseg_tpu_torch.ops import pamr_cuda as pc
+    from wseg_tpu_torch.ops.pamr import pamr
+
+    im = torch.rand(1, 16, 16, 3, device="cuda")
+    m = torch.rand(1, 8, 8, 2, device="cuda")
+    before = (pc.pamr_affinity_cm.launches, pc.pamr_propagate_cm.launches)
+    with pytest.raises(ValueError, match="CPU tensors only"):
+        pamr(im, m, (1, 2), 2, impl="lax")
+    pamr(im, m, (1, 2), 2, impl="auto")
+    assert (pc.pamr_affinity_cm.launches,
+            pc.pamr_propagate_cm.launches) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.gpu
 def test_propagate_kernel_refuses_planes_above_shared_memory():
     _card()
     from wseg_tpu_torch.ops import pamr_cuda as pc

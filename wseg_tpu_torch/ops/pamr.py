@@ -8,11 +8,12 @@ the 9 * D taps (centre once per dilation); the affinity is the softmax
 over the 8 * D taps of mean_RGB(-|diff| / (1e-8 + 0.1 sigma)); then
 ``num_iter`` Jacobi steps m <- sum_t aff_t * shift_t(m).
 
-``pamr_affinity`` and ``pamr_propagate`` are the plain torch versions
-(any device).  ``pamr`` runs the CUDA kernels of ``ops/pamr_cuda.py``
-on a CUDA tensor and the plain versions on a CPU tensor; ``impl="lax"``
-keeps the plain versions on any device.  No gradient flows: callers
-pass detached masks.
+``pamr_affinity``, ``pamr_propagate`` and their composition
+``pamr_reference`` are the plain torch versions (any device), the
+reference the kernels are held to.  ``pamr`` runs the CUDA kernels of
+``ops/pamr_cuda.py`` on a CUDA tensor and the plain versions on a CPU
+tensor; it never takes the plain versions on the card.  No gradient
+flows: callers pass detached masks.
 """
 
 from __future__ import annotations
@@ -54,23 +55,38 @@ def pamr_propagate(aff: torch.Tensor, mask: torch.Tensor,
     return out.permute(0, 2, 3, 1)
 
 
+def _guide(im: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    return resize_bilinear(im.float(), (mask.shape[1], mask.shape[2]),
+                           align_corners=True)
+
+
+def pamr_reference(im: torch.Tensor, mask: torch.Tensor,
+                   dilations: Sequence[int] = DEFAULT_DILATIONS,
+                   num_iter: int = 10):
+    """``pamr`` on the plain versions, on any device."""
+    return pamr_propagate(pamr_affinity(_guide(im, mask), dilations), mask,
+                          dilations, num_iter)
+
+
 def pamr(im: torch.Tensor, mask: torch.Tensor,
          dilations: Sequence[int] = DEFAULT_DILATIONS, num_iter: int = 10,
          impl: str = "auto"):
     """Affinity from ``im`` (B, H, W, 3), resized to the mask's size,
     then propagation of ``mask`` (B, h, w, C) -> (B, h, w, C) float32.
 
-    ``impl``: "auto" or "pallas" take the kernels' wrappers (kernels on
-    a CUDA tensor, plain versions on a CPU tensor); "lax" takes the
-    plain versions on any device (the names are ``NET.PAMR_IMPL``'s).
+    ``impl`` takes ``NET.PAMR_IMPL``'s names: "auto" and "pallas" take
+    the kernels' wrappers (kernels on a CUDA tensor, plain versions on a
+    CPU tensor); "lax" asks for the plain versions, which a CPU tensor
+    gets and a CUDA tensor refuses.
     """
-    im = resize_bilinear(im.float(), (mask.shape[1], mask.shape[2]),
-                         align_corners=True)
-    if impl == "lax":
-        return pamr_propagate(pamr_affinity(im, dilations), mask, dilations,
-                              num_iter)
-    if impl not in ("auto", "pallas"):
+    if impl not in ("auto", "pallas", "lax"):
         raise ValueError(f"unknown PAMR impl {impl!r}")
-    aff = pamr_affinity_cm(_cm(im), dilations)
+    if impl == "lax":
+        if mask.is_cuda:
+            raise ValueError("PAMR impl 'lax' (the plain versions) runs on "
+                             "CPU tensors only; on the card PAMR takes its "
+                             "kernels (impl 'auto')")
+        return pamr_reference(im, mask, dilations, num_iter)
+    aff = pamr_affinity_cm(_cm(_guide(im, mask)), dilations)
     out = pamr_propagate_cm(aff, _cm(mask), dilations, num_iter)
     return out.permute(0, 2, 3, 1)

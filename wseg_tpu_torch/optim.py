@@ -35,10 +35,8 @@ GROUPS = (PRE_W, PRE_B, NEW_W, NEW_B)
 _STEM_PREFIXES = {"resnet38": ("conv1a", "b2", "b2_1", "b2_2")}
 
 
-def lr_multipliers(backbone: str):
-    if backbone in ("resnet50", "resnet101"):
-        return (1.0, 1.0, 10.0, 10.0)
-    return (1.0, 2.0, 10.0, 20.0)
+# LR multipliers of GROUPS for WRN38, the one backbone ported
+LR_MULTIPLIERS = (1.0, 2.0, 10.0, 20.0)
 
 
 def label_params(model: nn.Module, backbone: str) -> Dict[str, str]:
@@ -73,7 +71,7 @@ def make_optimizer(net_cfg, model: nn.Module):
     labels = label_params(model, backbone)
     base_lr = float(net_cfg.LR)
     wd = float(net_cfg.WEIGHT_DECAY)
-    mults = dict(zip(GROUPS, lr_multipliers(backbone)))
+    mults = dict(zip(GROUPS, LR_MULTIPLIERS))
     params = dict(model.named_parameters())
     groups = []
     for name, label in labels.items():

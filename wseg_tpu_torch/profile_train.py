@@ -5,17 +5,23 @@
 Flagship configuration (``configs/voc_resnet38.yaml``: WRN38 +
 CAM_CASA_WGAP_tf, float32 parameters with bfloat16 compute, crop 384,
 batch 8, PAMR 10 x dilations 1-24, mask loss on), seeded weights and
-synthetic batches.  Prints, each with the card's name and power limit:
+synthetic batches.  Every number comes from ``train_step`` itself.
+Prints, each with the card's name and power limit:
 
 * step ms and images/s over ``--steps`` steps with the PAMR kernels and
-  with the same program on PAMR's plain versions (``PAMR_IMPL lax``),
-  in turns kernel, plain, plain, kernel;
-* device ms per part of the step (forward incl. PAMR, PAMR alone, loss,
-  backward, optimizer), from CUDA events on the step's stream around
-  the same calls ``train_step`` makes;
-* over one profiled step: the device time under each ``train.*``
-  profiler range, the top kernels, and the device's busy share of the
-  step's wall time.
+  with PAMR's plain versions swapped in for the model's ``pamr`` (the
+  comparison only; the model never takes them on the card), in turns
+  kernel, plain, plain, kernel;
+* per unprofiled step, the host's time until ``train_step`` returns
+  (it does not wait for the card at its end, only where the step itself
+  synchronises) against the step's wall time: a step whose issue time
+  is well below its wall time leaves the host ahead of the card;
+* over one profiled step: wall time, the kernels' device time and its
+  share of that wall time (the profiler's host overhead included), the
+  host's synchronising calls, the kernels' device time under each
+  ``train.*`` range (backward is the total less the other ranges: the
+  autograd engine launches from its own thread, outside the range), and
+  the top kernels.
 
 With ``--out`` it also writes ``profile_train.json`` and a Chrome trace
 there.
@@ -49,52 +55,36 @@ def _step_ms(model, opt, batches, kw) -> float:
     return (time.perf_counter() - t0) * 1e3 / len(batches)
 
 
-def segment_ms(model, opt, batch, kw) -> dict:
-    """Device ms between CUDA events placed around the calls of one
-    ``train_step`` (forward, of which PAMR, loss, backward, optimizer)."""
-    from wseg_tpu_torch.engine import train_loop as tl
-    from wseg_tpu_torch.losses import get_criterion
+def plain_pamr_ms(model, opt, batches, kw) -> float:
+    """``_step_ms`` with the model's PAMR on its plain versions."""
     from wseg_tpu_torch.models import stage_net
+    from wseg_tpu_torch.ops.pamr import pamr_reference
 
-    ev = {}
-
-    def mark(name):
-        e = torch.cuda.Event(enable_timing=True)
-        e.record()
-        ev[name] = e
-
-    pamr = stage_net.pamr
-
-    def timed_pamr(*a, **k):
-        mark("pamr0")
-        out = pamr(*a, **k)
-        mark("pamr1")
-        return out
-
-    stage_net.pamr = timed_pamr
+    kernel_pamr = stage_net.pamr
+    stage_net.pamr = lambda im, mask, dil, n, impl: pamr_reference(
+        im, mask, dil, n)
     try:
-        labels = batch["labels"].float()
-        mark("start")
-        image, raw = tl.normalise_batch_image(batch["image"], batch["jitter"])
-        out = model(image, raw, labels)
-        mark("forward")
-        loss, _ = tl._losses(out, labels, get_criterion(kw["loss_name"]),
-                             0.0, kw["mask_loss_bce"], 1.0)
-        mark("loss")
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
-        mark("backward")
-        opt.step()
-        mark("optim")
+        return _step_ms(model, opt, batches, kw)
     finally:
-        stage_net.pamr = pamr
-    torch.cuda.synchronize()
-    return {"forward": ev["start"].elapsed_time(ev["forward"]),
-            "pamr": ev["pamr0"].elapsed_time(ev["pamr1"]),
-            "loss": ev["forward"].elapsed_time(ev["loss"]),
-            "backward": ev["loss"].elapsed_time(ev["backward"]),
-            "optim": ev["backward"].elapsed_time(ev["optim"]),
-            "step": ev["start"].elapsed_time(ev["optim"])}
+        stage_net.pamr = kernel_pamr
+
+
+def issue_ms(model, opt, batches, kw) -> dict:
+    """Medians over ``batches`` of the host's time to issue one step and
+    of the step's wall time, the card idle before each step."""
+    from wseg_tpu_torch.engine.train_loop import train_step
+
+    issue, wall = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_step(model, opt, b, 1.0, **kw)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        issue.append((t1 - t0) * 1e3)
+        wall.append((time.perf_counter() - t0) * 1e3)
+    return {"issue_ms": float(np.median(issue)),
+            "step_wall_ms": float(np.median(wall))}
 
 
 def profile_step(model, opt, batch, kw, trace_path=None) -> dict:
@@ -113,23 +103,30 @@ def profile_step(model, opt, batch, kw, trace_path=None) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     if trace_path:
         prof.export_chrome_trace(trace_path)
-    ranges, kernels, launches = {}, {}, 0
+    ranges, kernels, syncs, launches = {}, {}, {}, 0
     for evt in prof.key_averages():
         if evt.key.startswith("train."):
-            r = ranges.setdefault(evt.key, {})
-            if evt.device_type == DeviceType.CUDA:
-                r["device_span_ms"] = _dev_us(evt) / 1e3
-            else:
-                r["host_ms"] = evt.cpu_time_total / 1e3
-                r["kernel_ms"] = _dev_us(evt) / 1e3
+            if evt.device_type != DeviceType.CUDA:
+                ranges[evt.key[len("train."):]] = _dev_us(evt) / 1e3
         elif evt.device_type == DeviceType.CUDA:
-            kernels[evt.key] = _dev_us(evt, self_only=True) / 1e3
-            launches += evt.count
+            if not getattr(evt, "is_user_annotation", False):
+                kernels[evt.key] = _dev_us(evt, self_only=True) / 1e3
+                launches += evt.count
+        elif "Synchronize" in evt.key:
+            syncs[evt.key] = evt.count
     busy = sum(kernels.values())
+    # the PAMR kernels launch through ctypes, outside any aten op, so the
+    # profiler gives them to no range: they run under train.pamr
+    pamr_ms = sum(v for k, v in kernels.items() if "pamr_" in k)
+    for k in ("forward", "pamr"):
+        ranges[k] = ranges.get(k, 0.0) + pamr_ms
+    ranges["backward"] = busy - sum(ranges.get(k, 0.0) for k in
+                                    ("forward", "loss", "optim"))
     top = dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:15])
-    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+    return {"wall_ms": wall_ms, "kernel_ms": busy,
             "busy_share": busy / wall_ms, "kernel_launches": launches,
-            "ranges_ms": ranges, "top_kernels_ms": top}
+            "host_syncs": syncs, "range_kernel_ms": ranges,
+            "top_kernels_ms": top}
 
 
 def main(argv=None):
@@ -160,31 +157,31 @@ def main(argv=None):
     _step_ms(model, opt, batches[:2], kw)                  # warm-up
     step = {"kernel": [], "plain": []}
     for mode in ("kernel", "plain", "plain", "kernel"):
-        model.pamr_impl = "lax" if mode == "plain" else "auto"
-        step[mode].append(_step_ms(model, opt, batches, kw))
-    model.pamr_impl = "auto"
+        timer = plain_pamr_ms if mode == "plain" else _step_ms
+        step[mode].append(timer(model, opt, batches, kw))
     for mode, ms in step.items():
         print(f"train step, PAMR {mode}: {ms[0]:.2f} / {ms[1]:.2f} ms = "
               f"{bs * 1e3 / ms[0]:.2f} / {bs * 1e3 / ms[1]:.2f} images/s "
               f"(batch {bs}, crop {crop}, {args.steps} steps; {card})",
               flush=True)
-    segs = [segment_ms(model, opt, b, kw) for b in batches[:3]]
-    seg = {k: sorted(s[k] for s in segs)[1] for k in segs[0]}
-    print("device ms per part (CUDA events, median of 3 steps): " + ", ".join(
-        f"{k} {v:.2f}" for k, v in seg.items()) + f" ({card})", flush=True)
+    issue = issue_ms(model, opt, batches, kw)
+    print(f"unprofiled step, median of {args.steps}: host issues it in "
+          f"{issue['issue_ms']:.2f} ms of {issue['step_wall_ms']:.2f} ms wall "
+          f"({card})", flush=True)
     trace = os.path.join(args.out, "train_trace.json") if args.out else None
     prof = profile_step(model, opt, batches[0], kw, trace)
-    print(f"one profiled step: wall {prof['wall_ms']:.2f} ms, device busy "
-          f"{prof['device_busy_ms']:.2f} ms "
-          f"({100 * prof['busy_share']:.1f}%), {prof['kernel_launches']} "
-          f"kernel launches ({card})", flush=True)
-    for k, v in sorted(prof["ranges_ms"].items()):
-        print(f"  range {k}: " + ", ".join(
-            f"{name} {ms:.3f}" for name, ms in sorted(v.items())), flush=True)
+    print(f"one profiled step: wall {prof['wall_ms']:.2f} ms, kernels "
+          f"{prof['kernel_ms']:.2f} ms ({100 * prof['busy_share']:.1f}% of "
+          f"the wall, profiler overhead included), "
+          f"{prof['kernel_launches']} kernel launches, host syncs "
+          f"{prof['host_syncs']} ({card})", flush=True)
+    print("kernel ms per range: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in prof["range_kernel_ms"].items()),
+        flush=True)
     for k, v in prof["top_kernels_ms"].items():
         print(f"  kernel {v:9.3f} ms  {k[:100]}", flush=True)
     summary = {"card": card, "config": src, "batch": bs, "crop": crop,
-               "steps": args.steps, "step_ms": step, "segments_ms": seg,
+               "steps": args.steps, "step_ms": step, **issue,
                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
                **prof}
     if args.out:
