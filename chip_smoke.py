@@ -27,10 +27,21 @@ from the repository root.  Phases, each printing its own lines:
    ``sharpen_head_and_label``), where the mask loss must be non-zero;
    and the refined masks of the kernel path against the plain path on
    the same card;
-7. entry point: ``python -m wseg_tpu_torch.train`` (``main``) trains one
+7. exact-CRF kernels vs plain: the four lattice kernels (norm folding,
+   splat, blur, slice) against their plain versions on the Gaussian and
+   bilateral lattices of a photo-like 500x375 image on the 384x512
+   merge canvas, errors, median times, bounds and lattice sizes;
+8. exact serving slice: the flagship model serves the 8 images with
+   ``TEST.CRF_MODE exact`` (host lattice build + the four kernels per
+   image); checks the label maps and each kernel's launch count against
+   the count per image, the card's Q against the host C++ mean field on
+   the same merged map, and bit-equal labels from two runs; prints
+   images/s, host build ms and device ms per image;
+9. entry point: ``python -m wseg_tpu_torch.train`` (``main``) trains one
    short epoch + validation on a synthetic VOC directory and writes a
-   checkpoint, which ``wseg_tpu_torch.infer_val`` loads and serves;
-8. the card line, the kernel JSON line, and last ``{"ok": true, ...}``.
+   checkpoint, which ``wseg_tpu_torch.infer_val`` loads and serves, in
+   the fast and in the exact CRF mode;
+10. the card line, the kernel JSON line, and last ``{"ok": true, ...}``.
 
 Any failed check raises, so the script exits non-zero and prints no
 ``ok`` line.
@@ -62,6 +73,13 @@ PAMR_REL_TOL = 1e-5
 WARMUP_STEPS, TIMED_STEPS = 2, 6
 # the class that the mask-loss step's sharpened head gives its images
 MASK_CLASS = 1
+# exact CRF: one photo-like VOC image on the flagship merge canvas
+LATTICE_CANVAS = (384, 512)
+LATTICE_IMAGE = (375, 500)
+LATTICE_WINDOW = (4, 6, 375, 500)
+LATTICE_REL_TOL = 1e-5
+CRF_ITERS = 10
+ORACLE_Q_TOL = 1e-4
 # the card's published peaks (H100 SXM data sheet): HBM bytes/s and
 # float32 FLOP/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -89,6 +107,28 @@ def cuda_median_ms(fn, reps: int, warmup: int = 2) -> float:
         times.append(a.elapsed_time(b))
     times.sort()
     return times[len(times) // 2]
+
+
+def device_ms(fn, reps: int, match: str = "") -> float:
+    """Kernel time on the card per call of ``fn``: the profiler's device
+    time of every kernel (or those whose name holds ``match``) over
+    ``reps`` calls, divided by ``reps`` (no host gaps counted)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from wseg_tpu_torch.profile_slice import _dev_us
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(_dev_us(e, self_only=True) for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and match in e.key
+             and not getattr(e, "is_user_annotation", False))
+    return us / 1e3 / reps
 
 
 def bound(nbytes: float, flops: float) -> dict:
@@ -126,17 +166,22 @@ def phase_env() -> str:
 
 def phase_build(card: str) -> None:
     from wseg_tpu_torch import _build
-    from wseg_tpu_torch.ops import crf_bilateral, pamr_cuda
+    from wseg_tpu_torch.ops import (
+        crf_bilateral,
+        crf_lattice_cuda,
+        crf_native,
+        pamr_cuda,
+    )
 
-    names = ("crf_bilateral", "pamr")
+    names = ("crf_bilateral", "pamr", "crf_lattice", "permutohedral_host")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         list(pool.map(_build.build, names))
-    crf_bilateral._library()
-    pamr_cuda._library()
+    for module in (crf_bilateral, pamr_cuda, crf_lattice_cuda, crf_native):
+        module._library()
     dt = time.perf_counter() - t0
-    print(f"build {', '.join(n + '.cu' for n in names)} in parallel: "
-          f"{dt:.2f} s ({card})", flush=True)
+    print(f"build {', '.join(_build.source(n).name for n in names)} in "
+          f"parallel: {dt:.2f} s ({card})", flush=True)
     for name in names:
         for line in _build.build.log.get(name, "").splitlines():
             print(f"  nvcc {name}: {line}", flush=True)
@@ -267,32 +312,12 @@ def phase_slice(card: str) -> int:
     # scores of one image per size are finite, and the writer math
     # (incl. the kernel's CRF) on the card matches the same math on the
     # CPU (the plain bilateral version) for the first image
-    infer_mv = server.infer_mv
-    vpi = 2 if server.views.flip else 1
     for k, (img, lab) in enumerate(images[:4]):
-        canvas, owin, pads, _ = server.views.build_device(img,
-                                                          server.canvas_hw)
-        h, w = img.shape[:2]
-        shapes = server.views.view_shapes(w, h)
-        orig = torch.from_numpy(canvas[None]).to(dev)
-        ow = torch.tensor([owin], device=dev)
-        dst = torch.tensor([pads[0]], device=dev)
-        total, cls_all = 0, []
-        for si, shp in enumerate(shapes):
-            vw = torch.tensor([pads[vpi * si]], device=dev)
-            cls, part = infer_mv(orig, ow, vw, dst, out_hw=tuple(shp),
-                                 flip_pair=server.views.flip,
-                                 merge_hw=tuple(shapes[0]))
-            total = total + part
-            cls_all.append(cls)
+        total, cls_all, dst, u8 = image_merged_sums(server, img)
         check(bool(torch.isfinite(total).all()) and all(
             bool(torch.isfinite(c).all()) for c in cls_all),
             f"non-finite scores for image {k}")
         if k == 0:
-            from wseg_tpu_torch.ops.view_gen import build_views_u8
-
-            u8 = build_views_u8(orig, ow, dst, out_hw=tuple(shapes[0]),
-                                flip_pair=False)
             kw = dict(pp._kw, n_views=server.views.num_views)
             labels = torch.from_numpy(lab[None]).to(dev)
             on_card = _postprocess(total, labels, dst, u8, **kw).cpu()
@@ -561,6 +586,371 @@ def phase_train(card: str) -> dict:
     return launches
 
 
+def smooth_image(h: int, w: int, seed: int):
+    """Photo-like (h, w, 3) uint8 image: a random 1/48-resolution colour
+    field resampled bilinearly (flat regions share lattice vertices as a
+    photo's do; noise would make every pixel its own)."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator().manual_seed(seed)
+    low = torch.rand((1, 3, max(h // 48, 2), max(w // 48, 2)), generator=gen)
+    img = F.interpolate(low, size=(h, w), mode="bilinear",
+                        align_corners=False)[0]
+    return (img.permute(1, 2, 0) * 255).to(torch.uint8).numpy()
+
+
+def sparse_csr(crow, col, val, shape):
+    """A CSR matrix on the card, for the library yardstick only."""
+    import torch
+
+    return torch.sparse_csr_tensor(crow.long(), col.long(), val, size=shape,
+                                   check_invariants=True)
+
+
+def lattice_library_calls(tables, wn_pix, wn_csr, q, lat):
+    """One PyTorch call (a cuSPARSE CSR x dense product) per kernel that
+    has one: the splat S'^T q, one axis's blur B_0 lat and the slice
+    alpha S' lat as sparse matrices; the norm folding has none."""
+    import torch
+
+    m, d1, n_pix = tables.m, tables.d1, tables.ids.shape[0]
+    splat = sparse_csr(torch.cat([tables.row_ptr, tables.row_ptr[-1:]]),
+                       torch.div(tables.entries, d1, rounding_mode="floor"),
+                       wn_csr, (m + 1, n_pix))
+    real = tables.ids[:, 0] < m
+    ids, order = torch.sort(tables.ids[real].long(), dim=1)
+    vals = torch.gather(wn_pix[real], 1, order) * tables.alpha
+    crow = torch.zeros(n_pix + 1, dtype=torch.long, device=q.device)
+    crow[1:] = torch.cumsum(real.long() * d1, 0)
+    slice_ = sparse_csr(crow, ids.reshape(-1), vals.reshape(-1),
+                        (n_pix, m + 1))
+    nbr = tables.nbr[0].long()
+    cols = torch.cat([torch.arange(m, device=q.device)[:, None], nbr], 1)
+    w3 = torch.tensor([1.0, 0.5, 0.5], device=q.device).expand(m, 3)
+    keep = cols < m
+    cols, order = torch.sort(torch.where(keep, cols, m + 1), dim=1)
+    w3 = torch.gather(torch.where(keep, w3, 0.0), 1, order)
+    keep = cols <= m
+    crow = torch.zeros(m + 2, dtype=torch.long, device=q.device)
+    crow[1:m + 1] = torch.cumsum(keep.sum(1), 0)
+    crow[m + 1] = crow[m]
+    blur = sparse_csr(crow, cols[keep], w3[keep], (m + 1, m + 1))
+    return {"lattice_splat": lambda: torch.sparse.mm(splat, q),
+            "lattice_blur": lambda: torch.sparse.mm(blur, lat),
+            "lattice_slice": lambda: torch.sparse.mm(slice_, lat)}
+
+
+def phase_lattice_kernels(card: str) -> list:
+    """The four exact-CRF kernels against their plain versions on the
+    lattices of one photo-like VOC image on the flagship merge canvas:
+    (entries without launches) for the bilateral lattice, and the same
+    checks for the Gaussian one."""
+    import torch
+
+    from wseg_tpu_torch.engine.infer import ExactCRF
+    from wseg_tpu_torch.flagship import THRESHS
+    from wseg_tpu_torch.ops import crf_lattice_cuda as k
+    from wseg_tpu_torch.ops.crf_lattice import kernel_norm
+
+    hc, wc = LATTICE_CANVAS
+    img = smooth_image(*LATTICE_IMAGE, seed=0)
+    ex = ExactCRF(THRESHS, crf_iters=CRF_ITERS)
+    t0 = time.perf_counter()
+    lat_g, lat_b = ex.build(img, LATTICE_CANVAS, LATTICE_WINDOW,
+                            device="cuda")
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) * 1e3
+    print(f"exact-CRF lattices of a photo-like {LATTICE_IMAGE[1]}x"
+          f"{LATTICE_IMAGE[0]} image on the {hc}x{wc} canvas: Gaussian (d=2) "
+          f"m = {lat_g.m}, bilateral (d=5) m = {lat_b.m}, CSR rows of the "
+          f"bilateral lattice: mean {lat_b.entries.numel() / lat_b.m:.1f}, "
+          f"max {int((lat_b.row_ptr[1:] - lat_b.row_ptr[:-1]).max())} "
+          f"entries; host build {dt:.1f} ms with upload ({card})", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    q = torch.softmax(torch.randn((hc * wc, 21), generator=gen,
+                                  device="cuda") * 3, dim=-1)
+    entries = []
+    for name, tables in (("Gaussian", lat_g), ("bilateral", lat_b)):
+        norm = kernel_norm(tables)
+        wn_pix, wn_csr = k.lattice_weights(tables.w, tables.w_csr,
+                                           tables.entries, norm)
+        lat = k.lattice_splat(tables.row_ptr, tables.entries, wn_csr, q,
+                              tables.d1)
+        n_pix, d1, m, c = hc * wc, tables.d1, tables.m, 21
+        e = tables.entries.numel()
+        cases = (
+            ("lattice_weights", "wseg_tpu/ops/crf_mm.py:401",
+             k.lattice_weights, k.lattice_weights_reference,
+             (tables.w, tables.w_csr, tables.entries, norm),
+             4 * (2 * n_pix * d1 + 3 * e + n_pix), n_pix * d1 + e),
+            ("lattice_splat", "wseg_tpu/ops/crf_mm.py:453", k.lattice_splat,
+             k.lattice_splat_reference,
+             (tables.row_ptr, tables.entries, wn_csr, q, d1),
+             4 * (m + 1 + 2 * e + n_pix * c + (m + 1) * c), 2 * e * c),
+            ("lattice_blur", "wseg_tpu/ops/crf_mm.py:504", k.lattice_blur,
+             k.lattice_blur_reference, (lat, tables.nbr[0]),
+             4 * (2 * (m + 1) * c + 2 * m), 3 * m * c),
+            ("lattice_slice", "wseg_tpu/ops/crf_mm.py:504", k.lattice_slice,
+             k.lattice_slice_reference,
+             (lat, tables.ids, wn_pix, tables.alpha),
+             4 * ((m + 1) * c + 2 * n_pix * d1 + n_pix * c),
+             2 * n_pix * d1 * c + n_pix * c))
+        library = lattice_library_calls(tables, wn_pix, wn_csr, q, lat)
+        for kname, src, kernel, plain, args, nbytes, flops in cases:
+            got, want = kernel(*args), plain(*args)
+            torch.cuda.synchronize()
+            if not isinstance(got, tuple):
+                got, want = (got,), (want,)
+            max_abs = max(float((g - w).abs().max()) for g, w in
+                          zip(got, want))
+            rel = max_abs / max(float(w.abs().max()) for w in want)
+            print(f"kernel {kname} ({name} lattice, m {m}, C {c}): "
+                  f"max_abs_err {max_abs:.3e}, rel {rel:.3e} "
+                  f"(tol {LATTICE_REL_TOL:g})", flush=True)
+            check(rel <= LATTICE_REL_TOL,
+                  f"{kname} disagrees with plain on the {name} lattice: "
+                  f"rel {rel}")
+            p1 = cuda_median_ms(lambda: plain(*args), reps=10)
+            k1 = cuda_median_ms(lambda: kernel(*args), reps=30)
+            k2 = cuda_median_ms(lambda: kernel(*args), reps=30)
+            p2 = cuda_median_ms(lambda: plain(*args), reps=10)
+            lib_ms = None
+            if kname in library:
+                lib_out = library[kname]()
+                lib_err = float((lib_out - got[0]).abs().max()) / float(
+                    got[0].abs().max())
+                lib_ms = cuda_median_ms(library[kname], reps=30)
+                print(f"  library torch.sparse.mm (CSR) {lib_ms:.4f} ms, rel "
+                      f"diff to the kernel {lib_err:.3e}", flush=True)
+            bnd = bound(nbytes, flops)
+            dev = device_ms(lambda: kernel(*args), reps=20, match=kname)
+            print(f"kernel {kname} ({name}) median {k1:.4f} / {k2:.4f} ms "
+                  f"per call (CUDA events), {dev * 1e3:.2f} us of kernel "
+                  f"(profiler); plain median {p1:.4f} / {p2:.4f} ms; bound "
+                  f"{bnd['bound_ms'] * 1e3:.2f} us ({bnd['bound_by']}, "
+                  f"{nbytes / 1e6:.2f} MB) ({card})", flush=True)
+            if name == "bilateral":
+                entries.append({
+                    "name": kname, "route": "cuda",
+                    "source": "wseg_tpu_torch/csrc/crf_lattice.cu",
+                    "replaces": src, "max_abs_err": max_abs,
+                    "ms": min(k1, k2), "plain_ms": min(p1, p2), **bnd,
+                    "library_ms": lib_ms})
+    return entries
+
+
+def per_image_launches(t: int) -> dict:
+    """Kernel launches of one exact CRF: per lattice (Gaussian d=2,
+    bilateral d=5) a norm filter and t mean-field filters, each one
+    splat, d+1 blurs and one slice, and one norm folding."""
+    filters = 2 * (t + 1)
+    return {"lattice_weights": 2, "lattice_splat": filters,
+            "lattice_blur": (t + 1) * (3 + 6), "lattice_slice": filters}
+
+
+def image_merged_sums(server, img):
+    """One image through the server's fused views -> forward -> merge
+    steps, alone: (sums (1, H, W, C), cls per scale, dst window, scale-1.0
+    views (1, H, W, 3) uint8)."""
+    import torch
+
+    from wseg_tpu_torch.ops.view_gen import build_views_u8
+
+    dev = server.device
+    canvas, owin, pads, _ = server.views.build_device(img, server.canvas_hw)
+    h, w = img.shape[:2]
+    shapes = server.views.view_shapes(w, h)
+    vpi = 2 if server.views.flip else 1
+    orig = torch.from_numpy(canvas[None]).to(dev)
+    ow = torch.tensor([owin], device=dev)
+    dst = torch.tensor([pads[0]], device=dev)
+    total, cls_all = 0, []
+    for si, shp in enumerate(shapes):
+        vw = torch.tensor([pads[vpi * si]], device=dev)
+        cls, part = server.infer_mv(orig, ow, vw, dst, out_hw=tuple(shp),
+                                    flip_pair=server.views.flip,
+                                    merge_hw=tuple(shapes[0]))
+        total = total + part
+        cls_all.append(cls)
+    u8 = build_views_u8(orig, ow, dst, out_hw=tuple(shapes[0]),
+                        flip_pair=False)
+    return total, cls_all, dst, u8
+
+
+def image_merged_map(server, img, lab):
+    """One image's cleaned BG^pow merged map (Hc, Wc, C) on the card, as
+    the exact-mode writer math hands it to ExactCRF, and its window."""
+    import torch
+
+    from wseg_tpu_torch.engine.infer import _postprocess
+
+    pp = server.postprocess
+    total, _, dst, u8 = image_merged_sums(server, img)
+    _, merged = _postprocess(total, torch.from_numpy(lab[None]).cuda(), dst,
+                             u8, n_views=server.views.num_views, **pp._kw)
+    return merged[0], tuple(int(v) for v in dst[0])
+
+
+def check_against_host_oracle(img, lab, merged, window, tables, server,
+                              card: str) -> None:
+    """The card's exact CRF against the host C++ mean field on the same
+    merged map, and two runs from fresh lattices bit-equal.
+
+    The seeded model's masks are nearly uniform across classes, so an
+    image with several present classes has them nearly tied at every
+    pixel (printed: the median ratio of the second to the top score),
+    and the mean field amplifies any difference in summation order
+    there from iteration to iteration (printed: max |dQ| after t
+    iterations).  The held check takes the image with one present class
+    (its first), whose map has no such ties: max |dQ| <= 1e-4 and
+    >= 99.5% equal labels."""
+    import numpy as np
+    import torch
+
+    from wseg_tpu_torch.engine.infer import ExactCRF, _pred
+    from wseg_tpu_torch.flagship import THRESHS
+    from wseg_tpu_torch.ops.crf_exact import crf_exact
+    from wseg_tpu_torch.ops.crf_native import crf_inference_native
+
+    pt, pl, h, w = window
+
+    def card_and_host(m, t):
+        with torch.inference_mode():
+            q = crf_exact(m, *tables, t=t)[pt:pt + h, pl:pl + w]
+        host = crf_inference_native(
+            img, m[pt:pt + h, pl:pl + w].cpu().numpy(), t=t)
+        return q.cpu().numpy(), host
+
+    growth = {}
+    for t in (1, 2, 4, CRF_ITERS):
+        got, want = card_and_host(merged, t)
+        growth[t] = float(np.abs(got - want).max())
+    agree = float((got.argmax(-1) == want.argmax(-1)).mean())
+    top2 = torch.topk(merged[pt:pt + h, pl:pl + w], 2, dim=-1).values
+    tie = float((top2[..., 1] / top2[..., 0]).median())
+    print(f"exact CRF image 0 with its {int(lab.sum())} classes (median "
+          f"second/top score {tie:.6f}): card vs host max |dQ| after t "
+          f"iterations {growth}, argmax agreement at t={CRF_ITERS} "
+          f"{agree:.5f} (near-tied classes; not held)", flush=True)
+
+    one = np.zeros_like(lab)
+    one[np.flatnonzero(lab)[0]] = 1.0
+    merged1, _ = image_merged_map(server, img, one)
+    t0 = time.perf_counter()
+    got, want = card_and_host(merged1, CRF_ITERS)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    dq = float(np.abs(got - want).max())
+    agree = [float((_pred(torch.from_numpy(got), t)
+                    == _pred(torch.from_numpy(want), t)).float().mean())
+             for t in THRESHS]
+    print(f"exact CRF image 0 ({w}x{h}) with one class: card Q vs host C++ "
+          f"mean field max |dQ| {dq:.3e} (tol {ORACLE_Q_TOL:g}), label "
+          f"agreement {agree} (>= 0.995); card + host C++ CRF {host_ms:.1f} "
+          f"ms ({card})", flush=True)
+    check(dq <= ORACLE_Q_TOL, f"card Q vs host oracle: {dq}")
+    check(min(agree) >= 0.995, f"label agreement {agree}")
+
+    runs = []
+    for _ in range(2):
+        fresh = ExactCRF(THRESHS, crf_iters=CRF_ITERS)
+        lat = fresh.build(img, merged.shape[:2], window, device="cuda")
+        runs.append((fresh.q(lat, merged), fresh.run(lat, merged)))
+    same = all(torch.equal(a, b) for a, b in zip(*runs))
+    print(f"exact CRF image 0, two runs from fresh lattices: Q and label "
+          f"maps bit-equal: {same}", flush=True)
+    check(same, "two exact-CRF runs of one image differ")
+
+
+def phase_exact_slice(card: str) -> dict:
+    """The flagship serving path with TEST.CRF_MODE exact; returns the
+    lattice kernels' launch counts of the served run."""
+    import numpy as np
+    import torch
+
+    from wseg_tpu_torch.config import cfg, reset_cfg
+    from wseg_tpu_torch.flagship import (
+        THRESHS,
+        build_flagship_server,
+        load_flagship_cfg,
+        synthetic_images,
+    )
+    from wseg_tpu_torch.ops import crf_lattice_cuda as k
+
+    kernels = {f.__name__: f for f in (k.lattice_weights, k.lattice_splat,
+                                       k.lattice_blur, k.lattice_slice)}
+    reset_cfg()
+    load_flagship_cfg()
+    cfg.TEST.CRF_MODE = "exact"
+    server = build_flagship_server("cuda", seed=0)
+    pp = server.postprocess
+    check(pp.exact is not None and pp.exact.iters == CRF_ITERS,
+          "the flagship postprocess is not in exact mode")
+    images = synthetic_images(VOC_SIZES)
+    sigs = {tuple(server.views.view_shapes(w, h)): (w, h)
+            for (w, h) in VOC_SIZES}
+    try:
+        t0 = time.perf_counter()
+        server.warmup(list(sigs.values()))
+        torch.cuda.synchronize()
+        print(f"exact slice warm-up, one group per size signature: "
+              f"{time.perf_counter() - t0:.2f} s ({card})", flush=True)
+        for f in kernels.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        futs = [server.submit(img, lab) for img, lab in images]
+        results = [f.result(timeout=600) for f in futs]
+        dt = time.perf_counter() - t0
+        launches = {n: f.launches for n, f in kernels.items()}
+    finally:
+        server.close()
+    want = {n: len(images) * v
+            for n, v in per_image_launches(CRF_ITERS).items()}
+    print(f"exact slice: {len(images)} images in {dt:.3f} s = "
+          f"{len(images) / dt:.3f} images/s; launches {launches} "
+          f"(expected {want}) ({card})", flush=True)
+    check(launches == want, f"lattice launches {launches}, expected {want}")
+    for (img, lab), (res, got_lab) in zip(images, results):
+        check(np.array_equal(got_lab, lab), "labels changed")
+        for t in THRESHS:
+            for key in ("pred", "pred_crf"):
+                m = res[t][key]
+                check(m.dtype == np.uint8 and m.shape == img.shape[:2],
+                      f"{key}@{t}: {m.dtype} {m.shape} for {img.shape}")
+                check(int(m.max()) <= 20, f"{key}@{t}: label {m.max()}")
+
+    # per image: host build and device time apart, one at a time
+    ex = pp.exact
+    builds, run_ms = [], []
+    for k_img, (img, lab) in enumerate(images):
+        merged, window = image_merged_map(server, img, lab)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tables = ex.build(img, merged.shape[:2], window, device="cuda")
+        torch.cuda.synchronize()
+        builds.append((time.perf_counter() - t0) * 1e3)
+        run_ms.append(cuda_median_ms(lambda: ex.run(tables, merged),
+                                     reps=3, warmup=1))
+        if k_img == 0:
+            kernel_ms = device_ms(lambda: ex.run(tables, merged), reps=3)
+            lattice_ms = device_ms(lambda: ex.run(tables, merged), reps=3,
+                                   match="lattice_")
+            print(f"exact CRF image 0: kernels {kernel_ms:.2f} ms per run "
+                  f"(profiler), of which lattice kernels {lattice_ms:.2f} ms "
+                  f"({card})", flush=True)
+            check_against_host_oracle(img, lab, merged, window, tables,
+                                      server, card)
+    print(f"exact CRF per image: host lattice build + upload "
+          f"{[round(b, 1) for b in builds]} ms (median "
+          f"{sorted(builds)[len(builds) // 2]:.1f}); device (ExactCRF.run, "
+          f"CUDA events) {[round(d, 2) for d in run_ms]} ms (median "
+          f"{sorted(run_ms)[len(run_ms) // 2]:.2f}) ({card})",
+          flush=True)
+    del server
+    torch.cuda.empty_cache()
+    return launches
+
+
 def phase_entry(card: str) -> None:
     """``wseg_tpu_torch.train.main`` for one short epoch + validation on
     a synthetic VOC, then ``infer_val`` on its checkpoint."""
@@ -612,6 +1002,20 @@ def phase_entry(card: str) -> None:
         check(n == {"no_crf": 4, "crf": 4}, f"infer_val wrote {n}")
         print(f"entry point: infer_val loaded {suffix} and wrote {n} PNGs "
               f"at threshold 0.0 in {dt:.2f} s ({card})", flush=True)
+
+        reset_cfg()
+        out = os.path.join(tmp, "masks_exact")
+        t0 = time.perf_counter()
+        infer_val.main(common + ["--resume", suffix, "--infer-list",
+                                 os.path.join(root, "val_voc.txt"),
+                                 "--mask-output-dir", out] + sets
+                       + ["TEST.CRF_MODE", "exact"])
+        dt = time.perf_counter() - t0
+        n = {sub: len(os.listdir(os.path.join(out + "_0", sub)))
+             for sub in ("no_crf", "crf")}
+        check(n == {"no_crf": 4, "crf": 4}, f"exact infer_val wrote {n}")
+        print(f"entry point: infer_val with TEST.CRF_MODE exact wrote {n} "
+              f"PNGs at threshold 0.0 in {dt:.2f} s ({card})", flush=True)
     finally:
         reset_cfg()
         shutil.rmtree(tmp, ignore_errors=True)
@@ -623,6 +1027,12 @@ def main() -> int:
     kern = phase_kernel(card)
     kern["launches"] = phase_slice(card)
     check(kern["launches"] > 0, "the slice never launched the kernel")
+    lattice_kernels = phase_lattice_kernels(card)
+    exact_launches = phase_exact_slice(card)
+    for entry in lattice_kernels:
+        entry["launches"] = exact_launches[entry["name"]]
+        check(entry["launches"] > 0, f"the exact slice never launched "
+              f"{entry['name']}")
     pamr_kernels = phase_pamr_kernels(card)
     launches = phase_train(card)
     for entry in pamr_kernels:
@@ -633,7 +1043,8 @@ def main() -> int:
     import torch
 
     print(card, flush=True)
-    print(json.dumps({"kernels": [kern] + pamr_kernels}), flush=True)
+    print(json.dumps({"kernels": [kern] + pamr_kernels + lattice_kernels}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,10 +1,12 @@
-"""Build and load the hand-written CUDA kernels in ``csrc/``.
+"""Build and load the hand-written native code in ``csrc/``.
 
-Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
-``nvcc`` for ``sm_90a`` into a shared library under ``build/kernels/``
-at the repository root, named by a hash of its source (an edited
-source rebuilds), then loaded with ctypes.  The build runs on first use
-in a process; nothing is compiled at import.
+Each ``csrc/<name>.cu`` is a CUDA source with a plain C interface,
+compiled by ``nvcc`` for ``sm_90a``; each ``csrc/<name>.cc`` is host C++
+with a plain C interface, compiled by the C++ compiler on ``PATH``
+(``$CXX``, else ``c++``, else ``g++``).  Either becomes a shared library
+under ``build/kernels/`` at the repository root, named by a hash of its
+source and flags (an edited source rebuilds), loaded with ctypes.  The
+build runs on first use in a process; nothing is compiled at import.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+CXX_FLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17"]
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -38,25 +41,53 @@ def find_nvcc() -> str:
                        "built")
 
 
+def find_cxx() -> str:
+    for cand in (os.environ.get("CXX"), "c++", "g++"):
+        path = cand and shutil.which(cand)
+        if path:
+            return path
+    raise RuntimeError("no C++ compiler ($CXX, c++, g++ on PATH): the host "
+                       "lattice library cannot be built")
+
+
+def source(name: str) -> Path:
+    for suffix in (".cu", ".cc"):
+        path = CSRC_DIR / f"{name}{suffix}"
+        if path.exists():
+            return path
+    raise FileNotFoundError(f"no csrc/{name}.cu or csrc/{name}.cc")
+
+
+def _command(src: Path) -> list:
+    """Compiler and flags for ``src``, without the output."""
+    if src.suffix == ".cu":
+        return [find_nvcc(), *NVCC_FLAGS]
+    return [find_cxx(), *CXX_FLAGS]
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    src = source(name)
+    flags = NVCC_FLAGS if src.suffix == ".cu" else CXX_FLAGS
+    digest = hashlib.sha1(src.read_bytes()
+                          + " ".join(flags).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 
 def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its library is already built.
-    Returns the library path; raises with nvcc's output on failure."""
+    """Compile ``csrc/<name>.cu`` or ``.cc`` unless its library is already
+    built.  Returns the library path; raises with the compiler's output
+    on failure."""
     lib = library_path(name)
     if lib.exists():
         return lib
+    src = source(name)
+    cmd = _command(src)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           str(CSRC_DIR / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    proc = subprocess.run([*cmd, "-o", str(tmp), str(src)],
+                          capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}\n"
+        raise RuntimeError(f"build of {src.name} failed:\n{proc.stdout}\n"
                            f"{proc.stderr}")
     os.replace(tmp, lib)
     build.log[name] = (proc.stdout + proc.stderr).strip()
@@ -67,7 +98,7 @@ build.log = {}
 
 
 def load(name: str) -> ctypes.CDLL:
-    """Build (once) and load the kernel library ``name``."""
+    """Build (once) and load the library ``name``."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:

@@ -7,9 +7,16 @@ signature, pads the group to ``max_batch`` slots (one tensor shape per
 signature), uploads each original once, and runs per scale the fused
 views -> forward -> merge step, then the device writer math.
 
+With the exact CRF (``TEST.CRF_MODE: exact``) the writer math returns
+the merged maps too, and each image's exact CRF runs as a job on a pool
+of two host threads: the host lattice build from the image's original
+pixels, the mean field on the card, and the image's future resolved from
+there.  At most four jobs are in flight (each holds its group's merged
+maps); the worker goes on to the next group meanwhile.
+
 Left out against the JAX server: the device mesh, the finisher thread,
-the host-view fallback for images larger than the canvas, chunking of
-the postprocess by memory budget, and the exact-CRF pool.
+the host-view fallback for images larger than the canvas, and chunking
+of the postprocess by memory budget.
 """
 
 from __future__ import annotations
@@ -18,7 +25,7 @@ import queue
 import threading
 import time
 from collections import deque
-from concurrent.futures import Future
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -52,6 +59,12 @@ class MultiScaleServer:
         self.canvas_hw = (_round_up(int(ph / ms), 64),
                           _round_up(int(pw / ms), 64))
         self.postprocess = postprocess
+        self._crf_pool = None
+        if getattr(postprocess, "exact", None) is not None:
+            # two threads: one image's host lattice build (the C++ call
+            # releases the GIL) overlaps another's device mean field
+            self._crf_pool = ThreadPoolExecutor(2)
+            self._crf_slots = threading.BoundedSemaphore(4)
         self.max_batch = int(max_batch)
         self.max_wait = max_wait_ms / 1000.0
         self._q: "queue.Queue" = queue.Queue()
@@ -93,6 +106,8 @@ class MultiScaleServer:
         self._stop.set()
         self._q.put(None)
         self._worker.join(timeout=60)
+        if self._crf_pool is not None:
+            self._crf_pool.shutdown(wait=True)
         orphans = list(self._stash)
         self._stash.clear()
         while True:
@@ -222,21 +237,69 @@ class MultiScaleServer:
                                  vpi)
             return
         pp = self.postprocess
+        exact = pp.exact is not None
         if use_gt:
             labels = np.zeros((cap, total.shape[-1] - 1), np.float32)
             for gi in range(n):
                 labels[gi] = group[gi][1]
-            preds = pp.dispatch_group(total, labels, dstwin, u8,
-                                      self.views.num_views)
+            out = pp.dispatch_group(total, labels, dstwin, u8,
+                                    self.views.num_views)
+            preds, merged = out if exact else (out, None)
         else:
-            preds, labels = pp.dispatch_group_cls(
+            out = pp.dispatch_group_cls(
                 total, cls_list, dstwin, u8, self.views.num_views,
                 float(self.cfg.FP_CUT_SCORE))
+            preds, labels, merged = out if exact else (*out, None)
+        crf_jobs = (self._exact_jobs(group, pads_all, merged) if exact
+                    else [None] * n)
+        if not use_gt:
             labels = labels[:n].cpu().numpy()
         preds = preds[:n].cpu().numpy()
         for gi, (_, _, fut) in enumerate(group):
-            res = pp.finalize(preds[gi], pads_all[gi][0], sizes[gi])
-            fut.set_result((res, labels[gi]))
+            self._resolve(fut, pads_all[gi][0], sizes[gi], preds[gi],
+                          labels[gi], crf_jobs[gi])
+
+    def _exact_jobs(self, group, pads_all, merged):
+        """One exact-CRF job per image on the CRF pool: host lattice build
+        from the original pixels, then the mean field on the card over
+        the image's merged map.  Returns the jobs' futures, each ->
+        (n_crf, Hc, Wc) uint8 numpy."""
+        ex = self.postprocess.exact
+        canvas_hw = tuple(merged.shape[1:3])
+
+        def job(image, window, row):
+            try:
+                with torch.inference_mode():
+                    tables = ex.build(image, canvas_hw, window,
+                                      device=merged.device)
+                    return ex.run(tables, merged[row]).cpu().numpy()
+            finally:
+                self._crf_slots.release()
+
+        jobs = []
+        for gi, (image, _, _) in enumerate(group):
+            self._crf_slots.acquire()  # backpressure on the worker
+            jobs.append(self._crf_pool.submit(job, image, pads_all[gi][0],
+                                              gi))
+        return jobs
+
+    def _resolve(self, fut, window, size_hw, preds, labels, crf_job):
+        """Resolve one image's future: now, or when its exact-CRF job
+        ends (on the pool thread that ran it)."""
+        pp = self.postprocess
+        if crf_job is None:
+            fut.set_result((pp.finalize(preds, window, size_hw), labels))
+            return
+
+        def done(job):
+            try:
+                res = pp.finalize(preds, window, size_hw, job.result())
+            except Exception as e:
+                fut.set_exception(e)
+            else:
+                fut.set_result((res, labels))
+
+        crf_job.add_done_callback(done)
 
     def _resolve_merged(self, group, pads_all, sizes, total, cls_list, vpi):
         """No postprocess: cut each image's merged map out of the canvas,

@@ -1,7 +1,7 @@
 """The flagship setup shared by ``chip_smoke.py``, ``profile_slice`` and
 ``profile_train``: the configuration (``configs/voc_resnet38.yaml``),
 a seeded random-weight WRN38 + CAM_CASA_WGAP_tf on the card behind a
-``MultiScaleServer`` with the fast-CRF postprocess, synthetic VOC-sized
+``MultiScaleServer`` with the device postprocess, synthetic VOC-sized
 images, seeded synthetic training batches, a synthetic VOC directory
 on disk, and the card's name and power limit.
 """
@@ -63,8 +63,9 @@ def load_flagship_cfg() -> str:
 
 def build_flagship_server(device="cuda", seed: int = 0):
     """Seeded random-weight flagship model on ``device``, wrapped in a
-    ``MultiScaleServer`` with the fast-CRF device postprocess (as
-    ``infer_val`` builds it).  Reads the port's global cfg."""
+    ``MultiScaleServer`` with the device postprocess of
+    ``TEST.CRF_MODE`` (as ``infer_val`` builds it).  Reads the port's
+    global cfg."""
     from wseg_tpu_torch.config import cfg
     from wseg_tpu_torch.engine.infer import make_device_postprocess
     from wseg_tpu_torch.engine.serving import MultiScaleServer

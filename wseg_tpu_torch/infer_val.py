@@ -8,8 +8,10 @@
 Loads a port or reference ``.pth`` snapshot (a path, or a suffix
 ``eNNNXsS.SSS`` that the port's trainer wrote under
 ``--snapshot-dir``), serves every image of the filelist through
-``MultiScaleServer`` (device views, merge and fast-CRF writer math) on
-``--device`` and writes indexed PNGs per threshold to
+``MultiScaleServer`` (device views, merge and writer math with the dense
+CRF of ``TEST.CRF_MODE``: ``fast``, or ``exact`` for the permutohedral
+mean field, e.g. ``--set TEST.CRF_MODE exact``) on ``--device`` and
+writes indexed PNGs per threshold to
 ``<mask-output-dir>_<thresh>/{no_crf,crf,vis}``.
 """
 

@@ -1,18 +1,21 @@
 """Time and profile the port's serving slice on one CUDA card.
 
     python -m wseg_tpu_torch.profile_slice [--groups 3] [--out DIR]
+        [--crf-mode fast|exact]
 
 Flagship configuration (``configs/voc_resnet38.yaml``: WRN38 +
-CAM_CASA_WGAP_tf in bfloat16, scales 1/0.5/1.5/2 with flip, fast
-coarse-to-fine CRF), seeded random weights.  Prints, each with the
-card's name and power limit:
+CAM_CASA_WGAP_tf in bfloat16, scales 1/0.5/1.5/2 with flip), seeded
+random weights, with the fast coarse-to-fine CRF or (``--crf-mode
+exact``) the exact permutohedral CRF.  Prints, each with the card's
+name and power limit:
 
 * images/s over ``--groups`` full groups (TEST.BATCH_SIZE images of one
-  VOC size) with the bilateral kernel and with the same program using
-  the kernel's plain version, in turns kernel, plain, plain, kernel;
+  VOC size) with the CRF's kernels and with the same program using
+  their plain versions, in turns kernel, plain, plain, kernel;
 * device time per serving stage (the ``serve.*`` / ``crf.*`` profiler
   ranges), the top kernels, and the device's busy share of the wall
-  time, over one profiled group.
+  time, over one profiled group (in exact mode until its last image's
+  CRF is done).
 
 With ``--out`` it also writes ``profile_slice.json`` and a Chrome trace
 there.
@@ -37,20 +40,29 @@ from wseg_tpu_torch.flagship import (
 
 
 @contextlib.contextmanager
-def plain_bilateral():
-    """Run the CRF with the bilateral kernel's plain version (the
-    end-to-end baseline: the same program with the kernel off)."""
-    from wseg_tpu_torch.ops import crf as crf_mod
-    from wseg_tpu_torch.ops.crf_bilateral import (
-        bilateral_message_cm_reference,
-    )
+def plain_kernels(crf_mode: str):
+    """Run the CRF with its kernels' plain versions (the end-to-end
+    baseline: the same program with the kernels off)."""
+    from wseg_tpu_torch.ops import crf, crf_bilateral, crf_exact
+    from wseg_tpu_torch.ops import crf_lattice
+    from wseg_tpu_torch.ops import crf_lattice_cuda as k
 
-    kernel = crf_mod.bilateral_message_cm
-    crf_mod.bilateral_message_cm = bilateral_message_cm_reference
+    if crf_mode == "fast":
+        swaps = [(crf, "bilateral_message_cm",
+                  crf_bilateral.bilateral_message_cm_reference)]
+    else:
+        swaps = [(crf_exact, "lattice_weights", k.lattice_weights_reference),
+                 (crf_lattice, "lattice_splat", k.lattice_splat_reference),
+                 (crf_lattice, "lattice_blur", k.lattice_blur_reference),
+                 (crf_lattice, "lattice_slice", k.lattice_slice_reference)]
+    kept = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, plain in swaps:
+        setattr(mod, name, plain)
     try:
         yield
     finally:
-        crf_mod.bilateral_message_cm = kernel
+        for mod, name, kernel in kept:
+            setattr(mod, name, kernel)
 
 
 def serve_rate(server, images) -> float:
@@ -84,6 +96,8 @@ def profile_group(server, group_images, trace_path=None) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         server._process(group)
+        for _, _, fut in group:  # exact-CRF jobs resolve on their threads
+            fut.result(timeout=900)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     if trace_path:
@@ -112,6 +126,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--groups", type=int, default=3)
     ap.add_argument("--out", default="")
+    ap.add_argument("--crf-mode", choices=("fast", "exact"), default="fast")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice needs a CUDA card")
@@ -121,6 +136,7 @@ def main(argv=None):
     from wseg_tpu_torch.config import cfg
 
     src = load_flagship_cfg()
+    cfg.TEST.CRF_MODE = args.crf_mode
     server = build_flagship_server("cuda")
     bs = int(cfg.TEST.BATCH_SIZE)
     try:
@@ -129,14 +145,14 @@ def main(argv=None):
         images = synthetic_images([(w, h)] * (bs * args.groups), seed=1)
         rates = {"kernel": [], "plain": []}
         for mode in ("kernel", "plain", "plain", "kernel"):
-            ctx = plain_bilateral() if mode == "plain" else \
+            ctx = plain_kernels(args.crf_mode) if mode == "plain" else \
                 contextlib.nullcontext()
             with ctx:
                 rates[mode].append(serve_rate(server, images))
         for mode, r in rates.items():
             print(f"full groups of {bs} x {w}x{h}, {args.groups} groups, "
-                  f"bilateral {mode}: {r[0]:.3f} / {r[1]:.3f} images/s "
-                  f"({card})", flush=True)
+                  f"{args.crf_mode} CRF, kernels {mode}: {r[0]:.3f} / "
+                  f"{r[1]:.3f} images/s ({card})", flush=True)
         trace = os.path.join(args.out, "slice_trace.json") \
             if args.out else None
         prof = profile_group(server, images[:bs], trace)
@@ -152,7 +168,8 @@ def main(argv=None):
             flush=True)
     for k, v in prof["top_kernels_ms"].items():
         print(f"  kernel {v:9.3f} ms  {k[:100]}", flush=True)
-    summary = {"card": card, "config": src, "batch": bs,
+    summary = {"card": card, "config": src, "crf_mode": args.crf_mode,
+               "batch": bs,
                "image_wh": [w, h], "groups": args.groups,
                "images_per_s": rates, **prof}
     if args.out:
