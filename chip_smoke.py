@@ -8,16 +8,22 @@ from the repository root.  Phases, each printing its own lines:
 1. environment: torch/CUDA versions and the card (fails without CUDA);
 2. build: compiles every hand-written kernel from ``wseg_tpu_torch/csrc``
    (one nvcc per source, all started together);
-3. kernel vs plain: the bilateral-message kernel against its plain
-   PyTorch version at the flagship shapes, error and median times;
+3. kernels vs plain: the bilateral-message kernel and the Gaussian-blur
+   kernel against their plain PyTorch versions at the flagship shapes,
+   errors, median times, bounds and (blur) a cuDNN convolution as the
+   library yardstick;
 4. serving slice: WRN38 + CAM_CASA_WGAP_tf at full width (bfloat16,
    seeded random weights) serves 8 VOC-sized synthetic images through
    ``MultiScaleServer`` with the fast-CRF device postprocess; checks
-   the label maps, the kernel's launch count, finite scores, and the
-   writer math on the card against the same math on the CPU;
+   the label maps, both CRF kernels' launch counts (12 each per
+   postprocess call), finite scores, and the writer math on the card
+   against the same math on the CPU;
 5. PAMR kernels vs plain: the affinity and propagation kernels against
    their plain versions at the flagship shapes (guide (8, 48, 48, 3),
    mask (8, 48, 48, 21), dilations 1-24, 10 steps), errors and times;
+   then the three lab variants (fold, dxfirst, mxu) against theirs at
+   the same shapes, and the lab ``wseg_tpu_torch.bench_pamr`` at
+   (8, 96, 96, 21), whose run gives the variants' launch counts;
 6. train slice: the flagship trainer's model on the card (float32
    parameters, bfloat16 compute, crop 384, batch 8, mask loss on), 2
    warm-up and 6 timed SGD steps on seeded synthetic batches; checks
@@ -65,11 +71,19 @@ VOC_SIZES = [(500, 375), (375, 500), (500, 333), (333, 500)] * 2
 # half grid of a 384x512 merge canvas
 KERNEL_SHAPE = (8, 21, 192, 256)
 KERNEL_REL_TOL = 1e-5
+# the fast CRF's Gaussian blurs: (shape, radius) of the coarse grid's
+# 21-class and the full canvas's 21-class and norm (C = 1) filters
+GAUSS_CASES = (((8, 21, 192, 256), 3), ((8, 21, 384, 512), 6),
+               ((8, 1, 384, 512), 6))
 # flagship PAMR shapes: batch 8, the 384 crop at stride 8, 21 classes
 PAMR_SHAPE = (8, 48, 48, 21)
 PAMR_DIL = (1, 2, 4, 8, 12, 24)
 PAMR_ITER = 10
 PAMR_REL_TOL = 1e-5
+# bfloat16 planes and single-pass bf16 reads of the lab variants
+PAMR_BF16_TOL = 1e-2
+LAB_ARGS = ["--shape", "8,96,96,21", "--reps", "5"]
+LAB_BF16_TOL = 5e-2
 WARMUP_STEPS, TIMED_STEPS = 2, 6
 # the class that the mask-loss step's sharpened head gives its images
 MASK_CLASS = 1
@@ -168,16 +182,20 @@ def phase_build(card: str) -> None:
     from wseg_tpu_torch import _build
     from wseg_tpu_torch.ops import (
         crf_bilateral,
+        crf_gauss,
         crf_lattice_cuda,
         crf_native,
         pamr_cuda,
+        pamr_variants,
     )
 
-    names = ("crf_bilateral", "pamr", "crf_lattice", "permutohedral_host")
+    names = ("crf_bilateral", "crf_gauss", "pamr", "pamr_variants",
+             "crf_lattice", "permutohedral_host")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         list(pool.map(_build.build, names))
-    for module in (crf_bilateral, pamr_cuda, crf_lattice_cuda, crf_native):
+    for module in (crf_bilateral, crf_gauss, pamr_cuda, pamr_variants,
+                   crf_lattice_cuda, crf_native):
         module._library()
     dt = time.perf_counter() - t0
     print(f"build {', '.join(_build.source(n).name for n in names)} in "
@@ -230,7 +248,83 @@ def phase_kernel(card: str) -> dict:
             "library_ms": None}
 
 
-def phase_slice(card: str) -> int:
+def gauss_taps(r: int):
+    """The fast CRF's 1-D Gaussian at radius r (sxy = r / 2)."""
+    import math
+
+    sxy = r / 2.0
+    return [math.exp(-i * i / (2.0 * sxy * sxy)) for i in range(-r, r + 1)]
+
+
+def phase_gauss(card: str) -> dict:
+    """The Gaussian-blur kernel against its plain version at the fast
+    CRF's three filter shapes; returns the entry of the coarse grid's
+    filter (10 of the 12 launches of a postprocess call), without
+    launches."""
+    import torch
+    import torch.nn.functional as F
+
+    from wseg_tpu_torch.ops.crf_gauss import (
+        gauss_blur_cm,
+        gauss_blur_cm_reference,
+    )
+
+    torch.backends.cudnn.allow_tf32 = False
+    entry = None
+    for k, (shape, r) in enumerate(GAUSS_CASES):
+        k1d = gauss_taps(r)
+        gen = torch.Generator(device="cuda").manual_seed(3 + k)
+        x = torch.rand(shape, generator=gen, device="cuda")
+        got = gauss_blur_cm(x, k1d, r)
+        want = gauss_blur_cm_reference(x, k1d, r)
+        torch.cuda.synchronize()
+        max_abs = float((got - want).abs().max())
+        rel = max_abs / float(want.abs().max())
+        print(f"kernel gauss_blur_cm at {shape}, r {r}: max_abs_err "
+              f"{max_abs:.3e}, rel {rel:.3e} (tol {KERNEL_REL_TOL:g})",
+              flush=True)
+        check(rel <= KERNEL_REL_TOL,
+              f"Gaussian kernel disagrees with plain at {shape}: rel {rel}")
+        # the library yardstick: one cuDNN convolution of the (B*C, 1, H,
+        # W) view with the (2r+1)^2 outer-product kernel, TF32 off
+        k2d = torch.outer(torch.tensor(k1d), torch.tensor(k1d)).to(x)
+        xv = x.view(-1, 1, *shape[2:])
+
+        def library():
+            return F.conv2d(xv, k2d[None, None], padding=r)
+
+        lib_err = float((library().view(shape) - got).abs().max()) / float(
+            got.abs().max())
+        p1 = cuda_median_ms(lambda: gauss_blur_cm_reference(x, k1d, r), 10)
+        k1 = cuda_median_ms(lambda: gauss_blur_cm(x, k1d, r), 30)
+        k2 = cuda_median_ms(lambda: gauss_blur_cm(x, k1d, r), 30)
+        p2 = cuda_median_ms(lambda: gauss_blur_cm_reference(x, k1d, r), 10)
+        lib_ms = cuda_median_ms(library, 30)
+        dev = device_ms(lambda: gauss_blur_cm(x, k1d, r), reps=20,
+                        match="gauss_blur")
+        # 20 calls back to back between two events: the kernels queue up,
+        # so this is about their device time when the host keeps ahead
+        burst = cuda_median_ms(
+            lambda: [gauss_blur_cm(x, k1d, r) for _ in range(20)], 5) / 20
+        nbytes = 2 * x.numel() * 4
+        bnd = bound(nbytes, 2 * 2 * (2 * r + 1) * x.numel())
+        print(f"kernel gauss_blur_cm {shape} r {r} median {k1:.4f} / "
+              f"{k2:.4f} ms per call (CUDA events), {burst:.4f} ms per call "
+              f"of 20 back to back, {dev * 1e3:.2f} us of kernel "
+              f"(profiler); plain median {p1:.4f} / {p2:.4f} ms; "
+              f"library F.conv2d {lib_ms:.4f} ms (rel diff {lib_err:.2e}); "
+              f"bound {bnd['bound_ms'] * 1e3:.2f} us ({bnd['bound_by']}, "
+              f"{nbytes / 1e6:.1f} MB) ({card})", flush=True)
+        if entry is None:
+            entry = {"name": "gauss_blur_cm", "route": "cuda",
+                     "source": "wseg_tpu_torch/csrc/crf_gauss.cu",
+                     "replaces": "wseg_tpu/ops/crf_pallas.py:159",
+                     "max_abs_err": max_abs, "ms": min(k1, k2),
+                     "plain_ms": min(p1, p2), **bnd, "library_ms": lib_ms}
+    return entry
+
+
+def phase_slice(card: str) -> dict:
     import numpy as np
     import torch
 
@@ -243,7 +337,9 @@ def phase_slice(card: str) -> int:
         synthetic_images,
     )
     from wseg_tpu_torch.ops.crf_bilateral import bilateral_message_cm
+    from wseg_tpu_torch.ops.crf_gauss import gauss_blur_cm
 
+    kernels = (bilateral_message_cm, gauss_blur_cm)
     src = load_flagship_cfg()
     print(f"config: {src}; NET.DTYPE {cfg.NET.DTYPE}, scales "
           f"{cfg.TEST.SCALES}, flip {cfg.TEST.FLIP}, CRF "
@@ -272,33 +368,34 @@ def phase_slice(card: str) -> int:
     sigs = {tuple(server.views.view_shapes(w, h)): (w, h)
             for (w, h) in VOC_SIZES}
     try:
-        bilateral_message_cm.launches = 0
         t0 = time.perf_counter()
         for size in sigs.values():
-            before = bilateral_message_cm.launches
+            before = [f.launches for f in kernels]
             server.warmup([size])
-            delta = bilateral_message_cm.launches - before
-            check(delta == 12, f"warm-up group {size}: {delta} bilateral "
-                  "launches, expected 12")
+            delta = [f.launches - n for f, n in zip(kernels, before)]
+            check(delta == [12, 12], f"warm-up group {size}: {delta} "
+                  "bilateral and Gaussian launches, expected 12 each")
         torch.cuda.synchronize()
         print(f"warm-up, one group per size signature: "
               f"{time.perf_counter() - t0:.2f} s ({card})", flush=True)
+        pp_calls[0] = 0
+        for f in kernels:
+            f.launches = 0
         t0 = time.perf_counter()
         futs = [server.submit(img, lab) for img, lab in images]
         results = [f.result(timeout=600) for f in futs]
         dt = time.perf_counter() - t0
-        launches = bilateral_message_cm.launches
+        launches = {f.__name__: f.launches for f in kernels}
     finally:
         server.close()
     print(f"slice: {len(images)} images in {dt:.3f} s = "
           f"{len(images) / dt:.3f} images/s, {pp_calls[0]} postprocess "
-          f"calls, {launches} bilateral launches ({card})", flush=True)
-    check(pp_calls[0] >= 2 * len(sigs),
-          f"{pp_calls[0]} postprocess calls for {len(sigs)} warm-up and "
-          f">= {len(sigs)} served groups")
-    check(launches == 12 * pp_calls[0],
-          f"{launches} bilateral launches for {pp_calls[0]} postprocess "
-          "calls, expected 12 each")
+          f"calls, launches {launches} ({card})", flush=True)
+    check(pp_calls[0] >= len(sigs),
+          f"{pp_calls[0]} postprocess calls for >= {len(sigs)} served groups")
+    check(all(n == 12 * pp_calls[0] for n in launches.values()),
+          f"launches {launches} for {pp_calls[0]} postprocess calls, "
+          "expected 12 of each kernel per call")
 
     for (img, lab), (res, got_lab) in zip(images, results):
         check(np.array_equal(got_lab, lab), "labels changed")
@@ -310,8 +407,8 @@ def phase_slice(card: str) -> int:
                 check(int(m.max()) <= 20, f"{key}@{t}: label {m.max()}")
 
     # scores of one image per size are finite, and the writer math
-    # (incl. the kernel's CRF) on the card matches the same math on the
-    # CPU (the plain bilateral version) for the first image
+    # (incl. the CRF with both kernels) on the card matches the same
+    # math on the CPU (their plain versions) for the first image
     for k, (img, lab) in enumerate(images[:4]):
         total, cls_all, dst, u8 = image_merged_sums(server, img)
         check(bool(torch.isfinite(total).all()) and all(
@@ -397,6 +494,102 @@ def phase_pamr_kernels(card: str) -> list:
                         "replaces": src, "max_abs_err": max_abs,
                         "ms": min(k1, k2), "plain_ms": min(p1, p2), **bnd,
                         "library_ms": None})
+    return entries
+
+
+def phase_pamr_variants(card: str) -> list:
+    """The three lab variants against their plain versions at the
+    flagship PAMR shapes, at the lab's block sizes and types; then the
+    lab itself (``bench_pamr.main``), whose run gives each variant's
+    launch count.  Returns (fold, dxfirst, mxu) entries."""
+    import torch
+
+    from wseg_tpu_torch import bench_pamr
+    from wseg_tpu_torch.ops import pamr_variants as pv
+    from wseg_tpu_torch.ops.pamr_cuda import pamr_affinity_cm
+
+    b, h, w, c = PAMR_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    guide = torch.rand((b, 3, h, w), generator=gen, device="cuda")
+    mask = torch.softmax(torch.randn((b, c, h, w), generator=gen,
+                                     device="cuda") * 3, dim=1)
+    aff = pamr_affinity_cm(guide, PAMR_DIL)
+    t = 8 * len(PAMR_DIL)
+    nbytes = (aff.numel() + 2 * mask.numel()) * 4
+    bnd = bound(nbytes, 2 * b * c * PAMR_ITER * t * h * w)
+    cases = (  # (kernel, keywords, exact float32, JSON entry)
+        (pv.propagate_fold_cm, {"block_b": 4}, True, "propagate_fold"),
+        (pv.propagate_fold_cm, {"block_b": 4,
+                                "store_dtype": torch.bfloat16}, False, None),
+        (pv.propagate_dxfirst_cm, {"block_b": 1}, True, None),
+        (pv.propagate_dxfirst_cm, {"block_b": 4}, True, "propagate_dxfirst"),
+        (pv.propagate_dxfirst_cm, {"block_b": 4,
+                                   "store_dtype": torch.bfloat16}, False,
+         None),
+        (pv.propagate_mxu_cm, {"block_b": 2, "precision": "highest"}, True,
+         "propagate_mxu"),
+        (pv.propagate_mxu_cm, {"block_b": 2, "precision": "default"}, False,
+         None))
+    sources = {"propagate_fold": "tools/bench_pamr.py:90",
+               "propagate_dxfirst": "tools/bench_pamr.py:182",
+               "propagate_mxu": "tools/bench_pamr.py:280"}
+    entries = []
+    for kernel, kw, f32, entry in cases:
+        plain = getattr(pv, kernel.__name__ + "_reference")
+        pkw = {k: v for k, v in kw.items() if k != "block_b"}
+        label = kernel.__name__ + "(" + ", ".join(
+            f"{k}={v}" for k, v in kw.items()) + ")"
+
+        def run(kernel=kernel, kw=kw):
+            return kernel(aff, mask, PAMR_DIL, PAMR_ITER, **kw)
+
+        def run_plain(plain=plain, pkw=pkw):
+            return plain(aff, mask, PAMR_DIL, PAMR_ITER, **pkw)
+
+        got, want = run(), run_plain()
+        torch.cuda.synchronize()
+        max_abs = float((got - want).abs().max())
+        rel = max_abs / float(want.abs().max())
+        tol = (f"rel tol {PAMR_REL_TOL:g}" if f32
+               else f"abs tol {PAMR_BF16_TOL:g}")
+        print(f"kernel {label} at {PAMR_SHAPE}, {PAMR_ITER} steps: "
+              f"max_abs_err {max_abs:.3e}, rel {rel:.3e} ({tol})",
+              flush=True)
+        check(rel <= PAMR_REL_TOL if f32 else max_abs <= PAMR_BF16_TOL,
+              f"{label} disagrees with plain: {max_abs}")
+        p1 = cuda_median_ms(run_plain, reps=5)
+        k1 = cuda_median_ms(run, reps=30)
+        k2 = cuda_median_ms(run, reps=30)
+        p2 = cuda_median_ms(run_plain, reps=5)
+        dev = device_ms(run, reps=10, match="pamr_")
+        print(f"kernel {label} median {k1:.4f} / {k2:.4f} ms per call, "
+              f"{dev * 1e3:.2f} us of kernel (profiler); plain median "
+              f"{p1:.4f} / {p2:.4f} ms; bound {bnd['bound_ms'] * 1e3:.2f} us "
+              f"({bnd['bound_by']}) ({card})", flush=True)
+        if entry:
+            entries.append({"name": entry, "route": "cuda",
+                            "source": "wseg_tpu_torch/csrc/pamr_variants.cu",
+                            "replaces": sources[entry], "max_abs_err": max_abs,
+                            "ms": min(k1, k2), "plain_ms": min(p1, p2), **bnd,
+                            "library_ms": None})
+
+    kernels = (pv.propagate_fold_cm, pv.propagate_dxfirst_cm,
+               pv.propagate_mxu_cm)
+    for f in kernels:
+        f.launches = 0
+    print(f"lab: python -m wseg_tpu_torch.bench_pamr {' '.join(LAB_ARGS)}",
+          flush=True)
+    rows = bench_pamr.main(LAB_ARGS)
+    for entry, f in zip(entries, kernels):
+        entry["launches"] = f.launches
+        check(entry["launches"] > 0, f"the lab never launched {entry['name']}")
+    # against the float32 reference: the float32 rows to rounding; the
+    # bfloat16 rows (held to their own plain versions above) carry one
+    # bf16 rounding per stored step, 2e-2 after 10 steps at the lab shape
+    for r in rows:
+        low = "bf16" in r["name"] or "default" in r["name"]
+        tol = LAB_BF16_TOL if low else PAMR_REL_TOL
+        check(r["err"] <= tol, f"lab row {r['name']}: err {r['err']}")
     return entries
 
 
@@ -1025,8 +1218,12 @@ def main() -> int:
     card = phase_env()
     phase_build(card)
     kern = phase_kernel(card)
-    kern["launches"] = phase_slice(card)
-    check(kern["launches"] > 0, "the slice never launched the kernel")
+    gauss = phase_gauss(card)
+    slice_launches = phase_slice(card)
+    for entry in (kern, gauss):
+        entry["launches"] = slice_launches[entry["name"]]
+        check(entry["launches"] > 0, f"the slice never launched "
+              f"{entry['name']}")
     lattice_kernels = phase_lattice_kernels(card)
     exact_launches = phase_exact_slice(card)
     for entry in lattice_kernels:
@@ -1034,6 +1231,7 @@ def main() -> int:
         check(entry["launches"] > 0, f"the exact slice never launched "
               f"{entry['name']}")
     pamr_kernels = phase_pamr_kernels(card)
+    lab_kernels = phase_pamr_variants(card)
     launches = phase_train(card)
     for entry in pamr_kernels:
         entry["launches"] = launches[entry["name"]]
@@ -1043,8 +1241,8 @@ def main() -> int:
     import torch
 
     print(card, flush=True)
-    print(json.dumps({"kernels": [kern] + pamr_kernels + lattice_kernels}),
-          flush=True)
+    print(json.dumps({"kernels": [kern, gauss] + pamr_kernels
+                      + lattice_kernels + lab_kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

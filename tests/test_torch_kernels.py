@@ -1,5 +1,7 @@
 """The bilateral-message wrapper: CPU dispatch to the plain version, and
-(marked ``gpu``) the CUDA kernel against it on the card.
+(marked ``gpu``) the CUDA kernel against it on the card; on the card
+also the Gaussian-blur kernel and the three PAMR lab variants against
+their plain versions.
 
 Imports no JAX, so it also runs where JAX is missing:
 ``python -m pytest tests/test_torch_kernels.py -m gpu --noconftest``.
@@ -89,12 +91,14 @@ def test_kernel_matches_plain_on_card(shape, sxy):
 @pytest.mark.gpu
 def test_postprocess_launches_twelve_kernels_on_card():
     """One fast-CRF postprocess call (coarse stage: norm + 9 iterations,
-    refine stage: norm + 1) is 12 kernel launches, and its label maps
-    match the same call on the CPU."""
+    refine stage: norm + 1) is 12 launches of each of the bilateral and
+    the Gaussian kernel, and its label maps match the same call on the
+    CPU."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     from wseg_tpu_torch.engine.infer import make_device_postprocess
     from wseg_tpu_torch.ops.crf_bilateral import bilateral_message_cm
+    from wseg_tpu_torch.ops.crf_gauss import gauss_blur_cm
 
     rng = np.random.RandomState(3)
     s, h, w, c = 2, 96, 128, 21
@@ -106,9 +110,99 @@ def test_postprocess_launches_twelve_kernels_on_card():
     pp = make_device_postprocess((0.0,), (0.0,), crf_iters=10,
                                  crf_dtype="float32", crf_stride=2,
                                  crf_full_stride=2, crf_refine_iters=1)
-    before = bilateral_message_cm.launches
+    before = (bilateral_message_cm.launches, gauss_blur_cm.launches)
     on_card = pp.dispatch_group(sums.cuda(), labels, windows, imgs.cuda(),
                                 8).cpu()
-    assert bilateral_message_cm.launches == before + 12
+    assert (bilateral_message_cm.launches,
+            gauss_blur_cm.launches) == (before[0] + 12, before[1] + 12)
     on_cpu = pp.dispatch_group(sums, labels, windows, imgs, 8)
     assert float((on_card == on_cpu).float().mean()) >= 0.99
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,r", [((2, 1, 16, 24), 3),
+                                     ((2, 5, 20, 28), 6),
+                                     ((1, 3, 5, 9), 6),
+                                     ((8, 21, 384, 512), 6)])
+def test_gauss_kernel_matches_plain_on_card(shape, r):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    import math
+
+    from wseg_tpu_torch.ops.crf_gauss import (
+        gauss_blur_cm,
+        gauss_blur_cm_reference,
+    )
+
+    k1d = [math.exp(-i * i / (2.0 * (r / 2.0) ** 2)) for i in range(-r, r + 1)]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.rand(shape, generator=gen, device="cuda")
+    before = gauss_blur_cm.launches
+    got = gauss_blur_cm(x, k1d, r)
+    torch.cuda.synchronize()
+    assert gauss_blur_cm.launches == before + 1
+    want = gauss_blur_cm_reference(x, k1d, r)
+    # same taps and order; only FMA contraction differs
+    err = float((got - want).abs().max()) / float(want.abs().max())
+    assert err <= 1e-5, err
+
+
+VARIANTS = [("propagate_fold_cm", {"block_b": 4}, 1e-5),
+            ("propagate_fold_cm", {"block_b": 4,
+                                   "store_dtype": torch.bfloat16}, None),
+            ("propagate_dxfirst_cm", {"block_b": 1}, 1e-5),
+            ("propagate_dxfirst_cm", {"block_b": 3,
+                                      "store_dtype": torch.bfloat16}, None),
+            ("propagate_mxu_cm", {"block_b": 2, "precision": "highest"}, 1e-5),
+            ("propagate_mxu_cm", {"block_b": 2, "precision": "default"}, None)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,kw,rel", VARIANTS)
+@pytest.mark.parametrize("b,h,w,c,dil", [(2, 20, 24, 3, (1, 2, 4)),
+                                         (8, 48, 48, 21,
+                                          (1, 2, 4, 8, 12, 24))])
+def test_pamr_variant_matches_plain_on_card(name, kw, rel, b, h, w, c, dil):
+    """float32 variants within 1e-5 relative (sum order and FMA);
+    bfloat16 planes and single-pass bf16 reads within 1e-2 absolute (a
+    step's rounding may fall one bf16 ulp apart)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from wseg_tpu_torch.ops import pamr_variants as pv
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    aff = torch.softmax(torch.randn((b, 8 * len(dil), h, w), generator=gen,
+                                    device="cuda"), dim=1)
+    m = torch.softmax(torch.randn((b, c, h, w), generator=gen,
+                                  device="cuda") * 3, dim=1)
+    kernel = getattr(pv, name)
+    plain = getattr(pv, name + "_reference")
+    before = kernel.launches
+    got = kernel(aff, m, dil, 10, **kw)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    want = plain(aff, m, dil, 10,
+                 **{k: v for k, v in kw.items() if k != "block_b"})
+    err = float((got - want).abs().max())
+    if rel is None:
+        assert err <= 1e-2, err
+    else:
+        assert err <= rel * float(want.abs().max()), err
+
+
+@pytest.mark.gpu
+def test_pamr_variants_refuse_shapes_above_their_limits():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from wseg_tpu_torch.ops import pamr_variants as pv
+
+    aff = torch.zeros(1, 8, 100, 100, device="cuda")
+    m = torch.zeros(1, 2, 100, 100, device="cuda")
+    with pytest.raises(ValueError, match="pixels"):
+        pv.propagate_fold_cm(aff, m, (1,), 1)
+    with pytest.raises(ValueError, match="block_b 5"):
+        pv.propagate_dxfirst_cm(aff[:, :, :8, :8].contiguous(),
+                                m[:, :, :8, :8].contiguous(), (1,), 1,
+                                block_b=5)
+    with pytest.raises(ValueError, match="output tiles"):
+        pv.propagate_mxu_cm(aff, m, (1,), 1, block_b=4)

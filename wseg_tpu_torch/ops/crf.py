@@ -2,12 +2,13 @@
 
 Mirror of ``wseg_tpu/ops/crf.py``'s ``crf_inference_jax`` /
 ``_crf_jax_cm``: unary from the probabilities, Gaussian pairwise (sxy 3,
-compat 3) as a separable slice-sum, bilateral pairwise (sxy 80, srgb
+compat 3) as a zero-padded separable blur, bilateral pairwise (sxy 80, srgb
 13, compat 10) sampled on a sparse displacement grid with per-tap
 colour weights, symmetric kernel normalisation, ``t`` iterations.
 
-The bilateral message goes through ``ops/crf_bilateral.py`` (the CUDA
-kernel on the card, its plain version on the CPU) with the semantics of
+The Gaussian blur goes through ``ops/crf_gauss.py`` and the bilateral
+message through ``ops/crf_bilateral.py`` (each the CUDA kernel on the
+card, its plain version on the CPU), the message with the semantics of
 the JAX package's Pallas path: one weight stack ``tap_sp[k] *
 colour_w[k]`` cast to ``dtype`` and then to bfloat16, the message input
 cast to ``dtype`` and read as float32, float32 accumulation, taps
@@ -28,6 +29,7 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 
 from wseg_tpu_torch.ops.crf_bilateral import bilateral_message_cm
+from wseg_tpu_torch.ops.crf_gauss import gauss_blur_cm
 
 
 def _bilateral_taps(sxy: float, spacing_div: float = 2.0,
@@ -170,12 +172,7 @@ def _crf_torch_cm(img, probs, t, sxy_gaussian, compat_gaussian,
            np.exp(-x1d * x1d / (2.0 * sxy_gaussian * sxy_gaussian))]
 
     def gauss_filter(x):
-        x = x * valid_mask
-        xp = F.pad(x, (0, 0, rg, rg))
-        acc = sum(k1d[i] * xp[:, :, i:i + H] for i in range(2 * rg + 1))
-        xp = F.pad(acc, (rg, rg))
-        return sum(k1d[i] * xp[:, :, :, i:i + W]
-                   for i in range(2 * rg + 1))
+        return gauss_blur_cm((x * valid_mask).contiguous(), k1d, rg)
 
     # --- bilateral: optionally on a strided grid
     s = int(bilateral_stride)

@@ -173,11 +173,10 @@ def pamr_affinity_cm(im: torch.Tensor,
     return out
 
 
-def pamr_propagate_cm(aff: torch.Tensor, mask: torch.Tensor,
-                      dilations: Sequence[int],
-                      num_iter: int = 10) -> torch.Tensor:
-    """aff (B, 8 * D, H, W), mask (B, C, H, W), both float32 ->
-    (B, C, H, W) float32 after ``num_iter`` Jacobi steps, one launch."""
+def _propagate_args(aff: torch.Tensor, mask: torch.Tensor,
+                    dilations: Sequence[int],
+                    num_iter: int) -> Tuple[int, ...]:
+    """Check a propagation's arguments; returns the dilations."""
     dil = _dilations(dilations)
     _check(aff, "aff")
     _check(mask, "mask")
@@ -189,6 +188,16 @@ def pamr_propagate_cm(aff: torch.Tensor, mask: torch.Tensor,
         raise ValueError(f"aff on {aff.device}, mask on {mask.device}")
     if int(num_iter) < 0:
         raise ValueError(f"num_iter must be >= 0, got {num_iter}")
+    return dil
+
+
+def pamr_propagate_cm(aff: torch.Tensor, mask: torch.Tensor,
+                      dilations: Sequence[int],
+                      num_iter: int = 10) -> torch.Tensor:
+    """aff (B, 8 * D, H, W), mask (B, C, H, W), both float32 ->
+    (B, C, H, W) float32 after ``num_iter`` Jacobi steps, one launch."""
+    dil = _propagate_args(aff, mask, dilations, num_iter)
+    b, c, h, w = mask.shape
     if mask.device.type == "cpu":
         return pamr_propagate_cm_reference(aff, mask, dil, num_iter)
     _require_cuda(mask)

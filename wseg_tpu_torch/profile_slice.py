@@ -43,13 +43,14 @@ from wseg_tpu_torch.flagship import (
 def plain_kernels(crf_mode: str):
     """Run the CRF with its kernels' plain versions (the end-to-end
     baseline: the same program with the kernels off)."""
-    from wseg_tpu_torch.ops import crf, crf_bilateral, crf_exact
+    from wseg_tpu_torch.ops import crf, crf_bilateral, crf_exact, crf_gauss
     from wseg_tpu_torch.ops import crf_lattice
     from wseg_tpu_torch.ops import crf_lattice_cuda as k
 
     if crf_mode == "fast":
         swaps = [(crf, "bilateral_message_cm",
-                  crf_bilateral.bilateral_message_cm_reference)]
+                  crf_bilateral.bilateral_message_cm_reference),
+                 (crf, "gauss_blur_cm", crf_gauss.gauss_blur_cm_reference)]
     else:
         swaps = [(crf_exact, "lattice_weights", k.lattice_weights_reference),
                  (crf_lattice, "lattice_splat", k.lattice_splat_reference),
