@@ -34,15 +34,20 @@ from the repository root.  Phases, each printing its own lines:
    and the refined masks of the kernel path against the plain path on
    the same card;
 7. exact-CRF kernels vs plain: the four lattice kernels (norm folding,
-   splat, blur, slice) against their plain versions on the Gaussian and
-   bilateral lattices of a photo-like 500x375 image on the 384x512
-   merge canvas, errors, median times, bounds and lattice sizes;
+   the split splat, the all-axes blur, slice) against their plain
+   versions on the Gaussian and bilateral lattices of a photo-like
+   500x375 image on the 384x512 merge canvas (the blur also bit for bit
+   against the chain of per-axis plain blurs), errors, median times,
+   bounds, cuSPARSE products as the library yardstick and lattice
+   sizes; the splat at several chunk sizes; the one-call filter
+   against the same steps called one by one;
 8. exact serving slice: the flagship model serves the 8 images with
-   ``TEST.CRF_MODE exact`` (host lattice build + the four kernels per
-   image); checks the label maps and each kernel's launch count against
-   the count per image, the card's Q against the host C++ mean field on
-   the same merged map, and bit-equal labels from two runs; prints
-   images/s, host build ms and device ms per image;
+   ``TEST.CRF_MODE exact`` (host lattice build + one host call of the
+   splat, blur and slice kernels per filter); checks the label maps and
+   each kernel's launch count against the count per image, the card's Q
+   against the host C++ mean field on the same merged map, and bit-equal
+   labels from two runs; prints images/s, host build ms and device ms
+   per image;
 9. entry point: ``python -m wseg_tpu_torch.train`` (``main``) trains one
    short epoch + validation on a synthetic VOC directory and writes a
    checkpoint, which ``wseg_tpu_torch.infer_val`` loads and serves, in
@@ -92,6 +97,8 @@ LATTICE_CANVAS = (384, 512)
 LATTICE_IMAGE = (375, 500)
 LATTICE_WINDOW = (4, 6, 375, 500)
 LATTICE_REL_TOL = 1e-5
+# chunk sizes of the splat's split table timed on the bilateral lattice
+SPLAT_CHUNKS = (32, 64, 128, 256)
 CRF_ITERS = 10
 ORACLE_Q_TOL = 1e-4
 # the card's published peaks (H100 SXM data sheet): HBM bytes/s and
@@ -135,13 +142,16 @@ def device_ms(fn, reps: int, match: str = "") -> float:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(_dev_us(e, self_only=True) for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and match in e.key
-             and not getattr(e, "is_user_annotation", False))
+    for _ in range(3):  # a profiler window now and then records no kernel
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(_dev_us(e, self_only=True) for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and match in e.key
+                 and not getattr(e, "is_user_annotation", False))
+        if us > 0:
+            break
     return us / 1e3 / reps
 
 
@@ -802,9 +812,10 @@ def sparse_csr(crow, col, val, shape):
 
 
 def lattice_library_calls(tables, wn_pix, wn_csr, q, lat):
-    """One PyTorch call (a cuSPARSE CSR x dense product) per kernel that
-    has one: the splat S'^T q, one axis's blur B_0 lat and the slice
-    alpha S' lat as sparse matrices; the norm folding has none."""
+    """PyTorch's cuSPARSE CSR x dense products for the kernels that have
+    one: the splat S'^T q (one call), the blur B_d ... B_0 lat (d+1
+    calls, one per axis) and the slice alpha S' lat (one call); the norm
+    folding has none."""
     import torch
 
     m, d1, n_pix = tables.m, tables.d1, tables.ids.shape[0]
@@ -818,33 +829,152 @@ def lattice_library_calls(tables, wn_pix, wn_csr, q, lat):
     crow[1:] = torch.cumsum(real.long() * d1, 0)
     slice_ = sparse_csr(crow, ids.reshape(-1), vals.reshape(-1),
                         (n_pix, m + 1))
-    nbr = tables.nbr[0].long()
-    cols = torch.cat([torch.arange(m, device=q.device)[:, None], nbr], 1)
-    w3 = torch.tensor([1.0, 0.5, 0.5], device=q.device).expand(m, 3)
-    keep = cols < m
-    cols, order = torch.sort(torch.where(keep, cols, m + 1), dim=1)
-    w3 = torch.gather(torch.where(keep, w3, 0.0), 1, order)
-    keep = cols <= m
-    crow = torch.zeros(m + 2, dtype=torch.long, device=q.device)
-    crow[1:m + 1] = torch.cumsum(keep.sum(1), 0)
-    crow[m + 1] = crow[m]
-    blur = sparse_csr(crow, cols[keep], w3[keep], (m + 1, m + 1))
+    blurs = []
+    for j in range(d1):
+        nbr = tables.nbr[j].long()
+        cols = torch.cat([torch.arange(m, device=q.device)[:, None], nbr], 1)
+        w3 = torch.tensor([1.0, 0.5, 0.5], device=q.device).expand(m, 3)
+        keep = cols < m
+        cols, order = torch.sort(torch.where(keep, cols, m + 1), dim=1)
+        w3 = torch.gather(torch.where(keep, w3, 0.0), 1, order)
+        keep = cols <= m
+        crow = torch.zeros(m + 2, dtype=torch.long, device=q.device)
+        crow[1:m + 1] = torch.cumsum(keep.sum(1), 0)
+        crow[m + 1] = crow[m]
+        blurs.append(sparse_csr(crow, cols[keep], w3[keep], (m + 1, m + 1)))
+
+    def blur_axes():
+        out = lat
+        for b in blurs:
+            out = torch.sparse.mm(b, out)
+        return out
+
     return {"lattice_splat": lambda: torch.sparse.mm(splat, q),
-            "lattice_blur": lambda: torch.sparse.mm(blur, lat),
+            "lattice_blur": blur_axes,
             "lattice_slice": lambda: torch.sparse.mm(slice_, lat)}
+
+
+def host_us(fn, n: int = 50) -> float:
+    """Host time to enqueue one call of ``fn`` (us), over ``n`` calls
+    enqueued back to back while the card works behind them."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / n * 1e6
+
+
+def lattice_split_sweep(tables, wn_csr, q, want, card: str) -> None:
+    """The splat at several chunk sizes of its split table (the tables'
+    own is ops/crf_lattice.SPLAT_CHUNK): chunks, split rows, call and
+    kernel time, error against the plain splat."""
+    import torch
+
+    from wseg_tpu_torch.ops import crf_lattice_cuda as k
+    from wseg_tpu_torch.ops.crf_lattice import split_table
+
+    row_ptr = tables.row_ptr.cpu().numpy()
+    for chunk in SPLAT_CHUNKS:
+        cp, cr, sp = (torch.from_numpy(a).cuda()
+                      for a in split_table(row_ptr, chunk))
+        tk = tables._replace(chunk_ptr=cp, chunk_row=cr, splits=sp)
+        rel = float((k.lattice_splat(tk, wn_csr, q) - want).abs().max()) / \
+            float(want.abs().max())
+        check(rel <= LATTICE_REL_TOL, f"splat with chunks of {chunk}: {rel}")
+        ms = cuda_median_ms(lambda: k.lattice_splat(tk, wn_csr, q), reps=30)
+        dev = device_ms(lambda: k.lattice_splat(tk, wn_csr, q), reps=20,
+                        match="lattice_splat")
+        print(f"  splat with chunks of {chunk}: {cr.numel()} chunks, "
+              f"{sp.shape[0]} split rows; median {ms:.4f} ms per call, "
+              f"{dev * 1e3:.2f} us of kernel; rel err {rel:.3e} ({card})",
+              flush=True)
+
+
+def lattice_filter_row(name, tables, wn_pix, wn_csr, q, card: str) -> None:
+    """The one-call filter (``lattice_filter_cuda``) against its steps
+    called one by one (splat, blur, slice: 3 calls; splat, d+1 one-axis
+    blurs, slice: d+3 calls, a launch per blur axis) and the plain filter:
+    results, call times, host enqueue time, kernel time and bound."""
+    import torch
+
+    from wseg_tpu_torch.ops import crf_lattice_cuda as k
+
+    def one():
+        return k.lattice_filter_cuda(q, tables, wn_pix, wn_csr)
+
+    def steps(per_axis: bool):
+        lat = k.lattice_splat(tables, wn_csr, q)
+        for nbr in (tables.nbr if per_axis else [tables.nbr]):
+            lat = k.lattice_blur(lat, nbr)
+        return k.lattice_slice(lat, tables.ids, wn_pix, tables.alpha)
+
+    def plain():
+        return k.lattice_filter_reference(q, tables, wn_pix, wn_csr)
+
+    got, want = one(), plain()
+    torch.cuda.synchronize()
+    rel = float((got - want).abs().max()) / float(want.abs().max())
+    same = (torch.equal(got, steps(False)), torch.equal(got, steps(True)))
+    print(f"filter ({name} lattice): one call vs plain rel {rel:.3e} (tol "
+          f"{LATTICE_REL_TOL:g}); bit-equal to the 3 step calls / the "
+          f"d+3 step calls: {same}", flush=True)
+    check(rel <= LATTICE_REL_TOL and all(same),
+          f"one-call filter on the {name} lattice: rel {rel}, {same}")
+    runs = {"one call": one, "3 step calls": lambda: steps(False),
+            f"{tables.d1 + 2} step calls": lambda: steps(True),
+            "plain": plain}
+    order = ["one call", "3 step calls", f"{tables.d1 + 2} step calls",
+             "plain", "plain", f"{tables.d1 + 2} step calls", "3 step calls",
+             "one call"]
+    ms = {key: [] for key in runs}
+    for key in order:
+        ms[key].append(cuda_median_ms(runs[key],
+                                      reps=10 if key == "plain" else 30))
+    host = {key: host_us(runs[key]) for key in runs if key != "plain"}
+    # the one call's host time in parts: argument checks, device and
+    # stream lookup, the two allocations; the rest is ctypes + 3 launches
+    i32, f32 = torch.int32, torch.float32
+    parts = {
+        "checks": host_us(lambda: k._splat_tables(
+            "lattice_filter", tables, wn_csr, q, nbr=(tables.nbr, i32, 3),
+            ids=(tables.ids, i32, 2), w_pix=(wn_pix, f32, 2))),
+        "device+stream": host_us(lambda: k._launch(
+            lambda stream: 0, "none", q.device)),
+        "allocation": host_us(lambda: torch.empty(
+            ((q.shape[0] + 2 * (tables.m + 1) + tables.chunk_row.numel())
+             * q.shape[1],), dtype=f32, device=q.device))}
+    dev = device_ms(one, reps=20, match="lattice_")
+    n_pix, d1, m, c = q.shape[0], tables.d1, tables.m, q.shape[1]
+    e, n_ch = tables.entries.numel(), tables.chunk_row.numel()
+    bnd = bound(4 * (2 * n_pix * c + 2 * n_ch + 1 + 2 * tables.splits.shape[0]
+                     + 2 * e + 2 * d1 * m + 2 * n_pix * d1),
+                2 * e * c + 3 * d1 * m * c + 2 * n_pix * d1 * c + n_pix * c)
+    print(f"filter ({name}) median ms per call, in turns: " + "; ".join(
+        f"{key} {' / '.join(f'{t:.4f}' for t in ts)}"
+        for key, ts in ms.items()) + "; host enqueue us per call: " + ", ".join(
+        f"{key} {us:.1f}" for key, us in host.items()) + " (one call: "
+        + ", ".join(f"{key} {us:.1f}" for key, us in parts.items())
+        + f"); one call {dev * 1e3:.2f} us of kernels (profiler); bound "
+        f"{bnd['bound_ms'] * 1e3:.2f} us ({bnd['bound_by']}) ({card})",
+        flush=True)
 
 
 def phase_lattice_kernels(card: str) -> list:
     """The four exact-CRF kernels against their plain versions on the
     lattices of one photo-like VOC image on the flagship merge canvas:
     (entries without launches) for the bilateral lattice, and the same
-    checks for the Gaussian one."""
+    checks for the Gaussian one; then per lattice the one-call filter,
+    and for the bilateral one the splat at several chunk sizes."""
     import torch
 
     from wseg_tpu_torch.engine.infer import ExactCRF
     from wseg_tpu_torch.flagship import THRESHS
     from wseg_tpu_torch.ops import crf_lattice_cuda as k
-    from wseg_tpu_torch.ops.crf_lattice import kernel_norm
+    from wseg_tpu_torch.ops.crf_lattice import SPLAT_CHUNK, kernel_norm
 
     hc, wc = LATTICE_CANVAS
     img = smooth_image(*LATTICE_IMAGE, seed=0)
@@ -859,7 +989,11 @@ def phase_lattice_kernels(card: str) -> list:
           f"m = {lat_g.m}, bilateral (d=5) m = {lat_b.m}, CSR rows of the "
           f"bilateral lattice: mean {lat_b.entries.numel() / lat_b.m:.1f}, "
           f"max {int((lat_b.row_ptr[1:] - lat_b.row_ptr[:-1]).max())} "
-          f"entries; host build {dt:.1f} ms with upload ({card})", flush=True)
+          f"entries; split tables (chunks of {SPLAT_CHUNK}): Gaussian "
+          f"{lat_g.chunk_row.numel()} chunks, {lat_g.splits.shape[0]} split "
+          f"rows, bilateral {lat_b.chunk_row.numel()} chunks, "
+          f"{lat_b.splits.shape[0]} split rows; host build {dt:.1f} ms with "
+          f"upload ({card})", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(2)
     q = torch.softmax(torch.randn((hc * wc, 21), generator=gen,
                                   device="cuda") * 3, dim=-1)
@@ -868,61 +1002,87 @@ def phase_lattice_kernels(card: str) -> list:
         norm = kernel_norm(tables)
         wn_pix, wn_csr = k.lattice_weights(tables.w, tables.w_csr,
                                            tables.entries, norm)
-        lat = k.lattice_splat(tables.row_ptr, tables.entries, wn_csr, q,
-                              tables.d1)
+        lat = k.lattice_splat(tables, wn_csr, q)
         n_pix, d1, m, c = hc * wc, tables.d1, tables.m, 21
-        e = tables.entries.numel()
-        cases = (
+        e, n_ch = tables.entries.numel(), tables.chunk_row.numel()
+        n_split = tables.splits.shape[0]
+        cases = (  # name, TPU kernel, kernel call, plain call, bytes, flops
             ("lattice_weights", "wseg_tpu/ops/crf_mm.py:401",
-             k.lattice_weights, k.lattice_weights_reference,
-             (tables.w, tables.w_csr, tables.entries, norm),
+             lambda: k.lattice_weights(tables.w, tables.w_csr,
+                                       tables.entries, norm),
+             lambda: k.lattice_weights_reference(tables.w, tables.w_csr,
+                                                 tables.entries, norm),
              4 * (2 * n_pix * d1 + 3 * e + n_pix), n_pix * d1 + e),
-            ("lattice_splat", "wseg_tpu/ops/crf_mm.py:453", k.lattice_splat,
-             k.lattice_splat_reference,
-             (tables.row_ptr, tables.entries, wn_csr, q, d1),
-             4 * (m + 1 + 2 * e + n_pix * c + (m + 1) * c), 2 * e * c),
-            ("lattice_blur", "wseg_tpu/ops/crf_mm.py:504", k.lattice_blur,
-             k.lattice_blur_reference, (lat, tables.nbr[0]),
-             4 * (2 * (m + 1) * c + 2 * m), 3 * m * c),
-            ("lattice_slice", "wseg_tpu/ops/crf_mm.py:504", k.lattice_slice,
-             k.lattice_slice_reference,
-             (lat, tables.ids, wn_pix, tables.alpha),
+            ("lattice_splat", "wseg_tpu/ops/crf_mm.py:453",
+             lambda: k.lattice_splat(tables, wn_csr, q),
+             lambda: k.lattice_splat_split_reference(
+                 tables.chunk_ptr, tables.chunk_row, tables.entries, wn_csr,
+                 q, d1),
+             4 * (2 * n_ch + 1 + 2 * n_split + 2 * e + n_pix * c
+                  + (m + 1) * c), 2 * e * c),
+            ("lattice_blur", "wseg_tpu/ops/crf_mm.py:504",
+             lambda: k.lattice_blur(lat, tables.nbr),
+             lambda: k.lattice_blur_axes_reference(lat, tables.nbr),
+             4 * (2 * (m + 1) * c + 2 * d1 * m), 3 * d1 * m * c),
+            ("lattice_slice", "wseg_tpu/ops/crf_mm.py:504",
+             lambda: k.lattice_slice(lat, tables.ids, wn_pix, tables.alpha),
+             lambda: k.lattice_slice_reference(lat, tables.ids, wn_pix,
+                                               tables.alpha),
              4 * ((m + 1) * c + 2 * n_pix * d1 + n_pix * c),
              2 * n_pix * d1 * c + n_pix * c))
         library = lattice_library_calls(tables, wn_pix, wn_csr, q, lat)
-        for kname, src, kernel, plain, args, nbytes, flops in cases:
-            got, want = kernel(*args), plain(*args)
+        for kname, src, kernel, plain, nbytes, flops in cases:
+            got, want = kernel(), plain()
             torch.cuda.synchronize()
             if not isinstance(got, tuple):
                 got, want = (got,), (want,)
             max_abs = max(float((g - w).abs().max()) for g, w in
                           zip(got, want))
             rel = max_abs / max(float(w.abs().max()) for w in want)
+            note = ""
+            if kname == "lattice_splat":
+                rows = k.lattice_splat_reference(tables.row_ptr,
+                                                 tables.entries, wn_csr, q, d1)
+                note = (f", rel to the row-order plain splat "
+                        f"{float((got[0] - rows).abs().max()) / float(rows.abs().max()):.3e}")
+            if kname == "lattice_blur":  # the chain of d+1 per-axis blurs
+                same = torch.equal(got[0], want[0])
+                note = f", bit-equal to the {d1} per-axis plain blurs: {same}"
+                check(same, f"all-axes blur vs per-axis chain on the {name} "
+                      "lattice: not bit-equal")
             print(f"kernel {kname} ({name} lattice, m {m}, C {c}): "
                   f"max_abs_err {max_abs:.3e}, rel {rel:.3e} "
-                  f"(tol {LATTICE_REL_TOL:g})", flush=True)
+                  f"(tol {LATTICE_REL_TOL:g}){note}", flush=True)
             check(rel <= LATTICE_REL_TOL,
                   f"{kname} disagrees with plain on the {name} lattice: "
                   f"rel {rel}")
-            p1 = cuda_median_ms(lambda: plain(*args), reps=10)
-            k1 = cuda_median_ms(lambda: kernel(*args), reps=30)
-            k2 = cuda_median_ms(lambda: kernel(*args), reps=30)
-            p2 = cuda_median_ms(lambda: plain(*args), reps=10)
+            p1 = cuda_median_ms(plain, reps=10)
+            k1 = cuda_median_ms(kernel, reps=30)
+            k2 = cuda_median_ms(kernel, reps=30)
+            p2 = cuda_median_ms(plain, reps=10)
             lib_ms = None
             if kname in library:
                 lib_out = library[kname]()
                 lib_err = float((lib_out - got[0]).abs().max()) / float(
                     got[0].abs().max())
                 lib_ms = cuda_median_ms(library[kname], reps=30)
-                print(f"  library torch.sparse.mm (CSR) {lib_ms:.4f} ms, rel "
-                      f"diff to the kernel {lib_err:.3e}", flush=True)
+                lib_dev = device_ms(library[kname], reps=20)
+                print(f"  library torch.sparse.mm (CSR"
+                      f"{f', {d1} calls' if kname == 'lattice_blur' else ''})"
+                      f" {lib_ms:.4f} ms per call, {lib_dev * 1e3:.2f} us of "
+                      f"kernel (profiler), rel diff to the kernel "
+                      f"{lib_err:.3e}", flush=True)
             bnd = bound(nbytes, flops)
-            dev = device_ms(lambda: kernel(*args), reps=20, match=kname)
+            dev = device_ms(kernel, reps=20, match=kname)
+            enqueue = host_us(kernel)
             print(f"kernel {kname} ({name}) median {k1:.4f} / {k2:.4f} ms "
                   f"per call (CUDA events), {dev * 1e3:.2f} us of kernel "
-                  f"(profiler); plain median {p1:.4f} / {p2:.4f} ms; bound "
+                  f"(profiler), host enqueue {enqueue:.1f} us per call; plain "
+                  f"median {p1:.4f} / {p2:.4f} ms; bound "
                   f"{bnd['bound_ms'] * 1e3:.2f} us ({bnd['bound_by']}, "
                   f"{nbytes / 1e6:.2f} MB) ({card})", flush=True)
+            if kname == "lattice_splat" and name == "bilateral":
+                lattice_split_sweep(tables, wn_csr, q, want[0], card)
             if name == "bilateral":
                 entries.append({
                     "name": kname, "route": "cuda",
@@ -930,16 +1090,18 @@ def phase_lattice_kernels(card: str) -> list:
                     "replaces": src, "max_abs_err": max_abs,
                     "ms": min(k1, k2), "plain_ms": min(p1, p2), **bnd,
                     "library_ms": lib_ms})
+        lattice_filter_row(name, tables, wn_pix, wn_csr, q, card)
     return entries
 
 
 def per_image_launches(t: int) -> dict:
     """Kernel launches of one exact CRF: per lattice (Gaussian d=2,
     bilateral d=5) a norm filter and t mean-field filters, each one
-    splat, d+1 blurs and one slice, and one norm folding."""
+    splat, one blur of all d+1 axes and one slice, and one norm
+    folding."""
     filters = 2 * (t + 1)
     return {"lattice_weights": 2, "lattice_splat": filters,
-            "lattice_blur": (t + 1) * (3 + 6), "lattice_slice": filters}
+            "lattice_blur": filters, "lattice_slice": filters}
 
 
 def image_merged_sums(server, img):
@@ -1128,8 +1290,13 @@ def phase_exact_slice(card: str) -> dict:
             kernel_ms = device_ms(lambda: ex.run(tables, merged), reps=3)
             lattice_ms = device_ms(lambda: ex.run(tables, merged), reps=3,
                                    match="lattice_")
+            lat_b = tables[1]
+            rows = lat_b.row_ptr[1:] - lat_b.row_ptr[:-1]
             print(f"exact CRF image 0: kernels {kernel_ms:.2f} ms per run "
-                  f"(profiler), of which lattice kernels {lattice_ms:.2f} ms "
+                  f"(profiler), of which lattice kernels {lattice_ms:.2f} ms; "
+                  f"its bilateral lattice m = {lat_b.m}, CSR rows mean "
+                  f"{lat_b.entries.numel() / lat_b.m:.1f}, max "
+                  f"{int(rows.max())}, {lat_b.splits.shape[0]} split rows "
                   f"({card})", flush=True)
             check_against_host_oracle(img, lab, merged, window, tables,
                                       server, card)

@@ -265,7 +265,7 @@ def test_wrappers_on_cpu_are_the_plain_versions():
                                    k.lattice_blur, k.lattice_slice)]
     wn_pix, wn_csr = k.lattice_weights(tables.w, tables.w_csr,
                                        tables.entries, norm)
-    lat = k.lattice_splat(tables.row_ptr, tables.entries, wn_csr, q, d1)
+    lat = k.lattice_splat(tables, wn_csr, q)
     blurred = k.lattice_blur(lat, tables.nbr[1])
     out = k.lattice_slice(blurred, tables.ids, wn_pix, tables.alpha)
     assert [f.launches for f in (k.lattice_weights, k.lattice_splat,
@@ -336,10 +336,11 @@ def test_no_fallback_off_the_cpu(monkeypatch, tmp_path):
     ones = torch.ones(n_pix, device="meta")
     calls = [
         lambda: k.lattice_weights(meta.w, meta.w_csr, meta.entries, ones),
-        lambda: k.lattice_splat(meta.row_ptr, meta.entries, meta.w_csr,
-                                ones[:, None], meta.d1),
+        lambda: k.lattice_splat(meta, meta.w_csr, ones[:, None]),
         lambda: k.lattice_blur(torch.ones(meta.m + 1, 3, device="meta"),
                                meta.nbr[0]),
+        lambda: k.lattice_filter_cuda(ones[:, None], meta, meta.w,
+                                      meta.w_csr),
         lambda: k.lattice_slice(torch.ones(meta.m + 1, 3, device="meta"),
                                 meta.ids, meta.w, meta.alpha),
     ]
@@ -427,33 +428,42 @@ def test_kernels_match_plain_on_card(kind):
     q = torch.rand(hc * wc, 21, device="cuda")
     lat0 = torch.rand(tables.m + 1, 21, device="cuda")
     lat0[-1] = 0
-    cases = [
-        (k.lattice_weights, k.lattice_weights_reference,
-         (tables.w, tables.w_csr, tables.entries, norm)),
-        (k.lattice_splat, k.lattice_splat_reference,
-         (tables.row_ptr, tables.entries, tables.w_csr, q, tables.d1)),
-        (k.lattice_splat, k.lattice_splat_reference,  # the norm's C = 1
-         (tables.row_ptr, tables.entries, tables.w_csr, q[:, :1].clone(),
-          tables.d1)),
-        (k.lattice_blur, k.lattice_blur_reference, (lat0, tables.nbr[2])),
-        (k.lattice_slice, k.lattice_slice_reference,
-         (lat0, tables.ids, tables.w, tables.alpha)),
+    q1 = q[:, :1].clone()  # the norm's C = 1
+
+    def splat_plain(v):
+        return k.lattice_splat_reference(tables.row_ptr, tables.entries,
+                                         tables.w_csr, v, tables.d1)
+
+    cases = [  # (counted wrapper, kernel call, plain call)
+        (k.lattice_weights,
+         lambda: k.lattice_weights(tables.w, tables.w_csr, tables.entries,
+                                   norm),
+         lambda: k.lattice_weights_reference(tables.w, tables.w_csr,
+                                             tables.entries, norm)),
+        (k.lattice_splat, lambda: k.lattice_splat(tables, tables.w_csr, q),
+         lambda: splat_plain(q)),
+        (k.lattice_splat, lambda: k.lattice_splat(tables, tables.w_csr, q1),
+         lambda: splat_plain(q1)),
+        (k.lattice_blur, lambda: k.lattice_blur(lat0, tables.nbr[2]),
+         lambda: k.lattice_blur_reference(lat0, tables.nbr[2])),
+        (k.lattice_slice,
+         lambda: k.lattice_slice(lat0, tables.ids, tables.w, tables.alpha),
+         lambda: k.lattice_slice_reference(lat0, tables.ids, tables.w,
+                                           tables.alpha)),
     ]
-    for fn, ref, args in cases:
+    for fn, kernel, plain in cases:
         before = fn.launches
-        got = fn(*args)
+        got = kernel()
         torch.cuda.synchronize()
         assert fn.launches == before + 1
-        want = ref(*args)
+        want = plain()
         if not isinstance(got, tuple):
             got, want = (got,), (want,)
         for g, wnt in zip(got, want):
             err = float((g - wnt).abs().max()) / float(wnt.abs().max())
             assert err <= 1e-5, (fn.__name__, err)
-    again = k.lattice_splat(tables.row_ptr, tables.entries, tables.w_csr, q,
-                            tables.d1)
-    assert torch.equal(again, k.lattice_splat(
-        tables.row_ptr, tables.entries, tables.w_csr, q, tables.d1))
+    again = k.lattice_splat(tables, tables.w_csr, q)
+    assert torch.equal(again, k.lattice_splat(tables, tables.w_csr, q))
 
 
 @pytest.mark.gpu

@@ -1,10 +1,11 @@
 // Exact permutohedral lattice filter on Hopper (sm_90a), plain C
-// interface: the four steps of one filter application of the exact
-// dense CRF, float32 throughout.
+// interface: the steps of one filter application of the exact dense
+// CRF, float32 throughout.
 //
 //   lattice_weights  wn = w * norm[pixel], pixel-major and vertex-major
 //   lattice_splat    lat[v, c] = sum_{e in row v} wn[e] * q[pix(e), c]
-//   lattice_blur     out[v] = lat[v] + (lat[n1(v)] + lat[n2(v)]) / 2
+//   lattice_blur     lat[v] += (lat[n1_j(v)] + lat[n2_j(v)]) / 2, axis j
+//                    after axis j-1, j = 0 .. d
 //   lattice_slice    out[p, c] = alpha * sum_s wn[p, s] * lat[ids[p, s], c]
 //
 // Replaces the TPU kernels of wseg_tpu/ops/crf_mm.py: _ohgen_call
@@ -14,46 +15,84 @@
 // against dense multi-hot planes (the splat/slice matrix S with the
 // symmetric norm folded in, and one 3-hot matrix per blur axis), in bf16
 // planes that emulate f32 on the MXU.  On Hopper a gather is cheap, so
-// the same linear operators run directly over the sparse tables:
+// the same linear operators run directly over the sparse tables: the
+// pixel-major (ids, w) table, (Np, d+1), for the slice, and its
+// transpose vertex-major (CSR: row_ptr, entries pixel*(d+1)+slot,
+// weights) for the splat, built on the host by a counting sort
+// (csrc/permutohedral_host.cc).  lattice_weights folds the norm into both,
+// once per image and lattice: S' = S diag(norm), so each filter is
+// S'^T B S' q with no per-pixel multiplies (crf_mm.py scale_oh).
 //
-// * the splat/slice matrix S stays sparse: the (ids, w) table pixel-
-//   major, (Np, d+1), for the slice, and its transpose vertex-major
-//   (CSR: row_ptr (m+1), entries pixel*(d+1)+slot, weights) for the
-//   splat, built on the host by a counting sort (csrc/
-//   permutohedral_host.cc).  lattice_weights folds the norm into both,
-//   once per image and lattice: S' = S diag(norm), so each filter is
-//   S'^T B S' q with no per-pixel multiplies (crf_mm.py scale_oh);
-// * the splat is a deterministic gather, one warp per lattice vertex
-//   walking its CSR row in order (no float atomics): the lanes split
-//   the channels (C=21: one lane each) or, for few channels (the norm
-//   filter has C=1), the row's entries, summed by a fixed shuffle tree;
-// * the blur reads the two neighbours of each vertex by index, from one
-//   buffer into another (the caller double-buffers across the d+1
-//   axes), and rewrites the zero slot (row m, where missing neighbours
-//   and padded pixels point) as zero;
-// * the slice gathers the d+1 vertex rows of each pixel.
+// What bounds them: bytes, 1-2 FLOP per float moved.  At the flagship
+// (384x512 canvas, 21 classes, bilateral d=5) a splat reads 16.5 MB of
+// q and 9 MB of table and writes m x 84 B of lattice (m ~ 18k, ~8 us at
+// HBM rate); a blur reads and writes the 1.5 MB lattice per axis, which
+// stays in the 50 MB L2; a slice reads the lattice and 9.4 MB of tables
+// and writes 16.5 MB.  In practice the splat is bound by L2 traffic: it
+// gathers one 84 B q row (3-4 sectors) per CSR entry, ~1.1M rows on the
+// bilateral lattice, and more loads in flight per warp made it slower
+// on the H100; the blur is bound by latency, d+1 dependent passes.
 //
-// What bounds them: bytes.  Every step does 1-2 FLOP per float it
-// moves.  At the flagship (384x512 canvas, 21 classes, bilateral d=5)
-// a splat reads the 16.5 MB of q plus 9 MB of CSR and writes m x 84 B
-// of lattice; a slice reads the lattice and 9.4 MB of tables and writes
-// 16.5 MB.  The lattice rows a gather reads are 84 B each, mostly from
-// L2 (the whole lattice is a few MB).  The splat's rows are skewed
-// (flat colour maps thousands of pixels onto one vertex): one warp per
-// vertex leaves such rows on one SM; the loop is unrolled 4 ways so
-// their loads overlap.
+// * lattice_splat (replaces _splat_call).  The CSR rows are skewed: flat
+//   colour maps up to ~1,100 pixels onto one bilateral vertex (mean ~62),
+//   so a warp per vertex leaves the kernel's time to its longest row,
+//   hundreds of dependent L2 round trips on one warp.  Work is split by
+//   ENTRIES instead: a table built once per lattice on the host
+//   (ops/crf_lattice.split_table) cuts every CSR row into chunks of at
+//   most K entries, in order (an empty row and the zero slot m are one
+//   empty chunk each).  Warp w takes chunks w, w + W, ..., so a long
+//   row's chunks run on different warps; its lanes load 32 (entry,
+//   weight) pairs coalesced and hand them round by __shfl_sync, 8
+//   independent q-row loads in flight; lanes split the channels (C = 21:
+//   one lane each) or, for few channels (the norm filter's C = 1), the
+//   entries, summed by a fixed shuffle tree.  A chunk that is its row's
+//   only one writes the lattice row; a split row's chunks write partials
+//   to a scratch row each, and after a grid-wide barrier each split row
+//   sums its partials in chunk order.  No float atomics: the order of
+//   every sum depends only on the table, so two runs are bit-equal.
+// * lattice_blur (replaces _gather_call's 3-hot blur products).  A
+//   launch per axis is d+1 launches per filter (3 or 6), ~2.5 us of
+//   kernel each under tens of us of host wrapper.  One launch runs all
+//   axes:
+//   grid-stride over (vertex, channel), cooperative_groups grid sync
+//   between axes, ping-pong between two buffers; each thread starts the
+//   loads of 4 elements together and loads the next axis's neighbour ids
+//   (which no axis writes) before the barrier, so an axis costs one
+//   dependent gather and the barrier.  Each axis computes lat[v] + 0.5f *
+//   (lat[n1] + lat[n2]) in the per-axis order (bit-equal to d+1 one-axis
+//   passes) and rewrites the zero slot (row m, where missing neighbours
+//   and padded pixels point) as zero.
+// * lattice_slice (replaces _gather_call's slice product): one thread per
+//   (pixel, channel) gathers its d+1 vertex rows.
+// * The splat and the blur are cooperative launches at as many blocks as
+//   the card holds at once (grid.sync needs no -rdc since CUDA 11).  A
+//   grid that cannot be co-resident is refused
+//   (cudaErrorCooperativeLaunchTooLarge): the entry returns the error,
+//   nothing falls back.
+// * wseg_lattice_filter launches splat, blur and slice back to back on
+//   the caller's stream: one host call per filter.
 //
-// All tensors are contiguous; ids/entries/row_ptr/nbr are int32, the
-// rest float32.  Each entry point launches on the caller's stream,
-// allocates nothing, and returns cudaGetLastError().
+// All tensors are contiguous; ids/entries/row_ptr/nbr and the chunk
+// tables are int32, the rest float32.  Each entry point launches on the
+// caller's stream, allocates nothing, and returns a CUDA error code.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <atomic>
+#include <climits>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kBlock = 256;
 constexpr int kWarpsPerBlock = kBlock / 32;
+constexpr int kUnroll = 8;  // q-row loads in flight per splat warp
+constexpr int kBlurBlock = 1024;
+constexpr int kBlurIlp = 4;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxDevices = 64;
 
 __global__ void __launch_bounds__(kBlock)
 lattice_weights_kernel(const float* __restrict__ w_pix,
@@ -73,70 +112,139 @@ lattice_weights_kernel(const float* __restrict__ w_pix,
   }
 }
 
-// One warp per vertex v in [0, m]; v == m is the zero slot.  Lane =
-// group * cp + channel, cp = 2^cp_log2 >= C, 32 / cp groups stride the
-// row's entries.
+// Cooperative.  Phase 1: warp w of the W warps takes chunks w, w + W,
+// w + 2W, ... (a long row's chunks land on different warps); chunk c
+// spans entries [chunk_ptr[c], chunk_ptr[c+1]) of row chunk_row[c].
+// The lanes load 32 (pixel, weight) pairs at a time and hand them round
+// by shuffles; kUnroll q-row loads are in flight per warp.  Lane = group
+// * cp + channel, cp = 2^cp_log2 >= C; the 32 / cp groups take every
+// G-th entry.  Phase 2 (only if some row is split): per (split row,
+// channel) the partials of chunks [splits[s][0], splits[s][1]) in chunk
+// order.  `lat` and `partial` are written here and read after the grid
+// barrier, so they are plain (coherent) pointers.
 __global__ void __launch_bounds__(kBlock)
-lattice_splat_kernel(const int* __restrict__ row_ptr,
-                     const int* __restrict__ entries,
+lattice_splat_kernel(const int* __restrict__ chunk_ptr,
+                     const int* __restrict__ chunk_row,
+                     const int* __restrict__ splits, int n_chunks,
+                     int n_split, const int* __restrict__ entries,
                      const float* __restrict__ w_csr,
-                     const float* __restrict__ q, int m, int C, int d1,
-                     int cp_log2, float* __restrict__ lat) {
-  const int v = blockIdx.x * kWarpsPerBlock + threadIdx.x / 32;
-  if (v > m) return;  // whole warps exit together
+                     const float* __restrict__ q, int C, int d1,
+                     int cp_log2, float* lat, float* partial) {
   const int lane = threadIdx.x & 31;
   const int cp = 1 << cp_log2;
-  const int c = lane & (cp - 1);
+  const int ch = lane & (cp - 1);
   const int g = lane >> cp_log2;
   const int G = 32 >> cp_log2;
-  const bool live = c < C;
-  float acc = 0.0f;
-  if (v < m) {
-    const int end = row_ptr[v + 1];
-    int e = row_ptr[v] + g;
-    for (; e + 3 * G < end; e += 4 * G) {
-      const int p0 = entries[e] / d1, p1 = entries[e + G] / d1;
-      const int p2 = entries[e + 2 * G] / d1, p3 = entries[e + 3 * G] / d1;
-      const float w0 = w_csr[e], w1 = w_csr[e + G];
-      const float w2 = w_csr[e + 2 * G], w3 = w_csr[e + 3 * G];
-      if (live) {
-        const float q0 = __ldg(q + static_cast<size_t>(p0) * C + c);
-        const float q1 = __ldg(q + static_cast<size_t>(p1) * C + c);
-        const float q2 = __ldg(q + static_cast<size_t>(p2) * C + c);
-        const float q3 = __ldg(q + static_cast<size_t>(p3) * C + c);
-        acc += w0 * q0;
-        acc += w1 * q1;
-        acc += w2 * q2;
-        acc += w3 * q3;
+  const bool live = ch < C;
+  const int n_warps = gridDim.x * kWarpsPerBlock;
+  for (int c = blockIdx.x * kWarpsPerBlock + threadIdx.x / 32; c < n_chunks;
+       c += n_warps) {  // warp-uniform
+    const int begin = chunk_ptr[c], end = chunk_ptr[c + 1];
+    const int v = chunk_row[c];
+    const bool whole = (c == 0 || chunk_row[c - 1] != v) &&
+                       (c + 1 == n_chunks || chunk_row[c + 1] != v);
+    float acc = 0.0f;
+    for (int base = begin; base < end; base += 32) {
+      const int n = min(32, end - base);
+      int my_p = 0;
+      float my_w = 0.0f;
+      if (lane < n) {
+        my_p = entries[base + lane] / d1;
+        my_w = w_csr[base + lane];
+      }
+      for (int t0 = 0; t0 < n; t0 += kUnroll * G) {
+        float wv[kUnroll], qv[kUnroll];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const int t = t0 + u * G + g;
+          const int p = __shfl_sync(kFull, my_p, t & 31);
+          const float w = __shfl_sync(kFull, my_w, t & 31);
+          const bool ok = live && t < n;
+          wv[u] = ok ? w : 0.0f;
+          qv[u] = ok ? __ldg(q + static_cast<size_t>(p) * C + ch) : 0.0f;
+        }
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) acc += wv[u] * qv[u];
       }
     }
-    for (; e < end; e += G) {
-      const int p = entries[e] / d1;
-      if (live) acc += w_csr[e] * __ldg(q + static_cast<size_t>(p) * C + c);
+    for (int off = cp; off < 32; off <<= 1)
+      acc += __shfl_xor_sync(kFull, acc, off);
+    if (g == 0 && live) {
+      float* dst = whole ? lat + static_cast<size_t>(v) * C
+                         : partial + static_cast<size_t>(c) * C;
+      dst[ch] = acc;
     }
   }
-  for (int off = cp; off < 32; off <<= 1)
-    acc += __shfl_xor_sync(kFull, acc, off);
-  if (g == 0 && live) lat[static_cast<size_t>(v) * C + c] = acc;
+  if (n_split == 0) return;  // uniform over the grid
+  cg::this_grid().sync();
+  const int n = n_split * C;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += gridDim.x * blockDim.x) {
+    const int s = i / C, ch2 = i - s * C;
+    const int c0 = splits[2 * s], c1 = splits[2 * s + 1];
+    float acc = 0.0f;
+    for (int k = c0; k < c1; ++k) acc += partial[static_cast<size_t>(k) * C + ch2];
+    lat[static_cast<size_t>(chunk_row[c0]) * C + ch2] = acc;
+  }
 }
 
-__global__ void __launch_bounds__(kBlock)
-lattice_blur_kernel(const float* __restrict__ lat,
-                    const int* __restrict__ nbr, int m, int C,
-                    float* __restrict__ out) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (i >= static_cast<long long>(m + 1) * C) return;
-  const int v = static_cast<int>(i / C);
-  const int c = static_cast<int>(i - static_cast<long long>(v) * C);
-  if (v == m) {
-    out[i] = 0.0f;
-    return;
+// Cooperative, blocks of kBlurBlock threads.  Axis j reads `in` (j = 0)
+// or the buffer axis j-1 wrote, and writes buf0 (j even) or buf1 (j
+// odd); nbr is (n_axes, m, 2).  The result lies in buf0 if n_axes is
+// odd, else in buf1.  in != buf0.  Each thread takes kBlurIlp elements
+// (vertex, channel) per round: their neighbour ids, then their lattice
+// reads, then their writes, so the loads of a round overlap; the ids of
+// the next axis's first round (which no axis writes) are loaded before
+// the grid barrier.
+__global__ void __launch_bounds__(kBlurBlock)
+lattice_blur_kernel(const float* in, float* buf0, float* buf1,
+                    const int* __restrict__ nbr, int m, int C, int n_axes) {
+  const int n = (m + 1) * C;
+  const int stride = gridDim.x * blockDim.x;
+  const int first = blockIdx.x * blockDim.x + threadIdx.x;
+  int n1[kBlurIlp], n2[kBlurIlp];
+  auto ids = [&](int j, int i0) {
+    const int* nb = nbr + 2 * static_cast<size_t>(j) * m;
+#pragma unroll
+    for (int k = 0; k < kBlurIlp; ++k) {
+      const int i = i0 + k * stride;
+      const int v = i / C;
+      n1[k] = n2[k] = m;
+      if (i < n && v < m) {
+        n1[k] = __ldg(nb + 2 * static_cast<size_t>(v));
+        n2[k] = __ldg(nb + 2 * static_cast<size_t>(v) + 1);
+      }
+    }
+  };
+  ids(0, first);
+  const float* src = in;
+  for (int j = 0; j < n_axes; ++j) {
+    float* dst = (j & 1) ? buf1 : buf0;
+    for (int i0 = first; i0 < n; i0 += kBlurIlp * stride) {
+      if (i0 != first) ids(j, i0);
+      float out[kBlurIlp];
+#pragma unroll
+      for (int k = 0; k < kBlurIlp; ++k) {
+        const int i = i0 + k * stride;
+        const int v = i / C;
+        const int c = i - v * C;
+        out[k] = 0.0f;  // the zero slot, row m
+        if (i < n && v < m)
+          out[k] = src[i] + 0.5f * (src[static_cast<size_t>(n1[k]) * C + c] +
+                                    src[static_cast<size_t>(n2[k]) * C + c]);
+      }
+#pragma unroll
+      for (int k = 0; k < kBlurIlp; ++k) {
+        const int i = i0 + k * stride;
+        if (i < n) dst[i] = out[k];
+      }
+    }
+    if (j + 1 < n_axes) {
+      ids(j + 1, first);
+      cg::this_grid().sync();
+    }
+    src = dst;
   }
-  const int n1 = nbr[2 * static_cast<size_t>(v)];
-  const int n2 = nbr[2 * static_cast<size_t>(v) + 1];
-  out[i] = lat[i] + 0.5f * (lat[static_cast<size_t>(n1) * C + c] +
-                            lat[static_cast<size_t>(n2) * C + c]);
 }
 
 __global__ void __launch_bounds__(kBlock)
@@ -163,6 +271,98 @@ unsigned blocks_for(long long n) {
 
 constexpr long long kMaxBlocks = 2147483647LL;
 
+// Blocks of `block` threads of `fn` that the current device holds at
+// once (occupancy x SMs), cached per device and kernel (`which`).
+cudaError_t coresident_blocks(const void* fn, int which, int block,
+                              int* blocks) {
+  static std::atomic<int> cache[kMaxDevices][2];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices) {
+    const int v = cache[dev][which].load(std::memory_order_relaxed);
+    if (v > 0) {
+      *blocks = v;
+      return cudaSuccess;
+    }
+  }
+  int per_sm = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, block, 0);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  if (per_sm * sms <= 0) return cudaErrorCooperativeLaunchTooLarge;
+  *blocks = per_sm * sms;
+  if (dev < kMaxDevices)
+    cache[dev][which].store(*blocks, std::memory_order_relaxed);
+  return cudaSuccess;
+}
+
+// A cooperative launch of `fn` with min(co-resident, want) blocks of
+// `block` threads, or `grid` blocks if grid > 0 (a grid the card cannot
+// hold is refused).
+cudaError_t launch_coop(const void* fn, int which, int block, long long want,
+                        int grid, void** args, cudaStream_t stream) {
+  unsigned blocks = static_cast<unsigned>(grid);
+  if (grid <= 0) {
+    int most = 0;
+    const cudaError_t err = coresident_blocks(fn, which, block, &most);
+    if (err != cudaSuccess) return err;
+    blocks = static_cast<unsigned>(want < 1 ? 1 : (want < most ? want : most));
+  }
+  const cudaError_t err = cudaLaunchCooperativeKernel(
+      fn, dim3(blocks), dim3(block), args, 0, stream);
+  if (err != cudaSuccess) cudaGetLastError();  // no later check reports it
+  return err;
+}
+
+cudaError_t launch_splat(const int* chunk_ptr, const int* chunk_row,
+                         const int* splits, int n_chunks, int n_split,
+                         const int* entries, const float* w_csr,
+                         const float* q, int C, int d1, float* lat,
+                         float* partial, int grid, cudaStream_t stream) {
+  if (n_chunks <= 0 || n_split < 0 || C <= 0 || C > 32 || d1 <= 0 ||
+      static_cast<long long>(n_split) * C > INT_MAX) {
+    return cudaErrorInvalidValue;
+  }
+  int cp_log2 = 0;
+  while ((1 << cp_log2) < C) ++cp_log2;
+  void* args[] = {&chunk_ptr, &chunk_row, &splits, &n_chunks, &n_split,
+                  &entries,   &w_csr,     &q,      &C,        &d1,
+                  &cp_log2,   &lat,       &partial};
+  return launch_coop(reinterpret_cast<const void*>(lattice_splat_kernel), 0,
+                     kBlock, (n_chunks + kWarpsPerBlock - 1) / kWarpsPerBlock,
+                     grid, args, stream);
+}
+
+cudaError_t launch_blur(const float* in, float* buf0, float* buf1,
+                        const int* nbr, int m, int C, int n_axes, int grid,
+                        cudaStream_t stream) {
+  if (m < 0 || C <= 0 || n_axes <= 0 || in == buf0 ||
+      static_cast<long long>(m + 1) * C > INT_MAX) {
+    return cudaErrorInvalidValue;
+  }
+  void* args[] = {&in, &buf0, &buf1, &nbr, &m, &C, &n_axes};
+  const long long n = static_cast<long long>(m + 1) * C;
+  return launch_coop(reinterpret_cast<const void*>(lattice_blur_kernel), 1,
+                     kBlurBlock, (n + kBlurBlock - 1) / kBlurBlock, grid, args,
+                     stream);
+}
+
+cudaError_t launch_slice(const float* lat, const int* ids, const float* wn,
+                         int n_pix, int C, int d1, float alpha, float* out,
+                         cudaStream_t stream) {
+  const long long n = static_cast<long long>(n_pix) * C;
+  if (n_pix < 0 || C <= 0 || d1 <= 0 ||
+      (n + kBlock - 1) / kBlock > kMaxBlocks) {
+    return cudaErrorInvalidValue;
+  }
+  if (n == 0) return cudaSuccess;
+  lattice_slice_kernel<<<blocks_for(n), kBlock, 0, stream>>>(
+      lat, ids, wn, n_pix, C, d1, alpha, out);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int wseg_lattice_weights(const void* w_pix, const void* w_csr,
@@ -185,50 +385,67 @@ extern "C" int wseg_lattice_weights(const void* w_pix, const void* w_csr,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int wseg_lattice_splat(const void* row_ptr, const void* entries,
-                                  const void* w_csr, const void* q, int m,
-                                  int C, int d1, void* lat, void* stream) {
-  if (m < 0 || C <= 0 || C > 32 || d1 <= 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  int cp_log2 = 0;
-  while ((1 << cp_log2) < C) ++cp_log2;
-  const unsigned grid = (m + kWarpsPerBlock) / kWarpsPerBlock;  // m+1 warps
-  lattice_splat_kernel<<<grid, kBlock, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(row_ptr), static_cast<const int*>(entries),
-      static_cast<const float*>(w_csr), static_cast<const float*>(q), m, C,
-      d1, cp_log2, static_cast<float*>(lat));
-  return static_cast<int>(cudaGetLastError());
+// lat (rows, C) and partial (n_chunks, C): rows = the last chunk's row+1.
+extern "C" int wseg_lattice_splat(const void* chunk_ptr,
+                                  const void* chunk_row, const void* splits,
+                                  int n_chunks, int n_split,
+                                  const void* entries, const void* w_csr,
+                                  const void* q, int C, int d1, void* lat,
+                                  void* partial, int grid, void* stream) {
+  return static_cast<int>(launch_splat(
+      static_cast<const int*>(chunk_ptr), static_cast<const int*>(chunk_row),
+      static_cast<const int*>(splits), n_chunks, n_split,
+      static_cast<const int*>(entries), static_cast<const float*>(w_csr),
+      static_cast<const float*>(q), C, d1, static_cast<float*>(lat),
+      static_cast<float*>(partial), grid, static_cast<cudaStream_t>(stream)));
 }
 
-extern "C" int wseg_lattice_blur(const void* lat, const void* nbr, int m,
-                                 int C, void* out, void* stream) {
-  if (m < 0 || C <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const long long n = static_cast<long long>(m + 1) * C;
-  if ((n + kBlock - 1) / kBlock > kMaxBlocks) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  lattice_blur_kernel<<<blocks_for(n), kBlock, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(lat), static_cast<const int*>(nbr), m, C,
-      static_cast<float*>(out));
-  return static_cast<int>(cudaGetLastError());
+// All n_axes axes of nbr (n_axes, m, 2) in one launch; see the kernel for
+// which of buf0/buf1 holds the result.
+extern "C" int wseg_lattice_blur(const void* lat, void* buf0, void* buf1,
+                                 const void* nbr, int m, int C, int n_axes,
+                                 int grid, void* stream) {
+  return static_cast<int>(launch_blur(
+      static_cast<const float*>(lat), static_cast<float*>(buf0),
+      static_cast<float*>(buf1), static_cast<const int*>(nbr), m, C, n_axes,
+      grid, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" int wseg_lattice_slice(const void* lat, const void* ids,
                                   const void* wn, int n_pix, int C, int d1,
                                   float alpha, void* out, void* stream) {
-  const long long n = static_cast<long long>(n_pix) * C;
-  if (n_pix < 0 || C <= 0 || d1 <= 0 ||
-      (n + kBlock - 1) / kBlock > kMaxBlocks) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (n == 0) return 0;
-  lattice_slice_kernel<<<blocks_for(n), kBlock, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
+  return static_cast<int>(launch_slice(
       static_cast<const float*>(lat), static_cast<const int*>(ids),
       static_cast<const float*>(wn), n_pix, C, d1, alpha,
-      static_cast<float*>(out));
-  return static_cast<int>(cudaGetLastError());
+      static_cast<float*>(out), static_cast<cudaStream_t>(stream)));
+}
+
+// One filter: splat -> all d1 blur axes -> slice, back to back.  scratch
+// holds 2 (m+1) C + n_chunks C floats: the lattice, the blur's second
+// buffer and the split rows' partials.
+extern "C" int wseg_lattice_filter(
+    const void* chunk_ptr, const void* chunk_row, const void* splits,
+    int n_chunks, int n_split, const void* entries, const void* w_csr,
+    const void* q, int C, int d1, const void* nbr, int m, const void* ids,
+    const void* w_pix, int n_pix, float alpha, void* scratch, void* out,
+    void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (m < 0) return static_cast<int>(cudaErrorInvalidValue);
+  float* lat = static_cast<float*>(scratch);
+  float* lat2 = lat + static_cast<size_t>(m + 1) * C;
+  float* partial = lat2 + static_cast<size_t>(m + 1) * C;
+  cudaError_t err = launch_splat(
+      static_cast<const int*>(chunk_ptr), static_cast<const int*>(chunk_row),
+      static_cast<const int*>(splits), n_chunks, n_split,
+      static_cast<const int*>(entries), static_cast<const float*>(w_csr),
+      static_cast<const float*>(q), C, d1, lat, partial, 0, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = launch_blur(lat, lat2, lat, static_cast<const int*>(nbr), m, C, d1, 0,
+                    s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const float* blurred = ((d1 - 1) & 1) ? lat : lat2;
+  return static_cast<int>(launch_slice(
+      blurred, static_cast<const int*>(ids),
+      static_cast<const float*>(w_pix), n_pix, C, d1, alpha,
+      static_cast<float*>(out), s));
 }

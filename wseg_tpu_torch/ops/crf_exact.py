@@ -4,11 +4,12 @@ counterpart of ``wseg_tpu/ops/crf_mm.py``'s ``build_mm_lattice`` and
 
 The host builds each lattice (``build_exact_lattice``): the C++ hash
 over the image's real pixels, embedded in the padded merge canvas the
-device maps live on, with the vertex-major splat table beside the
-pixel-major one.  ``crf_exact`` then runs where the tables are: the two
-norm filters with the raw weights, ``lattice_weights`` to fold the norm
-into both weight layouts, and t mean-field iterations of one Gaussian
-and one bilateral filter each, the elementwise update in torch.  The
+device maps live on, with the vertex-major splat table and its split
+table beside the pixel-major one.  ``crf_exact`` then runs where the
+tables are: the two norm filters with the raw weights,
+``lattice_weights`` to fold the norm into both weight layouts, and t
+mean-field iterations of one Gaussian and one bilateral filter each,
+the elementwise update in torch.  The
 semantics are those of the host oracle (``crf_native.
 crf_inference_native``, pydensecrf's): unary ``-log(max(p, 1e-8))``, Q
 starts at p, ``softmax(-unary + 3 K_g(Q) + 10 K_b(Q))`` with the
@@ -26,6 +27,7 @@ from wseg_tpu_torch.ops.crf_lattice import (
     LatticeTables,
     kernel_norm,
     lattice_filter,
+    split_table,
 )
 from wseg_tpu_torch.ops.crf_lattice_cuda import lattice_weights
 from wseg_tpu_torch.ops.crf_native import (
@@ -60,7 +62,8 @@ def build_exact_lattice(features: np.ndarray, n_pix: Optional[int] = None,
         ids[pix] = lat.offsets
         w[pix] = lat.bary
     return LatticeTables(*(torch.from_numpy(a) for a in (
-        ids, w, lat.nbr, lat.row_ptr, lat.entries, lat.w_csr)), lat.m)
+        ids, w, lat.nbr, lat.row_ptr, lat.entries, lat.w_csr,
+        *split_table(lat.row_ptr))), lat.m)
 
 
 def crf_exact(probs: torch.Tensor, lat_g: LatticeTables,

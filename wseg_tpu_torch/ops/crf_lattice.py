@@ -6,9 +6,10 @@ The SAME splat -> blur -> slice arithmetic as the host library
 the barycentric weights, a [1, 2, 1]/2 blur along each of the d+1
 lattice axes reading neighbour rows by index, slice with the gain
 ``1/(1 + 2^-d)``.  The lattice hash is built on the host
-(``ops/crf_exact.build_exact_lattice``); every filter step runs where
-the tables are, through the wrappers of ``ops/crf_lattice_cuda``: the
-plain torch versions for CPU tensors, the CUDA kernels on the card.
+(``ops/crf_exact.build_exact_lattice``); every filter runs where the
+tables are, through ``ops/crf_lattice_cuda.lattice_filter_cuda``: the
+plain torch versions for CPU tensors, one host call of the CUDA kernels
+on the card.
 """
 
 from __future__ import annotations
@@ -18,11 +19,12 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from wseg_tpu_torch.ops.crf_lattice_cuda import (
-    lattice_blur,
-    lattice_slice,
-    lattice_splat,
-)
+from wseg_tpu_torch.ops.crf_lattice_cuda import lattice_filter_cuda
+
+# Entries per chunk of the splat's split table: no warp of the splat
+# kernel walks more than this many CSR entries at once (32, 64, 128, 256
+# timed by chip_smoke.py on the H100; 32 the fastest).
+SPLAT_CHUNK = 32
 
 
 class LatticeTables(NamedTuple):
@@ -34,7 +36,8 @@ class LatticeTables(NamedTuple):
     per axis, missing ones encoded as ``m``.  ``row_ptr`` (m+1,),
     ``entries`` (E,) and ``w_csr`` (E,): the splat table vertex-major,
     each entry ``pixel*(d+1) + slot`` with its weight, over the real
-    pixels only.  ``m``: lattice points.
+    pixels only.  ``chunk_ptr``, ``chunk_row``, ``splits``: the splat's
+    split table (``split_table``).  ``m``: lattice points.
     """
     ids: torch.Tensor
     w: torch.Tensor
@@ -42,6 +45,9 @@ class LatticeTables(NamedTuple):
     row_ptr: torch.Tensor
     entries: torch.Tensor
     w_csr: torch.Tensor
+    chunk_ptr: torch.Tensor
+    chunk_row: torch.Tensor
+    splits: torch.Tensor
     m: int
 
     @property
@@ -54,6 +60,30 @@ class LatticeTables(NamedTuple):
 
     def to(self, device) -> "LatticeTables":
         return LatticeTables(*(t.to(device) for t in self[:-1]), self.m)
+
+
+def split_table(row_ptr: np.ndarray, k: int = SPLAT_CHUNK):
+    """The splat's work table for the CSR ``row_ptr`` (m+1,): every row
+    cut into chunks of at most ``k`` entries (a power of two), in entry
+    order; an empty row, and the zero slot m after the last row, are one
+    empty chunk each.  Returns int32 ``chunk_ptr`` (n+1,), chunk c
+    spanning entries [chunk_ptr[c], chunk_ptr[c+1]); ``chunk_row`` (n,),
+    its row; ``splits`` (s, 2), the [first, end) chunks of each row cut
+    in several, in row order."""
+    if k < 1 or k & (k - 1):
+        raise ValueError(f"split_table: chunk {k} is not a power of two")
+    row_ptr = np.asarray(row_ptr, np.int64)
+    lens = np.diff(row_ptr)
+    n_ch = np.append(np.maximum(1, -(-lens // k)), 1)
+    first = np.cumsum(n_ch) - n_ch
+    chunk_row = np.repeat(np.arange(n_ch.size), n_ch)
+    chunk_ptr = np.append(
+        row_ptr[chunk_row] + (np.arange(chunk_row.size) - first[chunk_row]) * k,
+        row_ptr[-1])
+    cut = np.flatnonzero(n_ch > 1)
+    splits = np.stack([first[cut], first[cut] + n_ch[cut]], axis=1)
+    return (chunk_ptr.astype(np.int32), chunk_row.astype(np.int32),
+            splits.astype(np.int32).reshape(-1, 2))
 
 
 def bilateral_features(img_rgb: np.ndarray, sxy: float,
@@ -84,16 +114,11 @@ def lattice_filter(values: torch.Tensor, tables: LatticeTables,
 
     ``w_pix``/``w_csr`` replace the tables' weights on the slice and the
     splat side (the norm-folded weights of ``lattice_weights``); the
-    raw barycentric weights by default.  The d+1 blurs read one buffer
-    and write a new one, so the zero slot stays zero."""
-    d1 = tables.d1
-    lat = lattice_splat(tables.row_ptr, tables.entries,
-                        tables.w_csr if w_csr is None else w_csr,
-                        values.contiguous(), d1)
-    for j in range(d1):
-        lat = lattice_blur(lat, tables.nbr[j])
-    return lattice_slice(lat, tables.ids,
-                         tables.w if w_pix is None else w_pix, tables.alpha)
+    raw barycentric weights by default.  The zero slot stays zero
+    through the d+1 blurs."""
+    return lattice_filter_cuda(values.contiguous(), tables,
+                               tables.w if w_pix is None else w_pix,
+                               tables.w_csr if w_csr is None else w_csr)
 
 
 def kernel_norm(tables: LatticeTables) -> torch.Tensor:

@@ -8,15 +8,21 @@ tables (``csrc/crf_lattice.cu``, whose header says how):
 
 - ``lattice_weights``: the splat/slice weights with the symmetric norm
   folded in, pixel-major and vertex-major;
-- ``lattice_splat``: lattice rows from pixel values along the CSR;
-- ``lattice_blur``: the [1, 2, 1]/2 blur along one lattice axis;
-- ``lattice_slice``: pixel values from their d+1 lattice vertices.
+- ``lattice_splat``: lattice rows from pixel values along the CSR, its
+  rows cut into chunks by the tables' split table;
+- ``lattice_blur``: the [1, 2, 1]/2 blur along every lattice axis, one
+  launch;
+- ``lattice_slice``: pixel values from their d+1 lattice vertices;
+- ``lattice_filter_cuda``: the three in one host call (the filter of
+  ``ops/crf_lattice.lattice_filter``).
 
 Each wrapper dispatches on the tensors' device: CPU tensors go to the
 ``*_reference`` version (``index_add_``, indexing, ``einsum``), CUDA
-tensors launch the kernel (built on first use) or raise.  Each wrapper's
-``.launches`` counts its kernel launches.  The lattice has m vertex rows
-plus the zero slot, row m.
+tensors launch the kernel (built on first use) or raise.  Each kernel's
+wrapper has ``.launches``, the count of its kernel's launches, also of
+those made by ``lattice_filter_cuda``.  The lattice has m vertex rows
+plus the zero slot, row m.  ``tables`` arguments are
+``ops/crf_lattice.LatticeTables``.
 """
 
 from __future__ import annotations
@@ -33,9 +39,10 @@ from wseg_tpu_torch import _build
 _count_lock = threading.Lock()
 
 
-def _count(fn) -> None:
+def _count(*fns) -> None:
     with _count_lock:  # the serving CRF pool launches from two threads
-        fn.launches += 1
+        for fn in fns:
+            fn.launches += 1
 
 
 # ------------------------------------------------------- plain versions
@@ -62,6 +69,26 @@ def lattice_splat_reference(row_ptr: torch.Tensor, entries: torch.Tensor,
     return lat.index_add_(0, vertex, w_csr[:, None] * q[pix])
 
 
+def lattice_splat_split_reference(chunk_ptr: torch.Tensor,
+                                  chunk_row: torch.Tensor,
+                                  entries: torch.Tensor, w_csr: torch.Tensor,
+                                  q: torch.Tensor, d1: int) -> torch.Tensor:
+    """The splat in the kernel's order: each chunk's entries summed into a
+    partial, then each row's partials summed in chunk order (the last
+    chunk is the zero slot's, an empty one, so row m is zero)."""
+    n_chunks = chunk_row.numel()
+    chunk_of = torch.repeat_interleave(
+        torch.arange(n_chunks, device=q.device),
+        (chunk_ptr[1:] - chunk_ptr[:-1]).long())
+    pix = torch.div(entries.long(), d1, rounding_mode="floor")
+    part = torch.zeros((n_chunks, q.shape[1]), dtype=torch.float32,
+                       device=q.device)
+    part.index_add_(0, chunk_of, w_csr[:, None] * q[pix])
+    lat = torch.zeros((int(chunk_row[-1]) + 1, q.shape[1]),
+                      dtype=torch.float32, device=q.device)
+    return lat.index_add_(0, chunk_row.long(), part)
+
+
 def lattice_blur_reference(lat: torch.Tensor,
                            nbr: torch.Tensor) -> torch.Tensor:
     """One axis: rows v < m become lat[v] + (lat[n1] + lat[n2]) / 2 with
@@ -72,23 +99,48 @@ def lattice_blur_reference(lat: torch.Tensor,
     return torch.cat([body, torch.zeros_like(lat[m:])], dim=0)
 
 
+def lattice_blur_axes_reference(lat: torch.Tensor,
+                                nbr: torch.Tensor) -> torch.Tensor:
+    """Every axis of ``nbr`` (axes, m, 2) in turn (a (m, 2) ``nbr`` is one
+    axis): the chain of ``lattice_blur_reference``."""
+    for axis in (nbr[None] if nbr.dim() == 2 else nbr):
+        lat = lattice_blur_reference(lat, axis)
+    return lat
+
+
 def lattice_slice_reference(lat: torch.Tensor, ids: torch.Tensor,
                             wn: torch.Tensor, alpha: float) -> torch.Tensor:
     """(Np, C): alpha * sum over the d+1 slots of wn * lat[ids]."""
     return alpha * torch.einsum("ps,psc->pc", wn, lat[ids.long()])
 
 
+def lattice_filter_reference(values: torch.Tensor, tables,
+                             w_pix: torch.Tensor,
+                             w_csr: torch.Tensor) -> torch.Tensor:
+    """The plain filter: split splat, the d+1 blurs, slice."""
+    lat = lattice_splat_split_reference(tables.chunk_ptr, tables.chunk_row,
+                                        tables.entries, w_csr, values,
+                                        tables.d1)
+    lat = lattice_blur_axes_reference(lat, tables.nbr)
+    return lattice_slice_reference(lat, tables.ids, w_pix, tables.alpha)
+
+
 # ------------------------------------------------------------- kernels
 @functools.lru_cache(maxsize=None)
 def _library():
     lib = _build.load("crf_lattice")
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+        ctypes.c_float
     lib.wseg_lattice_weights.argtypes = [p, p, p, p, ll, ll, i, p, p, p]
-    lib.wseg_lattice_splat.argtypes = [p, p, p, p, i, i, i, p, p]
-    lib.wseg_lattice_blur.argtypes = [p, p, i, i, p, p]
-    lib.wseg_lattice_slice.argtypes = [p, p, p, i, i, i, ctypes.c_float, p, p]
+    lib.wseg_lattice_splat.argtypes = [p, p, p, i, i, p, p, p, i, i, p, p, i,
+                                       p]
+    lib.wseg_lattice_blur.argtypes = [p, p, p, p, i, i, i, i, p]
+    lib.wseg_lattice_slice.argtypes = [p, p, p, i, i, i, f, p, p]
+    lib.wseg_lattice_filter.argtypes = [p, p, p, i, i, p, p, p, i, i, p, i,
+                                        p, p, i, f, p, p, p]
     for name in ("wseg_lattice_weights", "wseg_lattice_splat",
-                 "wseg_lattice_blur", "wseg_lattice_slice"):
+                 "wseg_lattice_blur", "wseg_lattice_slice",
+                 "wseg_lattice_filter"):
         getattr(lib, name).restype = ctypes.c_int
     return lib
 
@@ -123,6 +175,25 @@ def _launch(fn, what: str, device: torch.device, *args) -> None:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
 
 
+def _splat_tables(name: str, tables, w_csr: torch.Tensor, q: torch.Tensor,
+                  **more) -> str:
+    f32, i32 = torch.float32, torch.int32
+    where = _check(name, chunk_ptr=(tables.chunk_ptr, i32, 1),
+                   chunk_row=(tables.chunk_row, i32, 1),
+                   splits=(tables.splits, i32, 2),
+                   entries=(tables.entries, i32, 1), w_csr=(w_csr, f32, 1),
+                   q=(q, f32, 2), **more)
+    if (w_csr.shape != tables.entries.shape
+            or tables.chunk_ptr.numel() != tables.chunk_row.numel() + 1
+            or not 1 <= q.shape[1] <= 32):
+        raise ValueError(f"{name}: entries {tuple(tables.entries.shape)}, "
+                         f"w_csr {tuple(w_csr.shape)}, chunk_ptr "
+                         f"{tuple(tables.chunk_ptr.shape)}, chunk_row "
+                         f"{tuple(tables.chunk_row.shape)}, q "
+                         f"{tuple(q.shape)} (1 to 32 channels)")
+    return where
+
+
 def lattice_weights(w_pix: torch.Tensor, w_csr: torch.Tensor,
                     entries: torch.Tensor, norm: torch.Tensor):
     """Fold the per-pixel norm into the splat/slice weights: w_pix (Np,
@@ -148,44 +219,52 @@ def lattice_weights(w_pix: torch.Tensor, w_csr: torch.Tensor,
     return wn_pix, wn_csr
 
 
-def lattice_splat(row_ptr: torch.Tensor, entries: torch.Tensor,
-                  w_csr: torch.Tensor, q: torch.Tensor,
-                  d1: int) -> torch.Tensor:
-    """row_ptr (m+1,) int32, entries/w_csr (E,), q (Np, C) float32 with
-    C <= 32 -> (m+1, C) float32 lattice (row m zero).  Deterministic."""
-    f32, i32 = torch.float32, torch.int32
-    where = _check("lattice_splat", row_ptr=(row_ptr, i32, 1),
-                   entries=(entries, i32, 1), w_csr=(w_csr, f32, 1),
-                   q=(q, f32, 2))
-    if w_csr.shape != entries.shape or not 1 <= q.shape[1] <= 32:
-        raise ValueError(f"lattice_splat: entries {tuple(entries.shape)}, "
-                         f"w_csr {tuple(w_csr.shape)}, q {tuple(q.shape)} "
-                         "(1 to 32 channels)")
+def lattice_splat(tables, w_csr: torch.Tensor, q: torch.Tensor, *,
+                  grid: int = 0) -> torch.Tensor:
+    """S'^T q over the tables' split table: w_csr (E,) the splat weights,
+    q (Np, C) float32 with C <= 32 -> (m+1, C) float32 lattice (row m
+    zero).  Deterministic.  ``grid``: blocks of the cooperative launch,
+    0 = as many as the card holds at once (more is refused)."""
+    where = _splat_tables("lattice_splat", tables, w_csr, q)
     if where == "cpu":
-        return lattice_splat_reference(row_ptr, entries, w_csr, q, d1)
-    m = row_ptr.numel() - 1
-    lat = torch.empty((m + 1, q.shape[1]), dtype=f32, device=q.device)
+        return lattice_splat_split_reference(
+            tables.chunk_ptr, tables.chunk_row, tables.entries, w_csr, q,
+            tables.d1)
+    c, n_chunks, rows = q.shape[1], tables.chunk_row.numel(), tables.m + 1
+    buf = torch.empty(((rows + n_chunks) * c,), dtype=torch.float32,
+                      device=q.device)  # the lattice, then the partials
     _launch(_library().wseg_lattice_splat, "lattice_splat", q.device,
-            row_ptr.data_ptr(), entries.data_ptr(), w_csr.data_ptr(),
-            q.data_ptr(), m, q.shape[1], int(d1), lat.data_ptr())
+            tables.chunk_ptr.data_ptr(), tables.chunk_row.data_ptr(),
+            tables.splits.data_ptr(), n_chunks, tables.splits.shape[0],
+            tables.entries.data_ptr(), w_csr.data_ptr(), q.data_ptr(), c,
+            tables.d1, buf.data_ptr(), buf.data_ptr() + 4 * rows * c,
+            int(grid))
     _count(lattice_splat)
-    return lat
+    return buf[:rows * c].view(rows, c)
 
 
-def lattice_blur(lat: torch.Tensor, nbr: torch.Tensor) -> torch.Tensor:
-    """lat (m+1, C) float32, nbr (m, 2) int32 neighbours along one axis
-    (missing = m) -> a new (m+1, C) lattice; ``lat`` is not written."""
+def lattice_blur(lat: torch.Tensor, nbr: torch.Tensor, *,
+                 grid: int = 0) -> torch.Tensor:
+    """lat (m+1, C) float32, nbr (axes, m, 2) int32 neighbours per axis
+    (missing = m), or (m, 2) for one axis -> a new (m+1, C) lattice
+    blurred along every axis in turn, in one launch; ``lat`` is not
+    written.  ``grid`` as for ``lattice_splat``."""
+    axes = nbr[None] if nbr.dim() == 2 else nbr
     where = _check("lattice_blur", lat=(lat, torch.float32, 2),
-                   nbr=(nbr, torch.int32, 2))
-    m = nbr.shape[0]
-    if lat.shape[0] != m + 1 or nbr.shape[1] != 2:
+                   nbr=(axes, torch.int32, 3))
+    n_axes, m = axes.shape[:2]
+    if lat.shape[0] != m + 1 or axes.shape[2] != 2 or n_axes == 0:
         raise ValueError(f"lattice_blur: lat {tuple(lat.shape)}, nbr "
                          f"{tuple(nbr.shape)}")
     if where == "cpu":
-        return lattice_blur_reference(lat, nbr)
+        return lattice_blur_axes_reference(lat, axes)
     out = torch.empty_like(lat)
+    other = torch.empty_like(lat) if n_axes > 1 else out
+    # axis j writes buffer j % 2; the last one must be `out`
+    bufs = (out, other) if n_axes % 2 else (other, out)
     _launch(_library().wseg_lattice_blur, "lattice_blur", lat.device,
-            lat.data_ptr(), nbr.data_ptr(), m, lat.shape[1], out.data_ptr())
+            lat.data_ptr(), bufs[0].data_ptr(), bufs[1].data_ptr(),
+            axes.data_ptr(), m, lat.shape[1], n_axes, int(grid))
     _count(lattice_blur)
     return out
 
@@ -209,6 +288,40 @@ def lattice_slice(lat: torch.Tensor, ids: torch.Tensor, wn: torch.Tensor,
             lat.shape[1], ids.shape[1], float(alpha), out.data_ptr())
     _count(lattice_slice)
     return out
+
+
+def lattice_filter_cuda(values: torch.Tensor, tables, w_pix: torch.Tensor,
+                        w_csr: torch.Tensor) -> torch.Tensor:
+    """One exact filter, values (Np, C) float32 with C <= 32 -> (Np, C):
+    splat with ``w_csr``, blur along the d+1 axes, slice with ``w_pix``.
+    On the card one host call launches the three kernels back to back
+    (each counted on its own wrapper); on the CPU the plain filter."""
+    f32, i32 = torch.float32, torch.int32
+    where = _splat_tables("lattice_filter", tables, w_csr, values,
+                          nbr=(tables.nbr, i32, 3),
+                          ids=(tables.ids, i32, 2), w_pix=(w_pix, f32, 2))
+    n_pix, c = values.shape
+    d1, m = tables.d1, tables.m
+    if (tables.ids.shape != (n_pix, d1) or w_pix.shape != (n_pix, d1)
+            or tables.nbr.shape != (d1, m, 2)):
+        raise ValueError(f"lattice_filter: values {tuple(values.shape)}, "
+                         f"ids {tuple(tables.ids.shape)}, w_pix "
+                         f"{tuple(w_pix.shape)}, nbr "
+                         f"{tuple(tables.nbr.shape)}, m {m}")
+    if where == "cpu":
+        return lattice_filter_reference(values, tables, w_pix, w_csr)
+    n_chunks = tables.chunk_row.numel()
+    buf = torch.empty(((n_pix + 2 * (m + 1) + n_chunks) * c,), dtype=f32,
+                      device=values.device)  # the output, then scratch
+    _launch(_library().wseg_lattice_filter, "lattice_filter", values.device,
+            tables.chunk_ptr.data_ptr(), tables.chunk_row.data_ptr(),
+            tables.splits.data_ptr(), n_chunks, tables.splits.shape[0],
+            tables.entries.data_ptr(), w_csr.data_ptr(), values.data_ptr(),
+            c, d1, tables.nbr.data_ptr(), m, tables.ids.data_ptr(),
+            w_pix.data_ptr(), n_pix, float(tables.alpha),
+            buf.data_ptr() + 4 * n_pix * c, buf.data_ptr())
+    _count(lattice_splat, lattice_blur, lattice_slice)
+    return buf[:n_pix * c].view(n_pix, c)
 
 
 for _fn in (lattice_weights, lattice_splat, lattice_blur, lattice_slice):

@@ -53,9 +53,8 @@ def plain_kernels(crf_mode: str):
                  (crf, "gauss_blur_cm", crf_gauss.gauss_blur_cm_reference)]
     else:
         swaps = [(crf_exact, "lattice_weights", k.lattice_weights_reference),
-                 (crf_lattice, "lattice_splat", k.lattice_splat_reference),
-                 (crf_lattice, "lattice_blur", k.lattice_blur_reference),
-                 (crf_lattice, "lattice_slice", k.lattice_slice_reference)]
+                 (crf_lattice, "lattice_filter_cuda",
+                  k.lattice_filter_reference)]
     kept = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     for mod, name, plain in swaps:
         setattr(mod, name, plain)
