@@ -97,8 +97,6 @@ LATTICE_CANVAS = (384, 512)
 LATTICE_IMAGE = (375, 500)
 LATTICE_WINDOW = (4, 6, 375, 500)
 LATTICE_REL_TOL = 1e-5
-# chunk sizes of the splat's split table timed on the bilateral lattice
-SPLAT_CHUNKS = (32, 64, 128, 256)
 CRF_ITERS = 10
 ORACLE_Q_TOL = 1e-4
 # the card's published peaks (H100 SXM data sheet): HBM bytes/s and
@@ -868,32 +866,6 @@ def host_us(fn, n: int = 50) -> float:
     return dt / n * 1e6
 
 
-def lattice_split_sweep(tables, wn_csr, q, want, card: str) -> None:
-    """The splat at several chunk sizes of its split table (the tables'
-    own is ops/crf_lattice.SPLAT_CHUNK): chunks, split rows, call and
-    kernel time, error against the plain splat."""
-    import torch
-
-    from wseg_tpu_torch.ops import crf_lattice_cuda as k
-    from wseg_tpu_torch.ops.crf_lattice import split_table
-
-    row_ptr = tables.row_ptr.cpu().numpy()
-    for chunk in SPLAT_CHUNKS:
-        cp, cr, sp = (torch.from_numpy(a).cuda()
-                      for a in split_table(row_ptr, chunk))
-        tk = tables._replace(chunk_ptr=cp, chunk_row=cr, splits=sp)
-        rel = float((k.lattice_splat(tk, wn_csr, q) - want).abs().max()) / \
-            float(want.abs().max())
-        check(rel <= LATTICE_REL_TOL, f"splat with chunks of {chunk}: {rel}")
-        ms = cuda_median_ms(lambda: k.lattice_splat(tk, wn_csr, q), reps=30)
-        dev = device_ms(lambda: k.lattice_splat(tk, wn_csr, q), reps=20,
-                        match="lattice_splat")
-        print(f"  splat with chunks of {chunk}: {cr.numel()} chunks, "
-              f"{sp.shape[0]} split rows; median {ms:.4f} ms per call, "
-              f"{dev * 1e3:.2f} us of kernel; rel err {rel:.3e} ({card})",
-              flush=True)
-
-
 def lattice_filter_row(name, tables, wn_pix, wn_csr, q, card: str) -> None:
     """The one-call filter (``lattice_filter_cuda``) against its steps
     called one by one (splat, blur, slice: 3 calls; splat, d+1 one-axis
@@ -949,9 +921,12 @@ def lattice_filter_row(name, tables, wn_pix, wn_csr, q, card: str) -> None:
              * q.shape[1],), dtype=f32, device=q.device))}
     dev = device_ms(one, reps=20, match="lattice_")
     n_pix, d1, m, c = q.shape[0], tables.d1, tables.m, q.shape[1]
-    e, n_ch = tables.entries.numel(), tables.chunk_row.numel()
-    bnd = bound(4 * (2 * n_pix * c + 2 * n_ch + 1 + 2 * tables.splits.shape[0]
-                     + 2 * e + 2 * d1 * m + 2 * n_pix * d1),
+    e = tables.entries.numel()
+    # compulsory: the real pixels' values and the CSR (row pointers,
+    # entries, weights) in, the neighbour and pixel-major tables, the
+    # canvas out; the lattice stays on chip
+    bnd = bound(4 * ((e // d1) * c + (m + 1) + 2 * e + 2 * d1 * m
+                     + 2 * n_pix * d1 + n_pix * c),
                 2 * e * c + 3 * d1 * m * c + 2 * n_pix * d1 * c + n_pix * c)
     print(f"filter ({name}) median ms per call, in turns: " + "; ".join(
         f"{key} {' / '.join(f'{t:.4f}' for t in ts)}"
@@ -967,8 +942,7 @@ def phase_lattice_kernels(card: str) -> list:
     """The four exact-CRF kernels against their plain versions on the
     lattices of one photo-like VOC image on the flagship merge canvas:
     (entries without launches) for the bilateral lattice, and the same
-    checks for the Gaussian one; then per lattice the one-call filter,
-    and for the bilateral one the splat at several chunk sizes."""
+    checks for the Gaussian one; then per lattice the one-call filter."""
     import torch
 
     from wseg_tpu_torch.engine.infer import ExactCRF
@@ -1004,8 +978,8 @@ def phase_lattice_kernels(card: str) -> list:
                                            tables.entries, norm)
         lat = k.lattice_splat(tables, wn_csr, q)
         n_pix, d1, m, c = hc * wc, tables.d1, tables.m, 21
-        e, n_ch = tables.entries.numel(), tables.chunk_row.numel()
-        n_split = tables.splits.shape[0]
+        e = tables.entries.numel()
+        n_real = e // d1  # the pixels the CSR covers
         cases = (  # name, TPU kernel, kernel call, plain call, bytes, flops
             ("lattice_weights", "wseg_tpu/ops/crf_mm.py:401",
              lambda: k.lattice_weights(tables.w, tables.w_csr,
@@ -1018,8 +992,7 @@ def phase_lattice_kernels(card: str) -> list:
              lambda: k.lattice_splat_split_reference(
                  tables.chunk_ptr, tables.chunk_row, tables.entries, wn_csr,
                  q, d1),
-             4 * (2 * n_ch + 1 + 2 * n_split + 2 * e + n_pix * c
-                  + (m + 1) * c), 2 * e * c),
+             4 * ((m + 1) + 2 * e + n_real * c + (m + 1) * c), 2 * e * c),
             ("lattice_blur", "wseg_tpu/ops/crf_mm.py:504",
              lambda: k.lattice_blur(lat, tables.nbr),
              lambda: k.lattice_blur_axes_reference(lat, tables.nbr),
@@ -1081,8 +1054,6 @@ def phase_lattice_kernels(card: str) -> list:
                   f"median {p1:.4f} / {p2:.4f} ms; bound "
                   f"{bnd['bound_ms'] * 1e3:.2f} us ({bnd['bound_by']}, "
                   f"{nbytes / 1e6:.2f} MB) ({card})", flush=True)
-            if kname == "lattice_splat" and name == "bilateral":
-                lattice_split_sweep(tables, wn_csr, q, want[0], card)
             if name == "bilateral":
                 entries.append({
                     "name": kname, "route": "cuda",

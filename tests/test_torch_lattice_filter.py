@@ -3,7 +3,8 @@ chunked splat, the all-axes blur and the whole filter, against their
 plain versions and the JAX package.
 
 CPU cases: the split table covers every CSR entry once, in order, in
-chunks of at most K (empty rows and a 1,086-entry row included); the
+chunks of at most ``SPLAT_CHUNK`` (empty rows and a 1,086-entry row
+included), and the tables' CSR row pointers are the host build's; the
 chunked plain splat against the dense float64 S'^T q and the row-order
 plain splat; the all-axes plain blur bit-equal to the per-axis chain;
 the port's filter against ``wseg_tpu.ops.crf_mm.mm_filter`` (Pallas in
@@ -33,48 +34,60 @@ def _flat_image(rng, h, w):
     return img
 
 
-def _split(tables, chunk):
-    """The tables with their split table cut at ``chunk`` entries."""
-    from wseg_tpu_torch.ops.crf_lattice import split_table
+def _features(kind, h, w, seed=0):
+    from wseg_tpu_torch.ops.crf_lattice import (
+        bilateral_features,
+        gaussian_features,
+    )
 
-    return tables._replace(**dict(zip(
-        ("chunk_ptr", "chunk_row", "splits"),
-        map(torch.from_numpy, split_table(tables.row_ptr.numpy(), chunk)))))
+    if kind == "bilateral":
+        img = _flat_image(np.random.RandomState(seed), h, w)
+        return bilateral_features(img, 80.0, 13.0)
+    return gaussian_features((h, w), 3.0)
 
 
-def _bilateral_tables(h, w, chunk, canvas=None, seed=0):
+def _tables(kind, h, w, canvas=None, seed=0):
+    """The CPU lattice tables of a flat-colour image (bilateral) or of
+    its grid (Gaussian), alone or at (1, 2) in a padded canvas."""
     from wseg_tpu_torch.ops.crf_exact import build_exact_lattice
-    from wseg_tpu_torch.ops.crf_lattice import bilateral_features
 
-    img = _flat_image(np.random.RandomState(seed), h, w)
-    feats = bilateral_features(img, 80.0, 13.0)
+    feats = _features(kind, h, w, seed)
     if canvas is None:
-        return _split(build_exact_lattice(feats), chunk)
+        return build_exact_lattice(feats)
     hc, wc = canvas
     valid = np.zeros((hc, wc), bool)
     valid[1:1 + h, 2:2 + w] = True
-    return _split(build_exact_lattice(feats, hc * wc, valid.reshape(-1)),
-                  chunk)
+    return build_exact_lattice(feats, hc * wc, valid.reshape(-1))
+
+
+def _bilateral_tables(h, w, canvas=None, seed=0):
+    return _tables("bilateral", h, w, canvas, seed)
 
 
 def _row_ptr_cases():
+    from wseg_tpu_torch.ops.crf_lattice import SPLAT_CHUNK as K
+
     rng = np.random.RandomState(3)
     lens = rng.randint(0, 150, 40)
     lens[[0, 7, 39]] = 0                      # empty rows, first and last
     lens[20] = LONG_ROW                       # one flat-colour row
-    return {"random rows": np.concatenate([[0], np.cumsum(lens)]),
-            "no rows": np.zeros(1, np.int64),
-            "one long row": np.array([0, LONG_ROW])}
+    cases = {"random rows": lens, "no rows": [], "one long row": [LONG_ROW],
+             "rows of one chunk": [K] * 5,
+             "rows of a chunk and one": [K + 1] * 5,
+             "empty rows only": [0] * 6, "rows of one entry": [1] * 9,
+             "long rows back to back": [LONG_ROW, 3 * K, LONG_ROW]}
+    return {key: np.concatenate([[0], np.cumsum(np.asarray(v, np.int64))])
+            for key, v in cases.items()}
 
 
-@pytest.mark.parametrize("k", [32, 64, 256])
-@pytest.mark.parametrize("case", ["random rows", "no rows", "one long row"])
-def test_split_table_covers_every_entry_once_in_order(case, k):
+@pytest.mark.parametrize("case", list(_row_ptr_cases()))
+def test_split_table_covers_every_entry_once_in_order(case):
+    from wseg_tpu_torch.ops.crf_lattice import SPLAT_CHUNK as k
     from wseg_tpu_torch.ops.crf_lattice import split_table
 
     row_ptr = _row_ptr_cases()[case]
     m, e = row_ptr.size - 1, int(row_ptr[-1])
-    chunk_ptr, chunk_row, splits = split_table(row_ptr, k)
+    chunk_ptr, chunk_row, splits = split_table(row_ptr)
     assert chunk_ptr.dtype == chunk_row.dtype == splits.dtype == np.int32
     assert chunk_ptr.size == chunk_row.size + 1
     assert chunk_ptr[0] == 0 and chunk_ptr[-1] == e
@@ -94,16 +107,27 @@ def test_split_table_covers_every_entry_once_in_order(case, k):
     np.testing.assert_array_equal(chunk_row[splits[:, 0]], want)
     np.testing.assert_array_equal(splits[:, 1] - splits[:, 0], n_ch[want])
     assert (chunk_row[splits[:, 1] - 1] == want).all()
-    if case != "no rows":
-        assert n_ch[np.argmax(np.diff(row_ptr))] == -(-LONG_ROW // k)
+    np.testing.assert_array_equal(
+        n_ch[:m], np.maximum(1, -(-np.diff(row_ptr) // k)))
 
 
-def test_split_table_refuses_a_chunk_that_is_not_a_power_of_two():
+@pytest.mark.parametrize("kind", ["bilateral", "gaussian"])
+def test_tables_row_ptr_is_the_host_csr(kind):
+    """The tables keep the split table, not the CSR row pointers; those
+    come back from it as the host build gave them."""
     from wseg_tpu_torch.ops.crf_lattice import split_table
+    from wseg_tpu_torch.ops.crf_native import build_lattice_tables
 
-    for k in (0, 48, -64):
-        with pytest.raises(ValueError, match="power of two"):
-            split_table(np.array([0, 5]), k)
+    feats = _features(kind, 24, 32)
+    host = build_lattice_tables(feats, None)
+    tables = _tables(kind, 24, 32)
+    np.testing.assert_array_equal(tables.row_ptr.numpy(), host.row_ptr)
+    for got, want in zip((tables.chunk_ptr, tables.chunk_row, tables.splits),
+                         split_table(host.row_ptr)):
+        np.testing.assert_array_equal(got.numpy(), want)
+    meta = tables.to("meta")
+    assert meta.m == tables.m
+    assert all(t.device.type == "meta" for t in meta[:-1])
 
 
 def _dense_splat(tables):
@@ -116,16 +140,21 @@ def _dense_splat(tables):
 
 
 @pytest.mark.parametrize("c", [1, 21])
-@pytest.mark.parametrize("k", [32, 64, 256])
-def test_chunked_plain_splat_matches_dense_and_row_order(k, c):
-    """The chunked plain splat on a lattice with rows of > 1,000 entries
-    (split into up to 34 chunks) equals the dense float64 S'^T q and the
-    row-order plain splat within 1e-5 relative; the zero slot is 0."""
+@pytest.mark.parametrize("lattice", ["bilateral", "bilateral on a canvas",
+                                     "gaussian on a canvas"])
+def test_chunked_plain_splat_matches_dense_and_row_order(lattice, c):
+    """The chunked plain splat equals the dense float64 S'^T q and the
+    row-order plain splat within 1e-5 relative; the zero slot is 0.  The
+    bilateral lattices have rows of > 1,000 entries (split into up to 34
+    chunks)."""
     from wseg_tpu_torch.ops import crf_lattice_cuda as k_
 
-    tables = _bilateral_tables(48, 64, k, canvas=(52, 68))
-    assert int(torch.diff(tables.row_ptr).max()) > 1000
-    assert tables.splits.shape[0] > 0
+    kind = lattice.split()[0]
+    tables = _tables(kind, 48, 64,
+                     canvas=(52, 68) if "canvas" in lattice else None)
+    if kind == "bilateral":
+        assert int(torch.diff(tables.row_ptr).max()) > 1000
+        assert tables.splits.shape[0] > 0
     rng = np.random.RandomState(c)
     q = torch.from_numpy(rng.rand(tables.ids.shape[0], c).astype(np.float32))
     got = k_.lattice_splat_split_reference(
@@ -150,7 +179,7 @@ def test_blur_axes_plain_is_the_per_axis_chain_bit_for_bit(kind):
     from wseg_tpu_torch.ops.crf_lattice import gaussian_features
 
     if kind == "bilateral":
-        tables = _bilateral_tables(40, 48, 64)
+        tables = _bilateral_tables(40, 48)
     else:
         tables = build_exact_lattice(gaussian_features((40, 48), 3.0))
     rng = np.random.RandomState(1)
@@ -191,8 +220,8 @@ def test_filter_matches_the_jax_mm_filter(d):
     np.testing.assert_allclose(got, want, rtol=3e-4, atol=3e-4)
 
 
-@pytest.mark.parametrize("chunk", [32, 256])
-def test_filter_matches_the_jax_lattice_filter(chunk):
+@pytest.mark.parametrize("seed", [0, 1])
+def test_filter_matches_the_jax_lattice_filter(seed):
     """On a flat-colour image's bilateral lattice (rows of > 1,000
     entries) embedded in a padded canvas: the port's filter against the
     JAX package's float32 ``crf_lattice.lattice_filter`` on the real
@@ -207,11 +236,11 @@ def test_filter_matches_the_jax_lattice_filter(chunk):
     )
 
     h, w, hc, wc = 48, 64, 52, 68
-    tables = _bilateral_tables(h, w, chunk, canvas=(hc, wc))
+    tables = _bilateral_tables(h, w, canvas=(hc, wc), seed=seed)
     assert int(torch.diff(tables.row_ptr).max()) > 1000
-    feats = bilateral_features(_flat_image(np.random.RandomState(0), h, w),
-                               80.0, 13.0)
-    rng = np.random.RandomState(chunk)
+    feats = bilateral_features(
+        _flat_image(np.random.RandomState(seed), h, w), 80.0, 13.0)
+    rng = np.random.RandomState(10 + seed)
     vals = rng.rand(h * w, 21).astype(np.float32)
     canvas = np.full((hc, wc, 21), 5.0, np.float32)
     canvas[1:1 + h, 2:2 + w] = vals.reshape(h, w, 21)
@@ -229,7 +258,7 @@ def test_filter_matches_the_jax_lattice_filter(chunk):
 def test_filter_on_cpu_is_the_plain_filter_and_counts_nothing():
     from wseg_tpu_torch.ops import crf_lattice_cuda as k
 
-    tables = _bilateral_tables(24, 32, 32)
+    tables = _bilateral_tables(24, 32)
     rng = np.random.RandomState(4)
     q = torch.from_numpy(rng.rand(tables.ids.shape[0], 3).astype(np.float32))
     wn_pix = tables.w * 0.5
@@ -252,7 +281,7 @@ def test_filter_on_cpu_is_the_plain_filter_and_counts_nothing():
 def test_new_wrappers_refuse_other_devices_and_bad_shapes():
     from wseg_tpu_torch.ops import crf_lattice_cuda as k
 
-    tables = _bilateral_tables(16, 20, 32)
+    tables = _bilateral_tables(16, 20)
     meta = tables.to("meta")
     n_pix = tables.ids.shape[0]
     ones = torch.ones((n_pix, 1), device="meta")
@@ -277,21 +306,12 @@ def test_new_wrappers_refuse_other_devices_and_bad_shapes():
 
 
 # ------------------------------------------------------------ the card
-def _card_tables(kind, chunk=64):
+def _card_tables(kind):
     """A 96x128 canvas: the bilateral lattice of a flat-colour image (a
     row of > 1,000 entries) or the Gaussian lattice, on the card."""
-    from wseg_tpu_torch.ops.crf_exact import build_exact_lattice
-    from wseg_tpu_torch.ops.crf_lattice import gaussian_features
-
+    tables = _tables(kind, 90, 120, canvas=(96, 128))
     if kind == "bilateral":
-        tables = _bilateral_tables(90, 120, chunk, canvas=(96, 128))
         assert int(torch.diff(tables.row_ptr).max()) >= 1000
-    else:
-        valid = np.zeros((96, 128), bool)
-        valid[1:91, 2:122] = True
-        tables = _split(build_exact_lattice(
-            gaussian_features((90, 120), 3.0), 96 * 128, valid.reshape(-1)),
-            chunk)
     return tables.to("cuda")
 
 
@@ -351,21 +371,32 @@ def test_new_kernels_match_plain_on_card(kind):
 
 @pytest.mark.gpu
 def test_refused_cooperative_launch_raises_on_card():
-    """A grid the card cannot hold co-resident is refused and raises; the
-    refusal leaves no error behind for the next launch."""
+    """A grid the card cannot hold co-resident is refused and raises
+    through the wrappers' launch path (the C entries take the grid; the
+    wrappers pass 0, as many blocks as fit); the refusal leaves no error
+    behind for the next launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     from wseg_tpu_torch.ops import crf_lattice_cuda as k
 
     tables = _card_tables("bilateral")
-    q = torch.rand((tables.ids.shape[0], 21), device="cuda")
-    lat = torch.rand((tables.m + 1, 21), device="cuda")
-    before = (k.lattice_splat.launches, k.lattice_blur.launches)
+    n_pix, c, m, d1 = tables.ids.shape[0], 21, tables.m, tables.d1
+    q = torch.rand((n_pix, c), device="cuda")
+    lat = torch.rand((m + 1, c), device="cuda")
+    out = torch.empty((2, m + 1, c), device="cuda")
+    part = torch.empty((tables.chunk_row.numel(), c), device="cuda")
+    lib, too_many = k._library(), 1 << 20
     with pytest.raises(RuntimeError, match="lattice_blur kernel launch"):
-        k.lattice_blur(lat, tables.nbr, grid=1 << 20)
+        k._launch(lib.wseg_lattice_blur, "lattice_blur", lat.device,
+                  lat.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+                  tables.nbr.data_ptr(), m, c, d1, too_many)
     with pytest.raises(RuntimeError, match="lattice_splat kernel launch"):
-        k.lattice_splat(tables, tables.w_csr, q, grid=1 << 20)
-    assert (k.lattice_splat.launches, k.lattice_blur.launches) == before
+        k._launch(lib.wseg_lattice_splat, "lattice_splat", q.device,
+                  tables.chunk_ptr.data_ptr(), tables.chunk_row.data_ptr(),
+                  tables.splits.data_ptr(), tables.chunk_row.numel(),
+                  tables.splits.shape[0], tables.entries.data_ptr(),
+                  tables.w_csr.data_ptr(), q.data_ptr(), c, d1,
+                  out[0].data_ptr(), part.data_ptr(), too_many)
     out = k.lattice_filter_cuda(q, tables, tables.w, tables.w_csr)
     torch.cuda.synchronize()
     assert torch.isfinite(out).all()

@@ -24,14 +24,15 @@
 // S'^T B S' q with no per-pixel multiplies (crf_mm.py scale_oh).
 //
 // What bounds them: bytes, 1-2 FLOP per float moved.  At the flagship
-// (384x512 canvas, 21 classes, bilateral d=5) a splat reads 16.5 MB of
-// q and 9 MB of table and writes m x 84 B of lattice (m ~ 18k, ~8 us at
-// HBM rate); a blur reads and writes the 1.5 MB lattice per axis, which
-// stays in the 50 MB L2; a slice reads the lattice and 9.4 MB of tables
-// and writes 16.5 MB.  In practice the splat is bound by L2 traffic: it
-// gathers one 84 B q row (3-4 sectors) per CSR entry, ~1.1M rows on the
-// bilateral lattice, and more loads in flight per warp made it slower
-// on the H100; the blur is bound by latency, d+1 dependent passes.
+// (384x512 canvas, 21 classes, bilateral d=5) a splat reads the real
+// pixels' q rows (15.8 MB) and 9 MB of CSR and writes m x 84 B of
+// lattice (m ~ 18k, ~8 us at HBM rate); a blur reads and writes the
+// 1.5 MB lattice per axis, which stays in the 50 MB L2; a slice reads
+// the lattice and 9.4 MB of tables and writes 16.5 MB.  In practice the
+// splat is bound by L2 traffic: it gathers one 84 B q row (3-4 sectors)
+// per CSR entry, ~1.1M rows on the bilateral lattice, and more loads in
+// flight per warp made it slower on the H100; the blur is bound by
+// latency, d+1 dependent passes.
 //
 // * lattice_splat (replaces _splat_call).  The CSR rows are skewed: flat
 //   colour maps up to ~1,100 pixels onto one bilateral vertex (mean ~62),
@@ -39,11 +40,11 @@
 //   hundreds of dependent L2 round trips on one warp.  Work is split by
 //   ENTRIES instead: a table built once per lattice on the host
 //   (ops/crf_lattice.split_table) cuts every CSR row into chunks of at
-//   most K entries, in order (an empty row and the zero slot m are one
+//   most 32 entries, in order (an empty row and the zero slot m are one
 //   empty chunk each).  Warp w takes chunks w, w + W, ..., so a long
-//   row's chunks run on different warps; its lanes load 32 (entry,
-//   weight) pairs coalesced and hand them round by __shfl_sync, 8
-//   independent q-row loads in flight; lanes split the channels (C = 21:
+//   row's chunks run on different warps; its lanes load the chunk's
+//   (entry, weight) pairs coalesced and hand them round by __shfl_sync,
+//   8 independent q-row loads in flight; lanes split the channels (C = 21:
 //   one lane each) or, for few channels (the norm filter's C = 1), the
 //   entries, summed by a fixed shuffle tree.  A chunk that is its row's
 //   only one writes the lattice row; a split row's chunks write partials
@@ -72,9 +73,9 @@
 // * wseg_lattice_filter launches splat, blur and slice back to back on
 //   the caller's stream: one host call per filter.
 //
-// All tensors are contiguous; ids/entries/row_ptr/nbr and the chunk
-// tables are int32, the rest float32.  Each entry point launches on the
-// caller's stream, allocates nothing, and returns a CUDA error code.
+// All tensors are contiguous; ids/entries/nbr and the chunk tables are
+// int32, the rest float32.  Each entry point launches on the caller's
+// stream, allocates nothing, and returns a CUDA error code.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -114,9 +115,10 @@ lattice_weights_kernel(const float* __restrict__ w_pix,
 
 // Cooperative.  Phase 1: warp w of the W warps takes chunks w, w + W,
 // w + 2W, ... (a long row's chunks land on different warps); chunk c
-// spans entries [chunk_ptr[c], chunk_ptr[c+1]) of row chunk_row[c].
-// The lanes load 32 (pixel, weight) pairs at a time and hand them round
-// by shuffles; kUnroll q-row loads are in flight per warp.  Lane = group
+// spans entries [chunk_ptr[c], chunk_ptr[c+1]) of row chunk_row[c], at
+// most 32 (ops/crf_lattice.SPLAT_CHUNK).  The lanes load the chunk's
+// (pixel, weight) pairs, one each, and hand them round by shuffles;
+// kUnroll q-row loads are in flight per warp.  Lane = group
 // * cp + channel, cp = 2^cp_log2 >= C; the 32 / cp groups take every
 // G-th entry.  Phase 2 (only if some row is split): per (split row,
 // channel) the partials of chunks [splits[s][0], splits[s][1]) in chunk
@@ -143,29 +145,27 @@ lattice_splat_kernel(const int* __restrict__ chunk_ptr,
     const int v = chunk_row[c];
     const bool whole = (c == 0 || chunk_row[c - 1] != v) &&
                        (c + 1 == n_chunks || chunk_row[c + 1] != v);
+    const int n = end - begin;  // <= 32
+    int my_p = 0;
+    float my_w = 0.0f;
+    if (lane < n) {
+      my_p = entries[begin + lane] / d1;
+      my_w = w_csr[begin + lane];
+    }
     float acc = 0.0f;
-    for (int base = begin; base < end; base += 32) {
-      const int n = min(32, end - base);
-      int my_p = 0;
-      float my_w = 0.0f;
-      if (lane < n) {
-        my_p = entries[base + lane] / d1;
-        my_w = w_csr[base + lane];
-      }
-      for (int t0 = 0; t0 < n; t0 += kUnroll * G) {
-        float wv[kUnroll], qv[kUnroll];
+    for (int t0 = 0; t0 < n; t0 += kUnroll * G) {
+      float wv[kUnroll], qv[kUnroll];
 #pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          const int t = t0 + u * G + g;
-          const int p = __shfl_sync(kFull, my_p, t & 31);
-          const float w = __shfl_sync(kFull, my_w, t & 31);
-          const bool ok = live && t < n;
-          wv[u] = ok ? w : 0.0f;
-          qv[u] = ok ? __ldg(q + static_cast<size_t>(p) * C + ch) : 0.0f;
-        }
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) acc += wv[u] * qv[u];
+      for (int u = 0; u < kUnroll; ++u) {
+        const int t = t0 + u * G + g;
+        const int p = __shfl_sync(kFull, my_p, t & 31);
+        const float w = __shfl_sync(kFull, my_w, t & 31);
+        const bool ok = live && t < n;
+        wv[u] = ok ? w : 0.0f;
+        qv[u] = ok ? __ldg(q + static_cast<size_t>(p) * C + ch) : 0.0f;
       }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) acc += wv[u] * qv[u];
     }
     for (int off = cp; off < 32; off <<= 1)
       acc += __shfl_xor_sync(kFull, acc, off);
@@ -299,8 +299,8 @@ cudaError_t coresident_blocks(const void* fn, int which, int block,
 }
 
 // A cooperative launch of `fn` with min(co-resident, want) blocks of
-// `block` threads, or `grid` blocks if grid > 0 (a grid the card cannot
-// hold is refused).
+// `block` threads, or `grid` blocks if grid > 0 (the wrappers pass 0;
+// the card tests pass a grid the card cannot hold, which is refused).
 cudaError_t launch_coop(const void* fn, int which, int block, long long want,
                         int grid, void** args, cudaStream_t stream) {
   unsigned blocks = static_cast<unsigned>(grid);

@@ -62,7 +62,7 @@ def build_exact_lattice(features: np.ndarray, n_pix: Optional[int] = None,
         ids[pix] = lat.offsets
         w[pix] = lat.bary
     return LatticeTables(*(torch.from_numpy(a) for a in (
-        ids, w, lat.nbr, lat.row_ptr, lat.entries, lat.w_csr,
+        ids, w, lat.nbr, lat.entries, lat.w_csr,
         *split_table(lat.row_ptr))), lat.m)
 
 

@@ -21,9 +21,9 @@ import torch
 
 from wseg_tpu_torch.ops.crf_lattice_cuda import lattice_filter_cuda
 
-# Entries per chunk of the splat's split table: no warp of the splat
-# kernel walks more than this many CSR entries at once (32, 64, 128, 256
-# timed by chip_smoke.py on the H100; 32 the fastest).
+# Entries per chunk of the splat's split table: one warp of the splat
+# kernel loads a chunk's entries in one pass, a lane each (chunks of 32,
+# 64, 128 and 256 were timed on the H100; 32 was the fastest).
 SPLAT_CHUNK = 32
 
 
@@ -33,16 +33,15 @@ class LatticeTables(NamedTuple):
     ``ids``/``w``: (Np, d+1) int32/float32 splat/slice vertex ids and
     barycentric weights per pixel; padded canvas pixels hold the zero
     slot ``m`` and weight 0.  ``nbr``: (d+1, m, 2) int32 blur neighbours
-    per axis, missing ones encoded as ``m``.  ``row_ptr`` (m+1,),
-    ``entries`` (E,) and ``w_csr`` (E,): the splat table vertex-major,
-    each entry ``pixel*(d+1) + slot`` with its weight, over the real
-    pixels only.  ``chunk_ptr``, ``chunk_row``, ``splits``: the splat's
-    split table (``split_table``).  ``m``: lattice points.
+    per axis, missing ones encoded as ``m``.  ``entries`` (E,) and
+    ``w_csr`` (E,): the splat table vertex-major, each entry
+    ``pixel*(d+1) + slot`` with its weight, over the real pixels only,
+    cut into chunks by ``chunk_ptr``, ``chunk_row`` and ``splits`` (the
+    split table, ``split_table``).  ``m``: lattice points.
     """
     ids: torch.Tensor
     w: torch.Tensor
     nbr: torch.Tensor
-    row_ptr: torch.Tensor
     entries: torch.Tensor
     w_csr: torch.Tensor
     chunk_ptr: torch.Tensor
@@ -58,20 +57,27 @@ class LatticeTables(NamedTuple):
     def alpha(self) -> float:
         return 1.0 / (1.0 + 2.0 ** -(self.d1 - 1))
 
+    @property
+    def row_ptr(self) -> torch.Tensor:
+        """The CSR row pointers (m+1,) of ``entries``: the first chunk of
+        each row and of the zero slot starts its row."""
+        first = torch.ones_like(self.chunk_row, dtype=torch.bool)
+        first[1:] = self.chunk_row[1:] != self.chunk_row[:-1]
+        return self.chunk_ptr[:-1][first]
+
     def to(self, device) -> "LatticeTables":
         return LatticeTables(*(t.to(device) for t in self[:-1]), self.m)
 
 
-def split_table(row_ptr: np.ndarray, k: int = SPLAT_CHUNK):
+def split_table(row_ptr: np.ndarray):
     """The splat's work table for the CSR ``row_ptr`` (m+1,): every row
-    cut into chunks of at most ``k`` entries (a power of two), in entry
-    order; an empty row, and the zero slot m after the last row, are one
-    empty chunk each.  Returns int32 ``chunk_ptr`` (n+1,), chunk c
-    spanning entries [chunk_ptr[c], chunk_ptr[c+1]); ``chunk_row`` (n,),
-    its row; ``splits`` (s, 2), the [first, end) chunks of each row cut
-    in several, in row order."""
-    if k < 1 or k & (k - 1):
-        raise ValueError(f"split_table: chunk {k} is not a power of two")
+    cut into chunks of at most ``SPLAT_CHUNK`` entries, in entry order;
+    an empty row, and the zero slot m after the last row, are one empty
+    chunk each.  Returns int32 ``chunk_ptr`` (n+1,), chunk c spanning
+    entries [chunk_ptr[c], chunk_ptr[c+1]); ``chunk_row`` (n,), its row;
+    ``splits`` (s, 2), the [first, end) chunks of each row cut in
+    several, in row order."""
+    k = SPLAT_CHUNK
     row_ptr = np.asarray(row_ptr, np.int64)
     lens = np.diff(row_ptr)
     n_ch = np.append(np.maximum(1, -(-lens // k)), 1)

@@ -132,6 +132,8 @@ def _library():
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
         ctypes.c_float
     lib.wseg_lattice_weights.argtypes = [p, p, p, p, ll, ll, i, p, p, p]
+    # the splat's and the blur's last int is their cooperative grid: the
+    # wrappers pass 0, as many blocks as the card holds at once
     lib.wseg_lattice_splat.argtypes = [p, p, p, i, i, p, p, p, i, i, p, p, i,
                                        p]
     lib.wseg_lattice_blur.argtypes = [p, p, p, p, i, i, i, i, p]
@@ -219,12 +221,11 @@ def lattice_weights(w_pix: torch.Tensor, w_csr: torch.Tensor,
     return wn_pix, wn_csr
 
 
-def lattice_splat(tables, w_csr: torch.Tensor, q: torch.Tensor, *,
-                  grid: int = 0) -> torch.Tensor:
+def lattice_splat(tables, w_csr: torch.Tensor,
+                  q: torch.Tensor) -> torch.Tensor:
     """S'^T q over the tables' split table: w_csr (E,) the splat weights,
     q (Np, C) float32 with C <= 32 -> (m+1, C) float32 lattice (row m
-    zero).  Deterministic.  ``grid``: blocks of the cooperative launch,
-    0 = as many as the card holds at once (more is refused)."""
+    zero).  Deterministic."""
     where = _splat_tables("lattice_splat", tables, w_csr, q)
     if where == "cpu":
         return lattice_splat_split_reference(
@@ -237,18 +238,16 @@ def lattice_splat(tables, w_csr: torch.Tensor, q: torch.Tensor, *,
             tables.chunk_ptr.data_ptr(), tables.chunk_row.data_ptr(),
             tables.splits.data_ptr(), n_chunks, tables.splits.shape[0],
             tables.entries.data_ptr(), w_csr.data_ptr(), q.data_ptr(), c,
-            tables.d1, buf.data_ptr(), buf.data_ptr() + 4 * rows * c,
-            int(grid))
+            tables.d1, buf.data_ptr(), buf.data_ptr() + 4 * rows * c, 0)
     _count(lattice_splat)
     return buf[:rows * c].view(rows, c)
 
 
-def lattice_blur(lat: torch.Tensor, nbr: torch.Tensor, *,
-                 grid: int = 0) -> torch.Tensor:
+def lattice_blur(lat: torch.Tensor, nbr: torch.Tensor) -> torch.Tensor:
     """lat (m+1, C) float32, nbr (axes, m, 2) int32 neighbours per axis
     (missing = m), or (m, 2) for one axis -> a new (m+1, C) lattice
     blurred along every axis in turn, in one launch; ``lat`` is not
-    written.  ``grid`` as for ``lattice_splat``."""
+    written."""
     axes = nbr[None] if nbr.dim() == 2 else nbr
     where = _check("lattice_blur", lat=(lat, torch.float32, 2),
                    nbr=(axes, torch.int32, 3))
@@ -264,7 +263,7 @@ def lattice_blur(lat: torch.Tensor, nbr: torch.Tensor, *,
     bufs = (out, other) if n_axes % 2 else (other, out)
     _launch(_library().wseg_lattice_blur, "lattice_blur", lat.device,
             lat.data_ptr(), bufs[0].data_ptr(), bufs[1].data_ptr(),
-            axes.data_ptr(), m, lat.shape[1], n_axes, int(grid))
+            axes.data_ptr(), m, lat.shape[1], n_axes, 0)
     _count(lattice_blur)
     return out
 
