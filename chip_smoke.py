@@ -8,10 +8,11 @@ from the repository root.  Phases, each printing its own lines:
 1. environment: torch/CUDA versions and the card (fails without CUDA);
 2. build: compiles every hand-written kernel from ``wseg_tpu_torch/csrc``
    (one nvcc per source, all started together);
-3. kernels vs plain: the bilateral-message kernel and the Gaussian-blur
-   kernel against their plain PyTorch versions at the flagship shapes,
-   errors, median times, bounds and (blur) a cuDNN convolution as the
-   library yardstick;
+3. kernels vs plain: the bilateral-message kernel (21 classes and the
+   C = 1 norm filter) and the Gaussian-blur kernel against their plain
+   PyTorch versions at the flagship shapes, errors, median call times,
+   the profiler's kernel times, bounds and (blur) a cuDNN convolution
+   as the library yardstick;
 4. serving slice: WRN38 + CAM_CASA_WGAP_tf at full width (bfloat16,
    seeded random weights) serves 8 VOC-sized synthetic images through
    ``MultiScaleServer`` with the fast-CRF device postprocess; checks
@@ -72,9 +73,9 @@ from concurrent.futures import ThreadPoolExecutor
 
 # (width, height) of the served images: VOC's common sizes, two each
 VOC_SIZES = [(500, 375), (375, 500), (500, 333), (333, 500)] * 2
-# flagship bilateral-message shapes: 8 slots, 21 classes, the 192x256
-# half grid of a 384x512 merge canvas
-KERNEL_SHAPE = (8, 21, 192, 256)
+# flagship bilateral-message shapes: 8 slots, 21 classes (and the norm
+# filter's one channel), the 192x256 half grid of a 384x512 merge canvas
+KERNEL_SHAPES = ((8, 21, 192, 256), (8, 1, 192, 256))
 KERNEL_REL_TOL = 1e-5
 # the fast CRF's Gaussian blurs: (shape, radius) of the coarse grid's
 # 21-class and the full canvas's 21-class and norm (C = 1) filters
@@ -214,46 +215,67 @@ def phase_build(card: str) -> None:
 
 
 def phase_kernel(card: str) -> dict:
+    """The bilateral-message kernel against its plain version at the fast
+    CRF's two message shapes (21 classes and the C = 1 norm filter);
+    returns the entry of the 21-class shape (10 of the 12 launches of a
+    postprocess call), without launches."""
     import torch
 
     from wseg_tpu_torch.ops.crf import _bilateral_taps
     from wseg_tpu_torch.ops.crf_bilateral import (
+        band_plan,
         bilateral_message_cm,
         bilateral_message_cm_reference,
     )
 
     taps = [(-dy, -dx) for dy, dx in _bilateral_taps(40.0, 2.0)]
-    b, c, h, w = KERNEL_SHAPE
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    q = torch.rand((b, c, h, w), generator=gen, device="cuda")
-    wt = torch.rand((b, len(taps), h, w), generator=gen,
-                    device="cuda").to(torch.bfloat16)
-    got = bilateral_message_cm(q, wt, taps)
-    want = bilateral_message_cm_reference(q, wt, taps)
-    torch.cuda.synchronize()
-    max_abs = float((got - want).abs().max())
-    rel = max_abs / float(want.abs().max())
-    print(f"kernel bilateral_message_cm at {KERNEL_SHAPE}, {len(taps)} "
-          f"taps: max_abs_err {max_abs:.3e}, rel {rel:.3e} "
-          f"(tol {KERNEL_REL_TOL:g})", flush=True)
-    check(rel <= KERNEL_REL_TOL, f"kernel disagrees with plain: rel {rel}")
-    plain_ms = cuda_median_ms(
-        lambda: bilateral_message_cm_reference(q, wt, taps), reps=10)
-    ms = cuda_median_ms(lambda: bilateral_message_cm(q, wt, taps), reps=30)
-    plain_ms2 = cuda_median_ms(
-        lambda: bilateral_message_cm_reference(q, wt, taps), reps=10)
-    ms2 = cuda_median_ms(lambda: bilateral_message_cm(q, wt, taps), reps=30)
-    print(f"kernel median {ms:.4f} / {ms2:.4f} ms, plain median "
-          f"{plain_ms:.4f} / {plain_ms2:.4f} ms (two rounds; {card})",
-          flush=True)
-    nbytes = 2 * q.numel() * 4 + wt.numel() * 2
-    flops = 2 * b * c * valid_tap_pixels(taps, h, w)
-    return {"name": "bilateral_message_cm", "route": "cuda",
-            "source": "wseg_tpu_torch/csrc/crf_bilateral.cu",
-            "replaces": "wseg_tpu/ops/crf_pallas.py:87",
-            "max_abs_err": max_abs, "ms": min(ms, ms2),
-            "plain_ms": min(plain_ms, plain_ms2), **bound(nbytes, flops),
-            "library_ms": None}
+    entry = None
+    for k, shape in enumerate(KERNEL_SHAPES):
+        b, c, h, w = shape
+        plan = band_plan(tuple(taps), c, h, w)
+        gen = torch.Generator(device="cuda").manual_seed(k)
+        q = torch.rand((b, c, h, w), generator=gen, device="cuda")
+        wt = torch.rand((b, len(taps), h, w), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        got = bilateral_message_cm(q, wt, taps)
+        want = bilateral_message_cm_reference(q, wt, taps)
+        torch.cuda.synchronize()
+        max_abs = float((got - want).abs().max())
+        rel = max_abs / float(want.abs().max())
+        print(f"kernel bilateral_message_cm at {shape}, {len(taps)} taps "
+              f"(row pitch {plan.pitch}, bands of {plan.rows} rows, "
+              f"{plan.group} channels a block, {plan.smem_bytes()} B of "
+              f"shared memory): max_abs_err {max_abs:.3e}, rel {rel:.3e} "
+              f"(tol {KERNEL_REL_TOL:g})", flush=True)
+        check(rel <= KERNEL_REL_TOL,
+              f"kernel disagrees with plain at {shape}: rel {rel}")
+        plain_ms = cuda_median_ms(
+            lambda: bilateral_message_cm_reference(q, wt, taps), reps=10)
+        ms = cuda_median_ms(lambda: bilateral_message_cm(q, wt, taps),
+                            reps=30)
+        plain_ms2 = cuda_median_ms(
+            lambda: bilateral_message_cm_reference(q, wt, taps), reps=10)
+        ms2 = cuda_median_ms(lambda: bilateral_message_cm(q, wt, taps),
+                             reps=30)
+        dev = device_ms(lambda: bilateral_message_cm(q, wt, taps), reps=20,
+                        match="bilateral")
+        nbytes = 2 * q.numel() * 4 + wt.numel() * 2
+        flops = 2 * b * c * valid_tap_pixels(taps, h, w)
+        bnd = bound(nbytes, flops)
+        print(f"kernel bilateral_message_cm {shape} median {ms:.4f} / "
+              f"{ms2:.4f} ms per call (CUDA events), {dev * 1e3:.2f} us of "
+              f"kernel (profiler); plain median {plain_ms:.4f} / "
+              f"{plain_ms2:.4f} ms (two rounds); bound "
+              f"{bnd['bound_ms'] * 1e3:.2f} us ({bnd['bound_by']}, "
+              f"{nbytes / 1e6:.1f} MB) ({card})", flush=True)
+        if entry is None:
+            entry = {"name": "bilateral_message_cm", "route": "cuda",
+                     "source": "wseg_tpu_torch/csrc/crf_bilateral.cu",
+                     "replaces": "wseg_tpu/ops/crf_pallas.py:87",
+                     "max_abs_err": max_abs, "ms": min(ms, ms2),
+                     "plain_ms": min(plain_ms, plain_ms2), **bnd,
+                     "library_ms": None}
+    return entry
 
 
 def gauss_taps(r: int):

@@ -59,11 +59,25 @@ def test_wrapper_rejects_bad_inputs():
         bilateral_message_cm(q[0], w, [(0, 1), (1, 0)])
 
 
+# taps off the fast CRF's grids: row pitch 2 (one tap outside the
+# image), row pitch 1 (61 class rows: seven bands), repeated taps
+OFF_GRID = ((-2, 3), (0, -1), (20, 0), (-14, -7))
+PITCH_ONE = tuple((dy, dx) for dy in range(-3, 4) for dx in (-2, 0, 5)
+                  if (dy, dx) != (0, 0))
+REPEATED = ((1, 1), (1, 1), (0, 0), (-3, 2), (1, 1), (2, -6))
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape,sxy", [((3, 21, 37, 53), 8.0),
-                                       ((2, 1, 96, 128), 40.0),
-                                       ((8, 21, 192, 256), 40.0)])
-def test_kernel_matches_plain_on_card(shape, sxy):
+@pytest.mark.parametrize("shape,sxy,taps", [
+    ((3, 21, 37, 53), 8.0, None),
+    ((2, 1, 96, 128), 40.0, None),
+    ((8, 21, 192, 256), 40.0, None),
+    ((8, 1, 192, 256), 40.0, None),      # the norm filter
+    ((2, 5, 40, 60), None, OFF_GRID),
+    ((2, 7, 61, 130), None, PITCH_ONE),  # row tiling, W % 4 = 2
+    ((2, 21, 50, 202), 40.0, None),      # W % 4 = 2
+    ((1, 3, 20, 24), None, REPEATED)])
+def test_kernel_matches_plain_on_card(shape, sxy, taps):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     from wseg_tpu_torch.ops.crf import _bilateral_taps
@@ -73,7 +87,8 @@ def test_kernel_matches_plain_on_card(shape, sxy):
     )
 
     b, c, h, w = shape
-    taps = [(-dy, -dx) for dy, dx in _bilateral_taps(sxy, 2.0)]
+    if taps is None:
+        taps = [(-dy, -dx) for dy, dx in _bilateral_taps(sxy, 2.0)]
     gen = torch.Generator(device="cuda").manual_seed(0)
     q = torch.rand((b, c, h, w), generator=gen, device="cuda")
     wt = torch.rand((b, len(taps), h, w), generator=gen,
@@ -86,6 +101,24 @@ def test_kernel_matches_plain_on_card(shape, sxy):
     # same bf16 weights and f32 products; only the sum order differs
     err = float((got - want).abs().max()) / float(want.abs().max())
     assert err <= 1e-5, err
+
+
+@pytest.mark.gpu
+def test_kernel_refuses_a_band_that_does_not_fit():
+    """Row pitch 1 with a 600-row reach: one channel's band is 1,200
+    staged rows, over the shared memory of a block.  The wrapper raises
+    and launches nothing; there is no other path."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from wseg_tpu_torch.ops.crf_bilateral import bilateral_message_cm
+
+    taps = [(-600, 0), (1, 0), (600, 0)]
+    q = torch.rand((1, 1, 1200, 512), device="cuda")
+    wt = torch.rand((1, 3, 1200, 512), device="cuda").to(torch.bfloat16)
+    before = bilateral_message_cm.launches
+    with pytest.raises(ValueError, match="does not fit"):
+        bilateral_message_cm(q, wt, taps)
+    assert bilateral_message_cm.launches == before
 
 
 @pytest.mark.gpu

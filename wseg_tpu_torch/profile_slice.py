@@ -13,9 +13,10 @@ name and power limit:
   VOC size) with the CRF's kernels and with the same program using
   their plain versions, in turns kernel, plain, plain, kernel;
 * device time per serving stage (the ``serve.*`` / ``crf.*`` profiler
-  ranges), the top kernels, and the device's busy share of the wall
-  time, over one profiled group (in exact mode until its last image's
-  CRF is done).
+  ranges; ``serve.crf`` with the fast CRF's two ctypes-launched kernels
+  added by name), the top kernels, the CRF kernels, and the device's
+  busy share of the wall time, over one profiled group (in exact mode
+  until its last image's CRF is done).
 
 With ``--out`` it also writes ``profile_slice.json`` and a Chrome trace
 there.
@@ -115,11 +116,22 @@ def profile_group(server, group_images, trace_path=None) -> dict:
         elif evt.device_type == DeviceType.CUDA:
             kernels[evt.key] = _dev_us(evt, self_only=True) / 1e3
             launches += evt.count
+    # the fast CRF's two kernels launch through ctypes, outside any aten
+    # op, so the profiler gives them to no range: they run under serve.crf
+    crf_ms = sum(v for k, v in kernels.items()
+                 if "bilateral_" in k or "gauss_blur" in k)
+    if crf_ms and "serve.crf" in stages:
+        stages["serve.crf"]["kernel_ms"] = (
+            stages["serve.crf"].get("kernel_ms", 0.0) + crf_ms)
+        stages["serve.crf"]["crf_kernels_ms"] = crf_ms
     busy_ms = sum(kernels.values())
     top = dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:15])
+    crf = {k: v for k, v in kernels.items()
+           if "bilateral_" in k or "gauss_blur" in k}
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "busy_share": busy_ms / wall_ms, "kernel_launches": launches,
-            "stages_ms": stages, "top_kernels_ms": top}
+            "stages_ms": stages, "top_kernels_ms": top,
+            "crf_kernels_ms": crf}
 
 
 def main(argv=None):
@@ -168,6 +180,8 @@ def main(argv=None):
             flush=True)
     for k, v in prof["top_kernels_ms"].items():
         print(f"  kernel {v:9.3f} ms  {k[:100]}", flush=True)
+    for k, v in prof["crf_kernels_ms"].items():
+        print(f"  CRF kernel {v:9.3f} ms  {k[:100]}", flush=True)
     summary = {"card": card, "config": src, "crf_mode": args.crf_mode,
                "batch": bs,
                "image_wh": [w, h], "groups": args.groups,
