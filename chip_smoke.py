@@ -258,8 +258,10 @@ def phase_kernel(card: str) -> dict:
         ms2 = cuda_median_ms(lambda: bilateral_message_cm(q, wt, taps),
                              reps=30)
         dev = device_ms(lambda: bilateral_message_cm(q, wt, taps), reps=20,
-                        match="bilateral")
-        nbytes = 2 * q.numel() * 4 + wt.numel() * 2
+                        match=bilateral_message_cm.kernel_name)
+        # q read and out written once, and the bf16 weights of the taps
+        # that land inside the image (the others are never read)
+        nbytes = 2 * q.numel() * 4 + 2 * b * valid_tap_pixels(taps, h, w)
         flops = 2 * b * c * valid_tap_pixels(taps, h, w)
         bnd = bound(nbytes, flops)
         print(f"kernel bilateral_message_cm {shape} median {ms:.4f} / "
@@ -331,7 +333,7 @@ def phase_gauss(card: str) -> dict:
         p2 = cuda_median_ms(lambda: gauss_blur_cm_reference(x, k1d, r), 10)
         lib_ms = cuda_median_ms(library, 30)
         dev = device_ms(lambda: gauss_blur_cm(x, k1d, r), reps=20,
-                        match="gauss_blur")
+                        match=gauss_blur_cm.kernel_name)
         # 20 calls back to back between two events: the kernels queue up,
         # so this is about their device time when the host keeps ahead
         burst = cuda_median_ms(

@@ -9,7 +9,10 @@ import pytest
 import torch
 
 from wseg_tpu_torch.ops.crf import _bilateral_taps
+from wseg_tpu_torch.ops import crf_bilateral
 from wseg_tpu_torch.ops.crf_bilateral import (
+    LIMITS,
+    MAX_SLOTS,
     SMEM_LIMIT,
     band_plan,
     band_steps,
@@ -64,6 +67,8 @@ def test_plan_covers_every_output_and_tap_once(shape, taps, pitch):
     assert plan.pitch == pitch
     assert 1 <= plan.group <= min(c, 8) and 1 <= plan.rows <= 10
     assert plan.smem_bytes() <= SMEM_LIMIT
+    assert plan.rows <= plan.kernel_rows in (2, 10)
+    assert plan.chunk * plan.kernel_rows <= MAX_SLOTS
     # the bands of all classes cover every output row once, and stage
     # at most ``staged`` rows each
     rows = []
@@ -90,6 +95,45 @@ def test_plan_groups_channels_and_shortens_bands_for_one_channel():
     assert flagship.dx == (80, 60, 40, 20, 0, -20, -40, -60, -80)
     norm = band_plan(GRID, 1, 192, 256)
     assert (norm.group, norm.rows, norm.staged) == (1, 2, 10)
+    assert (flagship.kernel_rows, norm.kernel_rows) == (10, 2)
+
+
+def test_host_ints_carry_the_plans_geometry():
+    """The C entry's Plan order: {P, dy_lo, ndy, ndx, dx_lo, dx_hi, J, JT,
+    G, S, SW, D, L, qvec, wvec, smem}; the entry only checks them."""
+    plan = band_plan(GRID, 21, 192, 256)
+    ints = plan.host_ints(True, False)
+    assert ints == (20, -4, 9, 9, -80, 80, 10, 10, 7, 10, plan.stride,
+                    plan.chunk, 1, 1, 0, plan.smem_bytes())
+    assert ints[-1] == 73960  # the shared memory the card runs report
+
+
+def test_library_with_other_limits_is_refused(monkeypatch):
+    """The wrapper holds a built kernel's limits against its own before
+    it plans a launch: a library built from a changed source raises."""
+    import ctypes
+
+    class Lib:  # a built library: ctypes functions take attributes
+        def __init__(self, limits):
+            def write_limits(addr):
+                out = ctypes.cast(addr, ctypes.POINTER(ctypes.c_int))
+                for e, v in enumerate(limits):
+                    out[e] = v
+                return len(limits)
+
+            self.limits = limits
+            self.wseg_crf_bilateral_message = lambda *a: 0
+            self.wseg_crf_bilateral_limits = write_limits
+
+    build = crf_bilateral._library.__wrapped__
+    monkeypatch.setattr(crf_bilateral._build, "load",
+                        lambda name: Lib(LIMITS))
+    assert build().limits == LIMITS
+    changed = LIMITS[:4] + (LIMITS[4] + 2,) + LIMITS[5:]
+    monkeypatch.setattr(crf_bilateral._build, "load",
+                        lambda name: Lib(changed))
+    with pytest.raises(RuntimeError, match="change both together"):
+        build()
 
 
 def test_plan_refuses_a_band_that_cannot_fit():

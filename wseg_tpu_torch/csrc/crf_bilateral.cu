@@ -11,7 +11,8 @@
 //
 // What bounds it.  The compulsory traffic at the flagship (8 slots,
 // C = 21, 192x256, the 80 taps of a 9x9 grid of pitch 20) is 33 MB of q
-// (f32), 63 MB of weights (bf16) and 33 MB out: 38.5 us at 3.35 TB/s.
+// (f32), the 40 MB of bf16 weights whose tap lands inside the image and
+// 33 MB out: 31.6 us at 3.35 TB/s.
 // A gather that reads q at the displaced pixel once per tap (the first
 // port of this kernel) moves each q value through the cache up to 80
 // times, 2.6 GB a call, and is paced by L2 at ~10x its bound.  Here
@@ -48,12 +49,14 @@
 // flagship each thread runs ~5.7k FMAs, with a shared load and a bf16
 // convert per weight and two block barriers per ring step.  74 KB of
 // shared memory a block gives 3 blocks (12 warps) an SM and 2.4 waves
-// of 960 blocks.  It takes ~4x its bound at C = 21 and ~1.5x at the
-// C = 1 norm filter, where the weight stream is nearly all its work.
+// of 960 blocks.  It takes ~5x its bound at C = 21 and ~2.4x at the
+// C = 1 norm filter (12.8 us), where the weight stream is nearly all
+// its work.
 //
 // q is float32 (the CRF applies its message dtype before the call) and
 // finite, w is bfloat16, out is float32, all contiguous (B, ., H, W).
-// The plan (ops/crf_bilateral.py::band_plan) comes as host ints and an
+// The plan (ops/crf_bilateral.py::band_plan, which alone picks the
+// launch geometry within the limits below) comes as host ints and an
 // int32 device table [distinct dx (ndx) | tap of each cell, -1 for none
 // (layers x ndx x ndy)].  Launches on the caller's stream, allocates
 // nothing, and returns cudaGetLastError().
@@ -73,6 +76,8 @@ constexpr int kSlotsPerThread = 4;       // weight-row parts a thread copies
 constexpr int kMaxSlots = kSlotsPerThread * kBlock / kParts;  // per stage
 constexpr int kMaxSmem = 232448; // dynamic shared memory a block may use
 
+// The launch's geometry, chosen on the host (band_plan) within the
+// limits above; the entry checks it and derives only the grid.
 struct Plan {
   int P;        // row pitch of the taps
   int dy_lo;    // lowest dy / P
@@ -81,13 +86,15 @@ struct Plan {
   int dx_lo;    // lowest dx
   int dx_hi;    // highest dx
   int J;        // output rows per band
+  int JT;       // output rows a thread holds (template), >= J
   int G;        // channels per block
   int S;        // staged q rows per band
   int SW;       // staged q row stride in floats, a multiple of 4
-  int D;        // dx values per step, D x rows per thread <= kMaxSlots
+  int D;        // dx values per step, D x JT <= kMaxSlots
   int L;        // layers of taps
   int qvec;     // 16-byte q loads
   int wvec;     // 16-byte cp.async weight copies
+  int smem;     // dynamic shared memory bytes
   int bands;    // bands per class
   int groups;   // channel groups
   int xsegs;    // column segments
@@ -290,35 +297,37 @@ bilateral_band_kernel(const float* __restrict__ q,
 }
 
 template <int G, int JT>
-int launch(const Plan& p, size_t smem, int blocks, const float* q,
+int launch(const Plan& p, int blocks, const float* q,
            const __nv_bfloat16* w, const int* table, float* out, int C,
            int T, int H, int W, cudaStream_t stream) {
   auto kernel = bilateral_band_kernel<G, JT>;
-  if (smem > 48 * 1024) {
+  if (p.smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  kernel<<<blocks, kBlock, smem, stream>>>(q, w, table, out, p, C, T, H, W);
+  kernel<<<blocks, kBlock, p.smem, stream>>>(q, w, table, out, p, C, T, H,
+                                             W);
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_any(const Plan& p, size_t smem, int blocks, const float* q,
+// the built instances: 2 rows a thread for one or two channels, kMaxRows
+// for any group
+int launch_any(const Plan& p, int blocks, const float* q,
                const __nv_bfloat16* w, const int* table, float* out, int C,
                int T, int H, int W, cudaStream_t stream) {
-  if (p.J <= 2 && p.G <= 2) {
-    return p.G == 1
-               ? launch<1, 2>(p, smem, blocks, q, w, table, out, C, T, H, W,
-                              stream)
-               : launch<2, 2>(p, smem, blocks, q, w, table, out, C, T, H, W,
-                              stream);
+  if (p.JT == 2 && p.G == 1) {
+    return launch<1, 2>(p, blocks, q, w, table, out, C, T, H, W, stream);
   }
+  if (p.JT == 2 && p.G == 2) {
+    return launch<2, 2>(p, blocks, q, w, table, out, C, T, H, W, stream);
+  }
+  if (p.JT != kMaxRows) return static_cast<int>(cudaErrorInvalidValue);
   switch (p.G) {
-#define WSEG_GROUP(g)                                                    \
-  case g:                                                                \
-    return launch<g, kMaxRows>(p, smem, blocks, q, w, table, out, C, T, \
-                               H, W, stream);
+#define WSEG_GROUP(g)                                                      \
+  case g:                                                                  \
+    return launch<g, kMaxRows>(p, blocks, q, w, table, out, C, T, H, W,   \
+                               stream);
     WSEG_GROUP(1) WSEG_GROUP(2) WSEG_GROUP(3) WSEG_GROUP(4)
     WSEG_GROUP(5) WSEG_GROUP(6) WSEG_GROUP(7) WSEG_GROUP(8)
 #undef WSEG_GROUP
@@ -328,11 +337,21 @@ int launch_any(const Plan& p, size_t smem, int blocks, const float* q,
 
 }  // namespace
 
-extern "C" int wseg_crf_bilateral_max_channels() { return kMaxC; }
-extern "C" int wseg_crf_bilateral_max_taps() { return kMaxTaps; }
+// The limits the host plan must keep, in this order: {channels, taps,
+// threads per block, channels per block, rows a thread, weight-ring
+// slots, dynamic shared memory bytes}.  Writes them to out (room for
+// at least 7) and returns their count.
+extern "C" int wseg_crf_bilateral_limits(int* out) {
+  const int limits[] = {kMaxC,    kMaxTaps,  kBlock,  kMaxGroup,
+                        kMaxRows, kMaxSlots, kMaxSmem};
+  const int n = static_cast<int>(sizeof(limits) / sizeof(limits[0]));
+  for (int e = 0; e < n; ++e) out[e] = limits[e];
+  return n;
+}
 
-// plan: host ints {P, dy_lo, ndy, ndx, dx_lo, dx_hi, J, G, S, SW, D, L,
-// qvec, wvec}.
+// plan: host ints {P, dy_lo, ndy, ndx, dx_lo, dx_hi, J, JT, G, S, SW, D,
+// L, qvec, wvec, smem}.  Returns cudaErrorInvalidValue for a plan outside
+// the limits or whose smem is short of the layout it describes.
 extern "C" int wseg_crf_bilateral_message(const void* q, const void* w,
                                           const void* table, void* out,
                                           int B, int C, int T, int H, int W,
@@ -341,31 +360,33 @@ extern "C" int wseg_crf_bilateral_message(const void* q, const void* w,
       H <= 0 || W <= 0 || plan == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Plan p{plan[0], plan[1], plan[2],  plan[3],  plan[4],  plan[5],
-         plan[6], plan[7], plan[8],  plan[9],  plan[10], plan[11],
-         plan[12], plan[13], 0, 0, 0};
-  if (p.P <= 0 || p.ndy <= 0 || p.ndx < 0 || p.J <= 0 ||
-      p.J > kMaxRows || p.G <= 0 || p.G > kMaxGroup || p.G > C ||
-      p.S <= 0 || p.SW <= 0 || p.SW % 4 != 0 || p.D <= 0 || p.L < 0 ||
-      (p.qvec && W % 4 != 0) || (p.wvec && W % 8 != 0)) {
+  Plan p{plan[0],  plan[1],  plan[2],  plan[3],  plan[4],  plan[5],
+         plan[6],  plan[7],  plan[8],  plan[9],  plan[10], plan[11],
+         plan[12], plan[13], plan[14], plan[15], 0,        0,
+         0};
+  if (p.P <= 0 || p.ndy <= 0 || p.ndx < 0 || p.J <= 0 || p.J > p.JT ||
+      p.G <= 0 || p.G > kMaxGroup || p.G > C || p.S <= 0 || p.SW <= 0 ||
+      p.SW % 4 != 0 || p.D <= 0 || p.D * p.JT > kMaxSlots || p.L < 0 ||
+      (p.qvec && W % 4 != 0) || (p.wvec && W % 8 != 0) || p.smem <= 0 ||
+      p.smem > kMaxSmem) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int jt = (p.J <= 2 && p.G <= 2) ? 2 : kMaxRows;  // kernel's rows
-  if (p.D * jt > kMaxSlots) return static_cast<int>(cudaErrorInvalidValue);
+  // the kernel's layout: staged q | two ring stages | dx and cell table
+  const size_t layout =
+      sizeof(float) * static_cast<size_t>(p.G) * p.S * p.SW +
+      sizeof(__nv_bfloat16) * 2 * static_cast<size_t>(p.D) * p.JT *
+          kBlock +
+      sizeof(int) * (p.ndx + static_cast<size_t>(p.L) * p.ndx * p.ndy);
   const int nq = (H + p.P - 1) / p.P;
   p.bands = (nq + p.J - 1) / p.J;
   p.groups = (C + p.G - 1) / p.G;
   p.xsegs = (W + kBlock - 1) / kBlock;
-  const size_t smem =
-      sizeof(float) * static_cast<size_t>(p.G) * p.S * p.SW +
-      sizeof(__nv_bfloat16) * 2 * static_cast<size_t>(p.D) * jt * kBlock +
-      sizeof(int) * (p.ndx + static_cast<size_t>(p.L) * p.ndx * p.ndy);
   const long long blocks = static_cast<long long>(B) * p.P * p.bands *
                            p.xsegs * p.groups;
-  if (smem > kMaxSmem || blocks > 0x7fffffffLL) {
+  if (layout > static_cast<size_t>(p.smem) || blocks > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return launch_any(p, smem, static_cast<int>(blocks),
+  return launch_any(p, static_cast<int>(blocks),
                     static_cast<const float*>(q),
                     static_cast<const __nv_bfloat16*>(w),
                     static_cast<const int*>(table), static_cast<float*>(out),

@@ -8,7 +8,8 @@ source is ``csrc/crf_bilateral.cu``.
 ``bilateral_message_cm`` dispatches on the tensors' device: a CPU
 tensor goes to ``bilateral_message_cm_reference``, a CUDA tensor
 launches the kernel (building it on first use) or raises.
-``bilateral_message_cm.launches`` counts kernel launches.
+``bilateral_message_cm.launches`` counts kernel launches, and
+``.kernel_name`` is the kernel's name in profiler traces.
 
 The kernel works on row-residue classes of the taps' row pitch, in
 bands of class rows staged in shared memory; ``band_plan`` is its host
@@ -31,12 +32,18 @@ from wseg_tpu_torch import _build
 
 Taps = Tuple[Tuple[int, int], ...]
 
-# the kernel's launch geometry (csrc/crf_bilateral.cu)
+# the kernel's limits (csrc/crf_bilateral.cu); ``_library`` checks them
+# against the built kernel's.  ``band_plan`` alone picks a launch's
+# geometry within them, and the C entry only checks it.
+MAX_CHANNELS = 32    # channels a call may have
+MAX_TAPS = 1024      # taps a call may have
 BLOCK = 128          # threads per block, one output column each
 MAX_GROUP = 8        # channels per block
 MAX_ROWS = 10        # output rows per thread (band height)
 MAX_SLOTS = 32       # weight rows per stage of the weight ring
 SMEM_LIMIT = 232448  # dynamic shared memory a block may use (H100)
+LIMITS = (MAX_CHANNELS, MAX_TAPS, BLOCK, MAX_GROUP, MAX_ROWS, MAX_SLOTS,
+          SMEM_LIMIT)
 
 
 def bilateral_message_cm_reference(q: torch.Tensor, w: torch.Tensor,
@@ -70,7 +77,7 @@ class BandPlan:
     layers.  A band is ``rows`` class rows; a block stages ``staged``
     class rows of ``stride`` floats for ``group`` channels, and each
     stage of its weight ring holds ``chunk`` dx values x ``kernel_rows``
-    output rows."""
+    output rows (the rows a thread holds: the kernel's template)."""
 
     pitch: int
     dy_lo: int
@@ -82,15 +89,11 @@ class BandPlan:
     staged: int
     stride: int
     chunk: int
+    kernel_rows: int
 
     @property
     def layers(self) -> int:
         return len(self.cells) // max(1, len(self.dx) * self.ndy)
-
-    @property
-    def kernel_rows(self) -> int:
-        """The output rows a thread holds in the kernel (its template)."""
-        return 2 if self.rows <= 2 and self.group <= 2 else MAX_ROWS
 
     @property
     def table(self) -> Tuple[int, ...]:
@@ -103,12 +106,13 @@ class BandPlan:
                 + 4 * len(self.table))
 
     def host_ints(self, qvec: bool, wvec: bool) -> Tuple[int, ...]:
-        """{P, dy_lo, ndy, ndx, dx_lo, dx_hi, J, G, S, SW, D, L, qvec,
-        wvec}."""
+        """{P, dy_lo, ndy, ndx, dx_lo, dx_hi, J, JT, G, S, SW, D, L, qvec,
+        wvec, smem}, the C entry's ``Plan`` in its order."""
         return (self.pitch, self.dy_lo, self.ndy, len(self.dx),
                 self.dx[-1] if self.dx else 0, self.dx[0] if self.dx else 0,
-                self.rows, self.group, self.staged, self.stride, self.chunk,
-                self.layers, int(qvec), int(wvec))
+                self.rows, self.kernel_rows, self.group, self.staged,
+                self.stride, self.chunk, self.layers, int(qvec), int(wvec),
+                self.smem_bytes())
 
     def bands(self, h: int) -> Iterator[Tuple[int, int, int, int, int]]:
         """(rho, j0, j1, i_lo, i_hi) of every band: output class rows
@@ -169,16 +173,18 @@ def band_plan(taps: Taps, c: int, h: int, w: int) -> BandPlan:
     top_rows = 2 if -(-c // groups) <= 2 else MAX_ROWS
     for group in range(-(-c // groups), 0, -1):
         for rows in range(top_rows, 0, -1):
+            # the kernel is built for 2 rows a thread at one or two
+            # channels (more blocks for the norm filter) and MAX_ROWS
             jt = 2 if rows <= 2 and group <= 2 else MAX_ROWS
             chunk = max(1, min(len(dxs), MAX_SLOTS // jt))
             plan = BandPlan(pitch, dy_lo, ndy, dxs, cells, rows, group,
-                            min(nq, rows + ndy - 1), stride, chunk)
+                            min(nq, rows + ndy - 1), stride, chunk, jt)
             if plan.smem_bytes() <= SMEM_LIMIT:
                 # spread the channels evenly over the groups this needs
                 return dataclasses.replace(
                     plan, group=-(-c // -(-c // group)))
     need = BandPlan(pitch, dy_lo, ndy, dxs, cells, 1, 1, min(nq, ndy),
-                    stride, 1).smem_bytes()
+                    stride, 1, 2).smem_bytes()
     raise ValueError(
         f"a band of the bilateral message does not fit in shared memory: "
         f"{len(taps)} taps of row pitch {pitch} reach {ndy} class rows; one "
@@ -227,10 +233,14 @@ def _library():
                    ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    for name in ("wseg_crf_bilateral_max_channels",
-                 "wseg_crf_bilateral_max_taps"):
-        getattr(lib, name).argtypes = []
-        getattr(lib, name).restype = ctypes.c_int
+    lib.wseg_crf_bilateral_limits.argtypes = [ctypes.c_void_p]
+    lib.wseg_crf_bilateral_limits.restype = ctypes.c_int
+    got = (ctypes.c_int * 16)()
+    n = lib.wseg_crf_bilateral_limits(ctypes.addressof(got))
+    if tuple(got[:n]) != LIMITS:
+        raise RuntimeError(
+            f"csrc/crf_bilateral.cu's limits {tuple(got[:n])} differ from "
+            f"ops/crf_bilateral.py's {LIMITS}: change both together")
     return lib
 
 
@@ -263,19 +273,17 @@ def bilateral_message_cm(q: torch.Tensor, w: torch.Tensor,
     if not (q.is_contiguous() and w.is_contiguous()):
         raise ValueError("q and w must be contiguous")
     lib = _library()
-    if c > lib.wseg_crf_bilateral_max_channels():
-        raise ValueError(f"{c} channels exceed the kernel's "
-                         f"{lib.wseg_crf_bilateral_max_channels()}")
-    if len(taps) > lib.wseg_crf_bilateral_max_taps():
-        raise ValueError(f"{len(taps)} taps exceed the kernel's "
-                         f"{lib.wseg_crf_bilateral_max_taps()}")
+    if c > MAX_CHANNELS:
+        raise ValueError(f"{c} channels exceed the kernel's {MAX_CHANNELS}")
+    if len(taps) > MAX_TAPS:
+        raise ValueError(f"{len(taps)} taps exceed the kernel's {MAX_TAPS}")
     out = torch.empty_like(q)
     if not taps or q.numel() == 0:
         return out.zero_()
     plan = band_plan(taps, c, h, w_)
     qvec = w_ % 4 == 0 and q.data_ptr() % 16 == 0
     wvec = w_ % 8 == 0 and w.data_ptr() % 16 == 0
-    ints = (ctypes.c_int * 14)(*plan.host_ints(qvec, wvec))
+    ints = (ctypes.c_int * 16)(*plan.host_ints(qvec, wvec))
     with torch.cuda.device(q.device):
         table = _table_on(plan, q.device)
         rc = lib.wseg_crf_bilateral_message(
@@ -290,3 +298,6 @@ def bilateral_message_cm(q: torch.Tensor, w: torch.Tensor,
 
 
 bilateral_message_cm.launches = 0
+# the kernel's name in profiler traces (a template: its instances' names
+# hold it)
+bilateral_message_cm.kernel_name = "bilateral_band_kernel"

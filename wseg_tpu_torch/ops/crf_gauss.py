@@ -8,7 +8,8 @@ the CUDA source is ``csrc/crf_gauss.cu``.
 ``gauss_blur_cm`` dispatches on the tensor's device: a CPU tensor goes
 to ``gauss_blur_cm_reference`` (a slice-sum), a CUDA tensor launches
 the kernel (building it on first use) or raises.
-``gauss_blur_cm.launches`` counts kernel launches.
+``gauss_blur_cm.launches`` counts kernel launches, and ``.kernel_name``
+is the kernel's name in profiler traces.
 """
 
 from __future__ import annotations
@@ -87,3 +88,4 @@ def gauss_blur_cm(x: torch.Tensor, k1d: Sequence[float],
 
 
 gauss_blur_cm.launches = 0
+gauss_blur_cm.kernel_name = "gauss_blur_kernel"

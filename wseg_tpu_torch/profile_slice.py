@@ -91,7 +91,12 @@ def profile_group(server, group_images, trace_path=None) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from wseg_tpu_torch.ops.crf_bilateral import bilateral_message_cm
+    from wseg_tpu_torch.ops.crf_gauss import gauss_blur_cm
+
+    crf_ops = (bilateral_message_cm, gauss_blur_cm)
     group = [(img, lab, Future()) for img, lab in group_images]
+    launched = [op.launches for op in crf_ops]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -118,16 +123,22 @@ def profile_group(server, group_images, trace_path=None) -> dict:
             launches += evt.count
     # the fast CRF's two kernels launch through ctypes, outside any aten
     # op, so the profiler gives them to no range: they run under serve.crf
-    crf_ms = sum(v for k, v in kernels.items()
-                 if "bilateral_" in k or "gauss_blur" in k)
+    crf = {}
+    for op, before in zip(crf_ops, launched):
+        mine = {k: v for k, v in kernels.items() if op.kernel_name in k}
+        if kernels and op.launches > before and not mine:
+            raise RuntimeError(
+                f"{op.__name__} launched {op.launches - before} kernels but "
+                f"the trace has none named {op.kernel_name!r}: was the "
+                f"kernel renamed?")
+        crf.update(mine)
+    crf_ms = sum(crf.values())
     if crf_ms and "serve.crf" in stages:
         stages["serve.crf"]["kernel_ms"] = (
             stages["serve.crf"].get("kernel_ms", 0.0) + crf_ms)
         stages["serve.crf"]["crf_kernels_ms"] = crf_ms
     busy_ms = sum(kernels.values())
     top = dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:15])
-    crf = {k: v for k, v in kernels.items()
-           if "bilateral_" in k or "gauss_blur" in k}
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "busy_share": busy_ms / wall_ms, "kernel_launches": launches,
             "stages_ms": stages, "top_kernels_ms": top,
