@@ -9,10 +9,11 @@ from the repository root.  Phases, each printing its own lines:
 2. build: compiles every hand-written kernel from ``wseg_tpu_torch/csrc``
    (one nvcc per source, all started together);
 3. kernels vs plain: the bilateral-message kernel (21 classes and the
-   C = 1 norm filter) and the Gaussian-blur kernel against their plain
-   PyTorch versions at the flagship shapes, errors, median call times,
-   the profiler's kernel times, bounds and (blur) a cuDNN convolution
-   as the library yardstick;
+   C = 1 norm filter) and the Gaussian-blur kernel (the four filter
+   shapes of a postprocess call, each without and with the valid mask)
+   against their plain PyTorch versions, errors, median call times, the
+   profiler's kernel times, bounds and (blur) a cuDNN convolution of
+   the unmasked input as the library yardstick;
 4. serving slice: WRN38 + CAM_CASA_WGAP_tf at full width (bfloat16,
    seeded random weights) serves 8 VOC-sized synthetic images through
    ``MultiScaleServer`` with the fast-CRF device postprocess; checks
@@ -78,9 +79,10 @@ VOC_SIZES = [(500, 375), (375, 500), (500, 333), (333, 500)] * 2
 KERNEL_SHAPES = ((8, 21, 192, 256), (8, 1, 192, 256))
 KERNEL_REL_TOL = 1e-5
 # the fast CRF's Gaussian blurs: (shape, radius) of the coarse grid's
-# 21-class and the full canvas's 21-class and norm (C = 1) filters
+# 21-class and the full canvas's 21-class and norm (C = 1) filters, and
+# the coarse grid's norm filter
 GAUSS_CASES = (((8, 21, 192, 256), 3), ((8, 21, 384, 512), 6),
-               ((8, 1, 384, 512), 6))
+               ((8, 1, 384, 512), 6), ((8, 1, 192, 256), 3))
 # flagship PAMR shapes: batch 8, the 384 crop at stride 8, 21 classes
 PAMR_SHAPE = (8, 48, 48, 21)
 PAMR_DIL = (1, 2, 4, 8, 12, 24)
@@ -288,71 +290,122 @@ def gauss_taps(r: int):
     return [math.exp(-i * i / (2.0 * sxy * sxy)) for i in range(-r, r + 1)]
 
 
+def ptxas_lines(name: str, entry: str) -> list:
+    """The register and spill lines ptxas printed for the kernel entries
+    of library ``name`` whose mangled names hold ``entry``."""
+    from wseg_tpu_torch import _build
+
+    out, take = [], False
+    for line in _build.build.log.get(name, "").splitlines():
+        if "Compiling entry function" in line:
+            take = entry in line
+        elif take and ("Used" in line or "spill" in line):
+            out.append(line.strip())
+    return out
+
+
 def phase_gauss(card: str) -> dict:
     """The Gaussian-blur kernel against its plain version at the fast
-    CRF's three filter shapes; returns the entry of the coarse grid's
-    filter (10 of the 12 launches of a postprocess call), without
+    CRF's four filter shapes, each without and with the valid mask (as
+    the CRF calls it); returns the entry of the coarse grid's masked
+    filter (9 of the 12 launches of a postprocess call), without
     launches."""
     import torch
     import torch.nn.functional as F
 
     from wseg_tpu_torch.ops.crf_gauss import (
+        _registers,
+        _sm_count,
         gauss_blur_cm,
         gauss_blur_cm_reference,
+        gauss_plan,
     )
 
     torch.backends.cudnn.allow_tf32 = False
+    for r in sorted({r for _, r in GAUSS_CASES}):
+        lines = ptxas_lines("crf_gauss", f"gauss_band_kernelILi{r}E")
+        check(lines, f"no ptxas lines for gauss_band_kernel<{r}>")
+        print(f"ptxas gauss_band_kernel<{r}>: {'; '.join(lines)}",
+              flush=True)
     entry = None
     for k, (shape, r) in enumerate(GAUSS_CASES):
         k1d = gauss_taps(r)
         gen = torch.Generator(device="cuda").manual_seed(3 + k)
         x = torch.rand(shape, generator=gen, device="cuda")
-        got = gauss_blur_cm(x, k1d, r)
-        want = gauss_blur_cm_reference(x, k1d, r)
-        torch.cuda.synchronize()
-        max_abs = float((got - want).abs().max())
-        rel = max_abs / float(want.abs().max())
-        print(f"kernel gauss_blur_cm at {shape}, r {r}: max_abs_err "
-              f"{max_abs:.3e}, rel {rel:.3e} (tol {KERNEL_REL_TOL:g})",
-              flush=True)
-        check(rel <= KERNEL_REL_TOL,
-              f"Gaussian kernel disagrees with plain at {shape}: rel {rel}")
+        b, c, h, w = shape
+        # a padded slot's valid mask: the image's window is 1, the rest 0
+        valid = torch.zeros((b, 1, h, w), device="cuda")
+        valid[:, :, :h * 3 // 4, :w * 5 // 6] = 1.0
         # the library yardstick: one cuDNN convolution of the (B*C, 1, H,
         # W) view with the (2r+1)^2 outer-product kernel, TF32 off
         k2d = torch.outer(torch.tensor(k1d), torch.tensor(k1d)).to(x)
-        xv = x.view(-1, 1, *shape[2:])
+        xv = x.view(-1, 1, h, w)
 
         def library():
             return F.conv2d(xv, k2d[None, None], padding=r)
 
-        lib_err = float((library().view(shape) - got).abs().max()) / float(
-            got.abs().max())
-        p1 = cuda_median_ms(lambda: gauss_blur_cm_reference(x, k1d, r), 10)
-        k1 = cuda_median_ms(lambda: gauss_blur_cm(x, k1d, r), 30)
-        k2 = cuda_median_ms(lambda: gauss_blur_cm(x, k1d, r), 30)
-        p2 = cuda_median_ms(lambda: gauss_blur_cm_reference(x, k1d, r), 10)
-        lib_ms = cuda_median_ms(library, 30)
-        dev = device_ms(lambda: gauss_blur_cm(x, k1d, r), reps=20,
-                        match=gauss_blur_cm.kernel_name)
-        # 20 calls back to back between two events: the kernels queue up,
-        # so this is about their device time when the host keeps ahead
-        burst = cuda_median_ms(
-            lambda: [gauss_blur_cm(x, k1d, r) for _ in range(20)], 5) / 20
-        nbytes = 2 * x.numel() * 4
-        bnd = bound(nbytes, 2 * 2 * (2 * r + 1) * x.numel())
-        print(f"kernel gauss_blur_cm {shape} r {r} median {k1:.4f} / "
-              f"{k2:.4f} ms per call (CUDA events), {burst:.4f} ms per call "
-              f"of 20 back to back, {dev * 1e3:.2f} us of kernel "
-              f"(profiler); plain median {p1:.4f} / {p2:.4f} ms; "
-              f"library F.conv2d {lib_ms:.4f} ms (rel diff {lib_err:.2e}); "
-              f"bound {bnd['bound_ms'] * 1e3:.2f} us ({bnd['bound_by']}, "
-              f"{nbytes / 1e6:.1f} MB) ({card})", flush=True)
-        if entry is None:
-            entry = {"name": "gauss_blur_cm", "route": "cuda",
-                     "source": "wseg_tpu_torch/csrc/crf_gauss.cu",
-                     "replaces": "wseg_tpu/ops/crf_pallas.py:159",
-                     "max_abs_err": max_abs, "ms": min(k1, k2),
-                     "plain_ms": min(p1, p2), **bnd, "library_ms": lib_ms}
+        for mask in (None, valid):
+            tag = "masked" if mask is not None else "unmasked"
+            plan = gauss_plan(b * c, h, w, r, mask is not None,
+                              _registers(r), _sm_count(0))
+            got = gauss_blur_cm(x, k1d, r, mask=mask)
+            want = gauss_blur_cm_reference(x, k1d, r, mask)
+            torch.cuda.synchronize()
+            max_abs = float((got - want).abs().max())
+            rel = max_abs / float(want.abs().max())
+            print(f"kernel gauss_blur_cm at {shape}, r {r}, {tag}: band "
+                  f"{plan.bw} x {plan.sh} rows, {plan.threads} threads, "
+                  f"{plan.smem_bytes()} B of shared memory, "
+                  f"{_registers(r)} registers, {plan.blocks_per_sm} blocks "
+                  f"an SM, {plan.blocks} blocks ({plan.waves:.2f} waves); "
+                  f"max_abs_err {max_abs:.3e}, rel {rel:.3e} (tol "
+                  f"{KERNEL_REL_TOL:g})", flush=True)
+            check(rel <= KERNEL_REL_TOL, f"Gaussian kernel disagrees with "
+                  f"plain at {shape}, {tag}: rel {rel}")
+            if mask is None:
+                lib_err = float((library().view(shape) - got).abs().max()
+                                ) / float(got.abs().max())
+            p1 = cuda_median_ms(
+                lambda: gauss_blur_cm_reference(x, k1d, r, mask), 10)
+            k1 = cuda_median_ms(lambda: gauss_blur_cm(x, k1d, r, mask=mask),
+                                30)
+            k2 = cuda_median_ms(lambda: gauss_blur_cm(x, k1d, r, mask=mask),
+                                30)
+            p2 = cuda_median_ms(
+                lambda: gauss_blur_cm_reference(x, k1d, r, mask), 10)
+            lib_ms = cuda_median_ms(library, 30)
+            dev = device_ms(lambda: gauss_blur_cm(x, k1d, r, mask=mask),
+                            reps=20, match=gauss_blur_cm.kernel_name)
+            # 20 calls back to back between two events: the kernels queue
+            # up, so this is about their device time when the host keeps
+            # ahead
+            burst = cuda_median_ms(
+                lambda: [gauss_blur_cm(x, k1d, r, mask=mask)
+                         for _ in range(20)], 5) / 20
+            # x read and out written once, the mask read once
+            nbytes = 2 * x.numel() * 4 + (0 if mask is None
+                                          else mask.numel() * 4)
+            flops = 2 * 2 * (2 * r + 1) * x.numel() + (
+                0 if mask is None else x.numel())
+            bnd = bound(nbytes, flops)
+            print(f"kernel gauss_blur_cm {shape} r {r} {tag} median "
+                  f"{k1:.4f} / {k2:.4f} ms per call (CUDA events), "
+                  f"{burst:.4f} ms per call of 20 back to back, "
+                  f"{dev * 1e3:.2f} us of kernel (profiler, "
+                  f"{bnd['bound_ms'] / dev:.1%} of the bound); plain median "
+                  f"{p1:.4f} / {p2:.4f} ms; library F.conv2d {lib_ms:.4f} "
+                  f"ms (unmasked; rel diff {lib_err:.2e}); bound "
+                  f"{bnd['bound_ms'] * 1e3:.2f} us ({bnd['bound_by']}, "
+                  f"{nbytes / 1e6:.1f} MB) ({card})", flush=True)
+            if entry is None and mask is not None:
+                entry = {"name": "gauss_blur_cm", "route": "cuda",
+                         "source": "wseg_tpu_torch/csrc/crf_gauss.cu",
+                         "replaces": "wseg_tpu/ops/crf_pallas.py:159",
+                         "max_abs_err": max_abs, "ms": min(k1, k2),
+                         "plain_ms": min(p1, p2), **bnd,
+                         # no one call blurs x * mask: F.conv2d (printed
+                         # above) computes the unmasked blur only
+                         "library_ms": None}
     return entry
 
 

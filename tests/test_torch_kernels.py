@@ -153,11 +153,20 @@ def test_postprocess_launches_twelve_kernels_on_card():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("shape,r", [((2, 1, 16, 24), 3),
                                      ((2, 5, 20, 28), 6),
                                      ((1, 3, 5, 9), 6),
-                                     ((8, 21, 384, 512), 6)])
-def test_gauss_kernel_matches_plain_on_card(shape, r):
+                                     ((2, 3, 19, 30), 3),    # W % 4 = 2
+                                     ((2, 2, 13, 10), 0),
+                                     ((1, 2, 40, 70), 16),
+                                     ((3, 4, 50, 20), 6),    # one band
+                                     ((8, 21, 192, 256), 3),
+                                     ((8, 21, 384, 512), 6),
+                                     ((8, 1, 384, 512), 6),
+                                     ((8, 1, 192, 256), 3)])
+def test_gauss_kernel_matches_plain_on_card(shape, r, masked):
+    """One launch per call, the mask multiply inside it."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     import math
@@ -167,17 +176,43 @@ def test_gauss_kernel_matches_plain_on_card(shape, r):
         gauss_blur_cm_reference,
     )
 
-    k1d = [math.exp(-i * i / (2.0 * (r / 2.0) ** 2)) for i in range(-r, r + 1)]
+    sxy = max(r / 2.0, 0.5)
+    k1d = [math.exp(-i * i / (2.0 * sxy ** 2)) for i in range(-r, r + 1)]
     gen = torch.Generator(device="cuda").manual_seed(0)
     x = torch.rand(shape, generator=gen, device="cuda")
+    mask = None
+    if masked:
+        b, _, h, w = shape
+        mask = (torch.rand((b, 1, h, w), generator=gen, device="cuda")
+                > 0.3).float()
     before = gauss_blur_cm.launches
-    got = gauss_blur_cm(x, k1d, r)
+    got = gauss_blur_cm(x, k1d, r, mask=mask)
     torch.cuda.synchronize()
     assert gauss_blur_cm.launches == before + 1
-    want = gauss_blur_cm_reference(x, k1d, r)
+    want = gauss_blur_cm_reference(x, k1d, r, mask)
     # same taps and order; only FMA contraction differs
     err = float((got - want).abs().max()) / float(want.abs().max())
     assert err <= 1e-5, err
+
+
+@pytest.mark.gpu
+def test_gauss_kernel_refuses_what_it_cannot_run():
+    """A radius over the kernel's and a mask of another shape raise and
+    launch nothing; there is no other path."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from wseg_tpu_torch.ops.crf_gauss import MAX_R, gauss_blur_cm
+
+    x = torch.rand((1, 2, 40, 64), device="cuda")
+    before = gauss_blur_cm.launches
+    with pytest.raises(ValueError, match="radius"):
+        gauss_blur_cm(x, [1.0] * (2 * MAX_R + 3), MAX_R + 1)
+    with pytest.raises(ValueError, match="mask"):
+        gauss_blur_cm(x, [1.0, 2.0, 1.0], 1,
+                      mask=torch.ones((1, 2, 40, 64), device="cuda"))
+    with pytest.raises(ValueError, match="mask on"):
+        gauss_blur_cm(x, [1.0, 2.0, 1.0], 1, mask=torch.ones((1, 1, 40, 64)))
+    assert gauss_blur_cm.launches == before
 
 
 VARIANTS = [("propagate_fold_cm", {"block_b": 4}, 1e-5),

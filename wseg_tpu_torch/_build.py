@@ -76,9 +76,13 @@ def library_path(name: str) -> Path:
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` or ``.cc`` unless its library is already
     built.  Returns the library path; raises with the compiler's output
-    on failure."""
+    on failure.  The output (``-Xptxas -v``'s lines) goes to ``build.log``
+    and to a ``.log`` file beside the library."""
     lib = library_path(name)
+    log = lib.with_suffix(".log")
     if lib.exists():
+        if name not in build.log and log.exists():
+            build.log[name] = log.read_text()
         return lib
     src = source(name)
     cmd = _command(src)
@@ -89,12 +93,13 @@ def build(name: str) -> Path:
     if proc.returncode != 0:
         raise RuntimeError(f"build of {src.name} failed:\n{proc.stdout}\n"
                            f"{proc.stderr}")
-    os.replace(tmp, lib)
     build.log[name] = (proc.stdout + proc.stderr).strip()
+    log.write_text(build.log[name])
+    os.replace(tmp, lib)
     return lib
 
 
-build.log = {}
+build.log = {}  # compiler output by name, also kept beside the library
 
 
 def load(name: str) -> ctypes.CDLL:

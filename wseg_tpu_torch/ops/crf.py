@@ -164,6 +164,7 @@ def _crf_torch_cm(img, probs, t, sxy_gaussian, compat_gaussian,
     img_f = img.float()
     if valid_mask is None:
         valid_mask = torch.ones((B, 1, H, W), device=dev)
+    valid_mask = valid_mask.float().contiguous()  # the blur's mask operand
 
     # --- Gaussian kernel: unnormalised separable 1-D weights
     rg = int(round(2.0 * sxy_gaussian))
@@ -172,7 +173,8 @@ def _crf_torch_cm(img, probs, t, sxy_gaussian, compat_gaussian,
            np.exp(-x1d * x1d / (2.0 * sxy_gaussian * sxy_gaussian))]
 
     def gauss_filter(x):
-        return gauss_blur_cm((x * valid_mask).contiguous(), k1d, rg)
+        # the kernel multiplies by the mask as it loads x
+        return gauss_blur_cm(x.contiguous(), k1d, rg, mask=valid_mask)
 
     # --- bilateral: optionally on a strided grid
     s = int(bilateral_stride)
