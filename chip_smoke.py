@@ -306,15 +306,16 @@ def ptxas_lines(name: str, entry: str) -> list:
 
 def phase_gauss(card: str) -> dict:
     """The Gaussian-blur kernel against its plain version at the fast
-    CRF's four filter shapes, each without and with the valid mask (as
-    the CRF calls it); returns the entry of the coarse grid's masked
-    filter (9 of the 12 launches of a postprocess call), without
-    launches."""
+    CRF's four filter shapes, each without and with the valid mask as
+    the CRF calls it (at C = 1 the norm filter blurs the mask itself, so
+    x is the mask); returns the entry of the coarse grid's masked filter
+    (9 of the 12 launches of a postprocess call), without launches."""
     import torch
     import torch.nn.functional as F
 
     from wseg_tpu_torch.ops.crf_gauss import (
-        _registers,
+        BANDS,
+        _occupancy,
         _sm_count,
         gauss_blur_cm,
         gauss_blur_cm_reference,
@@ -339,15 +340,21 @@ def phase_gauss(card: str) -> dict:
         # the library yardstick: one cuDNN convolution of the (B*C, 1, H,
         # W) view with the (2r+1)^2 outer-product kernel, TF32 off
         k2d = torch.outer(torch.tensor(k1d), torch.tensor(k1d)).to(x)
-        xv = x.view(-1, 1, h, w)
-
-        def library():
-            return F.conv2d(xv, k2d[None, None], padding=r)
 
         for mask in (None, valid):
             tag = "masked" if mask is not None else "unmasked"
-            plan = gauss_plan(b * c, h, w, r, mask is not None,
-                              _registers(r), _sm_count(0))
+            # the norm filter: gauss_filter(valid_mask), x and mask one
+            # tensor (0/1, so the function is the blur of the mask)
+            if mask is not None and c == 1:
+                x = valid
+            xv = x.view(-1, 1, h, w)
+
+            def library():
+                return F.conv2d(xv, k2d[None, None], padding=r)
+
+            masked = mask is not None
+            plan = gauss_plan(b * c, h, w, r, masked,
+                              _occupancy(r, masked, 0), _sm_count(0))
             got = gauss_blur_cm(x, k1d, r, mask=mask)
             want = gauss_blur_cm_reference(x, k1d, r, mask)
             torch.cuda.synchronize()
@@ -356,13 +363,16 @@ def phase_gauss(card: str) -> dict:
             print(f"kernel gauss_blur_cm at {shape}, r {r}, {tag}: band "
                   f"{plan.bw} x {plan.sh} rows, {plan.threads} threads, "
                   f"{plan.smem_bytes()} B of shared memory, "
-                  f"{_registers(r)} registers, {plan.blocks_per_sm} blocks "
-                  f"an SM, {plan.blocks} blocks ({plan.waves:.2f} waves); "
+                  f"{_occupancy(r, masked, 0)} blocks an SM at bands "
+                  f"{BANDS}, {plan.blocks} blocks ({plan.waves:.2f} waves); "
                   f"max_abs_err {max_abs:.3e}, rel {rel:.3e} (tol "
                   f"{KERNEL_REL_TOL:g})", flush=True)
             check(rel <= KERNEL_REL_TOL, f"Gaussian kernel disagrees with "
                   f"plain at {shape}, {tag}: rel {rel}")
-            if mask is None:
+            # F.conv2d computes the same function without a mask, and for
+            # the norm filter (a 0/1 mask times itself); else it blurs x
+            same = mask is None or x is mask
+            if same:
                 lib_err = float((library().view(shape) - got).abs().max()
                                 ) / float(got.abs().max())
             p1 = cuda_median_ms(
@@ -382,9 +392,9 @@ def phase_gauss(card: str) -> dict:
             burst = cuda_median_ms(
                 lambda: [gauss_blur_cm(x, k1d, r, mask=mask)
                          for _ in range(20)], 5) / 20
-            # x read and out written once, the mask read once
-            nbytes = 2 * x.numel() * 4 + (0 if mask is None
-                                          else mask.numel() * 4)
+            # x read and out written once, the mask read once where it
+            # is not x
+            nbytes = 2 * x.numel() * 4 + (0 if same else mask.numel() * 4)
             flops = 2 * 2 * (2 * r + 1) * x.numel() + (
                 0 if mask is None else x.numel())
             bnd = bound(nbytes, flops)
@@ -394,7 +404,8 @@ def phase_gauss(card: str) -> dict:
                   f"{dev * 1e3:.2f} us of kernel (profiler, "
                   f"{bnd['bound_ms'] / dev:.1%} of the bound); plain median "
                   f"{p1:.4f} / {p2:.4f} ms; library F.conv2d {lib_ms:.4f} "
-                  f"ms (unmasked; rel diff {lib_err:.2e}); bound "
+                  f"ms ({'the same function' if same else 'unmasked x'}; "
+                  f"rel diff {lib_err:.2e}); bound "
                   f"{bnd['bound_ms'] * 1e3:.2f} us ({bnd['bound_by']}, "
                   f"{nbytes / 1e6:.1f} MB) ({card})", flush=True)
             if entry is None and mask is not None:

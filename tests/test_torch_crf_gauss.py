@@ -79,6 +79,11 @@ def test_wrapper_rejects_bad_inputs():
 # the four filter shapes of a fast postprocess call, as (planes, h, w, r)
 FLAGSHIP = [(8 * 21, 192, 256, 3), (8 * 21, 384, 512, 6),
             (8, 384, 512, 6), (8, 192, 256, 3)]
+# a card of SMS SMs holding OCCUPANCY[i] blocks of band width BANDS[i]
+# (about what an H100's occupancy calculator gives at r 3 and 6); on the
+# card the wrapper asks the calculator
+SMS = 132
+OCCUPANCY = (6, 8, 10)
 
 
 @pytest.mark.parametrize("masked", [True, False])
@@ -86,43 +91,57 @@ FLAGSHIP = [(8 * 21, 192, 256, 3), (8 * 21, 384, 512, 6),
 def test_plan_covers_the_plane_and_fills_the_card(planes, h, w, r, masked):
     """Every output in one tile, halos reaching r; the 21-class grids
     fill at least WAVES waves, the small C = 1 ones stop at the halo
-    share (no segment shorter than HALO_SHARE x 2r rows) with a block
-    for every SM."""
+    share (no segment shorter than HALO_SHARE x 2r rows) unless a grid
+    of such segments fills the waves, with a block for every SM."""
     from wseg_tpu_torch.ops.crf_gauss import (
+        BANDS,
         HALO_SHARE,
         MAX_THREADS,
         SMEM_LIMIT,
-        SMS,
         WAVES,
         gauss_plan,
     )
 
-    for regs in (None, 32):  # the launch bounds' cap, and fewer
-        plan = gauss_plan(planes, h, w, r, masked, regs)
+    for per_sm in (OCCUPANCY, (2, 3, 4)):  # and a card holding fewer
+        plan = gauss_plan(planes, h, w, r, masked, per_sm, SMS)
         cover = np.zeros((h, w), np.int32)
-        r4 = (r + 3) // 4 * 4
         for y0, y1, x0, x1 in plan.tiles():
             cover[y0:y1, x0:x1] += 1
-            # the staged span and rows reach r past the tile
-            assert x0 - r4 <= x0 - r and x1 + r <= x0 + plan.span - r4
             assert y1 - y0 <= plan.sh
         assert (cover == 1).all()
+        # the staged span reaches at least r columns past each side
+        assert (plan.span - plan.bw) // 2 >= r
         assert plan.threads <= MAX_THREADS and plan.threads >= plan.span
         assert plan.smem_bytes() <= SMEM_LIMIT
-        assert plan.blocks_per_sm >= 1
-        assert plan.sh >= HALO_SHARE * 2 * r
+        assert plan.blocks_per_sm == per_sm[BANDS.index(plan.bw)]
+        assert plan.waves == plan.blocks / (SMS * plan.blocks_per_sm)
+        sh_min = HALO_SHARE * 2 * r
+        assert plan.sh >= sh_min
         if planes > 8:
-            assert plan.blocks >= WAVES * SMS * plan.blocks_per_sm, plan
+            assert plan.waves >= WAVES, plan
         else:
             assert plan.blocks >= SMS, plan
-            assert plan.sh == HALO_SHARE * 2 * r, plan
+            assert plan.waves >= WAVES or plan.sh == sh_min, plan
 
 
 def test_plan_rejects_a_radius_over_the_kernels():
     from wseg_tpu_torch.ops.crf_gauss import MAX_R, gauss_plan
 
     with pytest.raises(ValueError, match="radius"):
-        gauss_plan(1, 64, 64, MAX_R + 1)
+        gauss_plan(1, 64, 64, MAX_R + 1, False, OCCUPANCY, SMS)
+
+
+def test_plan_takes_an_occupancy_for_every_band():
+    """A band width the card holds no block of is never planned; an
+    occupancy tuple of the wrong length raises."""
+    from wseg_tpu_torch.ops.crf_gauss import gauss_plan
+
+    plan = gauss_plan(8 * 21, 192, 256, 3, True, (0, 8, 10), SMS)
+    assert plan.bw != 128 and plan.blocks_per_sm in (8, 10)
+    with pytest.raises(ValueError, match="band"):
+        gauss_plan(8, 64, 64, 3, False, (6, 8), SMS)
+    with pytest.raises(ValueError, match="band"):
+        gauss_plan(8, 64, 64, 3, False, (0, 0, 0), SMS)
 
 
 @pytest.mark.parametrize("masked", [False, True])
@@ -150,7 +169,7 @@ def test_tiled_schedule_is_the_plain_blur(b, c, h, w, r, bw, sh, masked):
     mask = (torch.from_numpy((rng.rand(b, 1, h, w) > 0.3).astype(
         np.float32)) if masked else None)
     k1d = _taps(r, max(r / 2.0, 0.5))
-    plan = gauss_plan(b * c, h, w, r, masked)
+    plan = gauss_plan(b * c, h, w, r, masked, OCCUPANCY, SMS)
     if bw is not None:
         plan = dataclasses.replace(plan, bw=bw, sh=sh)
     got = gauss_blur_cm_tiled_reference(x, k1d, r, mask, plan)

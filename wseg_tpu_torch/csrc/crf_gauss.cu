@@ -48,9 +48,10 @@
 //   so the caller's separate multiply (one more read and write of the
 //   tensor and one more launch) is gone.  x * mask is rounded as the
 //   plain version rounds it.
-// - The host plan (ops/crf_gauss.py::gauss_plan) alone picks BW and SH
-//   so that the grid fills the card with at least two waves; the entry
-//   only checks them.
+// - The host plan (ops/crf_gauss.py::gauss_plan) alone picks BW and SH:
+//   no segment shorter than HALO_SHARE x 2r rows, and at least WAVES
+//   waves at the blocks an SM that wseg_crf_gauss_occupancy reports
+//   where segments that long allow it.  The entry only checks them.
 //
 // Sum order: the H pass first, then the W pass, each over taps in index
 // order, as the plain version: they agree to FMA contraction.
@@ -317,10 +318,19 @@ int launch(const float* x, const float* mask, float* out, const Taps& taps,
 }
 
 template <int R>
-int registers() {
-  cudaFuncAttributes attr;
-  const cudaError_t err = cudaFuncGetAttributes(&attr, gauss_band_kernel<R>);
-  return err == cudaSuccess ? attr.numRegs : -static_cast<int>(err);
+int occupancy(int threads, int smem) {
+  auto kernel = gauss_band_kernel<R>;
+  cudaError_t err = cudaSuccess;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  }
+  int blocks = 0;
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                        threads, smem);
+  }
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
 #define WSEG_RADII(X)                                                     \
@@ -340,15 +350,19 @@ extern "C" int wseg_crf_gauss_limits(int* out) {
   return n;
 }
 
-// Registers a thread of the radius-r instance uses (the plan's
-// occupancy), or minus a CUDA error.
-extern "C" int wseg_crf_gauss_registers(int r) {
+// Blocks of the radius-r instance an SM of the current device holds at
+// `threads` threads and `smem` bytes of dynamic shared memory (the host
+// plan's occupancy), or minus a CUDA error.
+extern "C" int wseg_crf_gauss_occupancy(int r, int threads, int smem) {
+  if (threads <= 0 || threads > kMaxThreads || smem < 0 || smem > kMaxSmem) {
+    return -static_cast<int>(cudaErrorInvalidValue);
+  }
   switch (r) {
-#define WSEG_REGS(n) \
-  case n:            \
-    return registers<n>();
-    WSEG_RADII(WSEG_REGS)
-#undef WSEG_REGS
+#define WSEG_OCCUPANCY(n) \
+  case n:                 \
+    return occupancy<n>(threads, smem);
+    WSEG_RADII(WSEG_OCCUPANCY)
+#undef WSEG_OCCUPANCY
   }
   return -static_cast<int>(cudaErrorInvalidValue);
 }

@@ -40,13 +40,6 @@ STAGES = 3           # input row groups in the kernel's cp.async ring
 SMEM_LIMIT = 232448  # dynamic shared memory a block may use (H100)
 LIMITS = (MAX_R, MAX_THREADS, STAGES, SMEM_LIMIT)
 BANDS = (128, 64, 32)  # output columns of a band, widest first
-# an H100 SM (the occupancy calculator's numbers) and the card's SMs
-SM_SMEM = 233472     # shared memory of an SM, bytes
-SM_REGS = 65536
-SM_WARPS = 64
-SM_BLOCKS = 32
-BLOCK_SMEM_RESERVED = 1024  # the runtime's share of each block's
-SMS = 132
 WAVES = 2            # the grid fills at least this many waves ...
 HALO_SHARE = 2       # ... with at least this many output rows a segment
                      # for each of its 2r halo rows
@@ -56,17 +49,10 @@ def _round4(r: int) -> int:
     return (r + 3) // 4 * 4
 
 
-def min_blocks(r: int) -> int:
-    """The kernel's ``__launch_bounds__`` blocks an SM at radius r."""
-    return 6 if r <= 8 else 3
-
-
-def register_cap(r: int) -> int:
-    """The most registers a thread of the radius-r instance may use
-    under its launch bounds (the plan's occupancy when the instance's
-    own count is not known)."""
-    warps = -(-MAX_THREADS // 32) * min_blocks(r)
-    return SM_REGS // (warps * 32) // 8 * 8
+def block_threads(r: int, bw: int) -> int:
+    """Threads of a block: one per column of the staged span, whole
+    warps."""
+    return -(-(bw + 2 * _round4(r)) // 32) * 32
 
 
 @dataclass(frozen=True)
@@ -87,6 +73,7 @@ class GaussPlan:
     sh: int
     masked: bool
     blocks_per_sm: int
+    sms: int
 
     @property
     def span(self) -> int:
@@ -94,7 +81,7 @@ class GaussPlan:
 
     @property
     def threads(self) -> int:
-        return -(-self.span // 32) * 32
+        return block_threads(self.r, self.bw)
 
     @property
     def bands(self) -> int:
@@ -110,7 +97,7 @@ class GaussPlan:
 
     @property
     def waves(self) -> float:
-        return self.blocks / (SMS * self.blocks_per_sm)
+        return self.blocks / (self.sms * self.blocks_per_sm)
 
     def smem_bytes(self) -> int:
         return smem_bytes(self.r, self.bw, self.masked)
@@ -139,56 +126,47 @@ def smem_bytes(r: int, bw: int, masked: bool) -> int:
     return 4 * (2 * r + 1) * (bw + 2 * _round4(r)) * groups
 
 
-def blocks_per_sm(threads: int, smem: int, regs: int) -> int:
-    """Resident blocks an SM allows by warps, registers (allocated 256 a
-    warp) and shared memory."""
-    warps = -(-threads // 32)
-    by_regs = SM_REGS // (warps * (-(-regs * 32 // 256) * 256))
-    by_smem = SM_SMEM // (smem + BLOCK_SMEM_RESERVED)
-    return max(0, min(SM_BLOCKS, SM_WARPS // warps, by_regs, by_smem))
-
-
 @functools.lru_cache(maxsize=256)
-def gauss_plan(planes: int, h: int, w: int, r: int, masked: bool = False,
-               regs: Optional[int] = None, sms: int = SMS) -> GaussPlan:
-    """The host plan for ``planes`` (h, w) planes at radius r.
+def gauss_plan(planes: int, h: int, w: int, r: int, masked: bool,
+               per_sm: Tuple[int, ...], sms: int) -> GaussPlan:
+    """The host plan for ``planes`` (h, w) planes at radius r, on a card
+    of ``sms`` SMs of which each holds ``per_sm[i]`` blocks of band
+    width ``BANDS[i]`` (on the card: ``_occupancy``, the CUDA occupancy
+    calculator's count for the instance).
 
     A segment has at least ``HALO_SHARE`` output rows per halo row (its
     2r halo rows cost the H pass and the L2 as much as output rows), and
     among the band widths and segment heights that allow, the plan takes
-    those whose grid fills at least WAVES waves of ``sms`` SMs at the
-    blocks an SM that the kernel's registers (``regs`` a thread; by
-    default its launch bounds' cap) and shared memory allow.  Of these
-    it picks the least modelled time: the (row, thread) steps of all
-    blocks, stretched by the share of the last wave left idle.  Where
-    none fills the waves (a small tensor: the C = 1 norm filters), it
-    takes the shortest segments the halo share allows."""
+    those whose grid fills at least WAVES waves.  Of these it picks the
+    least modelled time: the (row, thread) steps of all blocks,
+    stretched by the share of the last wave left idle.  Where none
+    fills the waves (a small tensor: the C = 1 norm filters), it takes
+    the shortest segments the halo share allows."""
     if not 0 <= r <= MAX_R:
         raise ValueError(f"radius {r} exceeds the kernel's {MAX_R}")
     if planes <= 0 or h <= 0 or w <= 0:
         raise ValueError(f"no plan for {planes} planes of {h} x {w}")
-    regs = register_cap(r) if regs is None else int(regs)
+    if len(per_sm) != len(BANDS):
+        raise ValueError(f"{len(per_sm)} occupancies for the "
+                         f"{len(BANDS)} band widths {BANDS}")
     sh_min = min(h, max(1, HALO_SHARE * 2 * r))
     best = None
-    for bw in BANDS:
-        smem = smem_bytes(r, bw, masked)
-        span = bw + 2 * _round4(r)
-        threads = -(-span // 32) * 32
-        per_sm = blocks_per_sm(threads, smem, regs)
-        if smem > SMEM_LIMIT or per_sm == 0:
+    for bw, fit in zip(BANDS, per_sm):
+        if smem_bytes(r, bw, masked) > SMEM_LIMIT or fit <= 0:
             continue
         bands = -(-w // bw)
         for sh in range(sh_min, h + 1):  # the evenest sh of a count first
             segs = -(-h // sh)
-            waves = planes * bands * segs / (sms * per_sm)
+            waves = planes * bands * segs / (sms * fit)
             # every block's threads walk its sh + 2r rows (the last
             # segment's fewer)
-            cells = planes * bands * (h + segs * 2 * r) * threads
+            cells = (planes * bands * (h + segs * 2 * r)
+                     * block_threads(r, bw))
             cost = cells * math.ceil(waves) / waves
             key = ((False, cost) if waves >= WAVES else (True, -segs), cost)
             if best is None or key < best[0]:
                 best = (key, GaussPlan(planes, h, w, r, bw, sh, masked,
-                                       per_sm))
+                                       fit, sms))
     if best is None:
         raise ValueError(f"no band of the Gaussian blur fits at radius {r}")
     return best[1]
@@ -209,17 +187,12 @@ def gauss_blur_cm_reference(x: torch.Tensor, k1d: Sequence[float], r: int,
 
 
 def gauss_blur_cm_tiled_reference(x: torch.Tensor, k1d: Sequence[float],
-                                  r: int,
-                                  mask: Optional[torch.Tensor] = None,
-                                  plan: Optional[GaussPlan] = None
-                                  ) -> torch.Tensor:
+                                  r: int, mask: Optional[torch.Tensor],
+                                  plan: GaussPlan) -> torch.Tensor:
     """Plain torch version of the kernel's schedule: each tile of
-    ``plan`` (by default ``gauss_plan`` of x) computed from its own
-    staged span and rows only, zeros outside the plane, H pass then W
-    pass in tap order, and stitched."""
+    ``plan`` computed from its own staged span and rows only, zeros
+    outside the plane, H pass then W pass in tap order, and stitched."""
     b, c, h, w = x.shape
-    if plan is None:
-        plan = gauss_plan(b * c, h, w, r, mask is not None)
     r4 = _round4(r)
     if mask is not None:
         x = x * mask
@@ -249,8 +222,8 @@ def _library():
     fn.restype = ctypes.c_int
     lib.wseg_crf_gauss_limits.argtypes = [ctypes.c_void_p]
     lib.wseg_crf_gauss_limits.restype = ctypes.c_int
-    lib.wseg_crf_gauss_registers.argtypes = [ctypes.c_int]
-    lib.wseg_crf_gauss_registers.restype = ctypes.c_int
+    lib.wseg_crf_gauss_occupancy.argtypes = [ctypes.c_int] * 3
+    lib.wseg_crf_gauss_occupancy.restype = ctypes.c_int
     got = (ctypes.c_int * 8)()
     n = lib.wseg_crf_gauss_limits(ctypes.addressof(got))
     if tuple(got[:n]) != LIMITS:
@@ -261,12 +234,22 @@ def _library():
 
 
 @functools.lru_cache(maxsize=None)
-def _registers(r: int) -> int:
-    regs = _library().wseg_crf_gauss_registers(r)
-    if regs <= 0:
-        raise RuntimeError(f"no Gaussian blur kernel of radius {r}: CUDA "
-                           f"error {-regs}")
-    return regs
+def _occupancy(r: int, masked: bool, index: int) -> Tuple[int, ...]:
+    """Blocks an SM of card ``index`` holds of the radius-r instance at
+    each band width of BANDS (0 where its shared memory does not fit)."""
+    lib = _library()
+    fits = []
+    with torch.cuda.device(index):
+        for bw in BANDS:
+            smem = smem_bytes(r, bw, masked)
+            n = (lib.wseg_crf_gauss_occupancy(r, block_threads(r, bw),
+                                              smem)
+                 if smem <= SMEM_LIMIT else 0)
+            if n < 0:
+                raise RuntimeError(f"no occupancy for the Gaussian blur of "
+                                   f"radius {r}: CUDA error {-n}")
+            fits.append(n)
+    return tuple(fits)
 
 
 @functools.lru_cache(maxsize=None)
@@ -313,7 +296,8 @@ def gauss_blur_cm(x: torch.Tensor, k1d: Sequence[float], r: int,
         return out
     index = x.device.index if x.device.index is not None else \
         torch.cuda.current_device()
-    plan = gauss_plan(b * c, h, w, r, mask is not None, _registers(r),
+    masked = mask is not None
+    plan = gauss_plan(b * c, h, w, r, masked, _occupancy(r, masked, index),
                       _sm_count(index))
     vec = (w % 4 == 0 and x.data_ptr() % 16 == 0
            and out.data_ptr() % 16 == 0
