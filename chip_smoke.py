@@ -22,7 +22,9 @@ from the repository root.  Phases, each printing its own lines:
    against the same math on the CPU;
 5. PAMR kernels vs plain: the affinity and propagation kernels against
    their plain versions at the flagship shapes (guide (8, 48, 48, 3),
-   mask (8, 48, 48, 21), dilations 1-24, 10 steps), errors and times;
+   mask (8, 48, 48, 21), dilations 1-24, 10 steps), and the propagation
+   at (8, 96, 96, 21) too: errors, call times, the profiler's kernel
+   times and bounds, the propagation's host plan and ptxas lines;
    then the three lab variants (fold, dxfirst, mxu) against theirs at
    the same shapes, and the lab ``wseg_tpu_torch.bench_pamr`` at
    (8, 96, 96, 21), whose run gives the variants' launch counts;
@@ -85,6 +87,8 @@ GAUSS_CASES = (((8, 21, 192, 256), 3), ((8, 21, 384, 512), 6),
                ((8, 1, 384, 512), 6), ((8, 1, 192, 256), 3))
 # flagship PAMR shapes: batch 8, the 384 crop at stride 8, 21 classes
 PAMR_SHAPE = (8, 48, 48, 21)
+# the PAMR lab's second shape, at which the propagation is timed too
+PAMR_LAB_SHAPE = (8, 96, 96, 21)
 PAMR_DIL = (1, 2, 4, 8, 12, 24)
 PAMR_ITER = 10
 PAMR_REL_TOL = 1e-5
@@ -275,7 +279,7 @@ def phase_kernel(card: str) -> dict:
         if entry is None:
             entry = {"name": "bilateral_message_cm", "route": "cuda",
                      "source": "wseg_tpu_torch/csrc/crf_bilateral.cu",
-                     "replaces": "wseg_tpu/ops/crf_pallas.py:87",
+                     "replaces": "wseg_tpu/ops/crf_pallas.py:108",
                      "max_abs_err": max_abs, "ms": min(ms, ms2),
                      "plain_ms": min(plain_ms, plain_ms2), **bnd,
                      "library_ms": None}
@@ -411,7 +415,7 @@ def phase_gauss(card: str) -> dict:
             if entry is None and mask is not None:
                 entry = {"name": "gauss_blur_cm", "route": "cuda",
                          "source": "wseg_tpu_torch/csrc/crf_gauss.cu",
-                         "replaces": "wseg_tpu/ops/crf_pallas.py:159",
+                         "replaces": "wseg_tpu/ops/crf_pallas.py:167",
                          "max_abs_err": max_abs, "ms": min(k1, k2),
                          "plain_ms": min(p1, p2), **bnd,
                          # no one call blurs x * mask: F.conv2d (printed
@@ -526,70 +530,106 @@ def phase_slice(card: str) -> dict:
     return launches
 
 
-def phase_pamr_kernels(card: str) -> list:
-    """Both PAMR kernels against their plain versions at the flagship
-    shapes: (affinity entry, propagation entry) without launches."""
+def pamr_inputs(b: int, h: int, w: int, c: int, seed: int):
+    """Channels-major guide (B, 3, H, W) and softmax mask (B, C, H, W)."""
     import torch
 
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    guide = torch.rand((b, h, w, 3), generator=gen, device="cuda")
+    mask = torch.softmax(torch.randn((b, h, w, c), generator=gen,
+                                     device="cuda") * 3, dim=-1)
+    return (guide.permute(0, 3, 1, 2).contiguous(),
+            mask.permute(0, 3, 1, 2).contiguous())
+
+
+def phase_pamr_kernels(card: str) -> list:
+    """Both PAMR kernels against their plain versions at the flagship
+    shapes, and the propagation also at the lab's (8, 96, 96, 21):
+    errors, call times, the profiler's kernel time, bounds, the
+    propagation's host plan and ptxas lines.  Returns the flagship's
+    (affinity entry, propagation entry) without launches."""
     from wseg_tpu_torch.ops.pamr_cuda import (
         pamr_affinity_cm,
         pamr_affinity_cm_reference,
         pamr_propagate_cm,
         pamr_propagate_cm_reference,
         pamr_taps,
+        propagate_plan_for,
     )
 
-    b, h, w, c = PAMR_SHAPE
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    guide = torch.rand((b, h, w, 3), generator=gen, device="cuda")
-    mask = torch.softmax(torch.randn((b, h, w, c), generator=gen,
-                                     device="cuda") * 3, dim=-1)
-    im_cm = guide.permute(0, 3, 1, 2).contiguous()
-    m_cm = mask.permute(0, 3, 1, 2).contiguous()
-    aff = pamr_affinity_cm(im_cm, PAMR_DIL)
-    aff_ref = pamr_affinity_cm_reference(im_cm, PAMR_DIL)
-    out = pamr_propagate_cm(aff_ref, m_cm, PAMR_DIL, PAMR_ITER)
-    out_ref = pamr_propagate_cm_reference(aff_ref, m_cm, PAMR_DIL,
-                                          PAMR_ITER)
-    torch.cuda.synchronize()
     t = len(PAMR_DIL) * 8
     taps9 = [tap for d in PAMR_DIL for tap in pamr_taps((d,)) + [(0, 0)]]
-    # affinity: per pixel and channel 4 ops per sigma tap (mean, then
-    # deviation squared and summed) + 4 per logit tap; 3 per softmax tap
-    aff_flops = b * h * w * (3 * 4 * len(taps9) + 3 * 4 * t + 3 * t)
     entries = []
-    for name, src, got, want, plain, kernel, nbytes, flops in (
-            ("pamr_affinity_cm", "wseg_tpu/ops/pamr_pallas.py:203", aff,
-             aff_ref, lambda: pamr_affinity_cm_reference(im_cm, PAMR_DIL),
-             lambda: pamr_affinity_cm(im_cm, PAMR_DIL),
-             (im_cm.numel() + aff.numel()) * 4, aff_flops),
-            ("pamr_propagate_cm", "wseg_tpu/ops/pamr_pallas.py:117", out,
-             out_ref,
-             lambda: pamr_propagate_cm_reference(aff_ref, m_cm, PAMR_DIL,
-                                                 PAMR_ITER),
-             lambda: pamr_propagate_cm(aff_ref, m_cm, PAMR_DIL, PAMR_ITER),
-             (aff_ref.numel() + 2 * m_cm.numel()) * 4,
-             # edge replication: every tap reads a pixel, none is skipped
-             2 * b * c * PAMR_ITER * t * h * w)):
-        max_abs = float((got - want).abs().max())
-        rel = max_abs / float(want.abs().max())
-        print(f"kernel {name} at {PAMR_SHAPE}, dilations {PAMR_DIL}, "
-              f"{PAMR_ITER} steps: max_abs_err {max_abs:.3e}, rel "
-              f"{rel:.3e} (tol {PAMR_REL_TOL:g})", flush=True)
-        check(rel <= PAMR_REL_TOL, f"{name} disagrees with plain: rel {rel}")
-        p1 = cuda_median_ms(plain, reps=10)
-        k1 = cuda_median_ms(kernel, reps=30)
-        k2 = cuda_median_ms(kernel, reps=30)
-        p2 = cuda_median_ms(plain, reps=10)
-        bnd = bound(nbytes, flops)
-        print(f"kernel {name} median {k1:.4f} / {k2:.4f} ms, plain median "
-              f"{p1:.4f} / {p2:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
-              f"({bnd['bound_by']}) ({card})", flush=True)
-        entries.append({"name": name, "route": "cuda",
-                        "source": "wseg_tpu_torch/csrc/pamr.cu",
-                        "replaces": src, "max_abs_err": max_abs,
-                        "ms": min(k1, k2), "plain_ms": min(p1, p2), **bnd,
-                        "library_ms": None})
+    for k, (b, h, w, c) in enumerate((PAMR_SHAPE, PAMR_LAB_SHAPE)):
+        shape = (b, h, w, c)
+        im_cm, m_cm = pamr_inputs(b, h, w, c, seed=1 + k)
+        aff = pamr_affinity_cm(im_cm, PAMR_DIL)
+        aff_ref = pamr_affinity_cm_reference(im_cm, PAMR_DIL)
+        out = pamr_propagate_cm(aff_ref, m_cm, PAMR_DIL, PAMR_ITER)
+        out_ref = pamr_propagate_cm_reference(aff_ref, m_cm, PAMR_DIL,
+                                              PAMR_ITER)
+        plan = propagate_plan_for(m_cm, len(PAMR_DIL), PAMR_ITER)
+        inst = f"pamr_propagate_cluster_kernelILi{plan.g}E"
+        lines = ptxas_lines("pamr", inst)
+        check(lines, f"no ptxas lines for {inst}")
+        print(f"propagation plan at {shape}: G {plan.g} channels a unit, "
+              f"clusters of N {plan.n} CTAs (rows {list(plan.bands())[:2]} "
+              f"...), the band's affinities {'kept in L1' if plan.aff_in_l1 else 'from L2'} "
+              f"by the model, carveout for {plan.ctas} CTAs an SM, "
+              f"{plan.threads} threads, {plan.smem_bytes()} B of shared "
+              f"memory, {plan.total_ctas} CTAs, {plan.clusters} clusters at once "
+              f"({plan.waves:.2f} waves); ptxas {inst}: "
+              f"{'; '.join(lines)}", flush=True)
+        # affinity: per pixel and channel 4 ops per sigma tap (mean, then
+        # deviation squared and summed) + 4 per logit tap; 3 per softmax
+        # tap
+        aff_flops = b * h * w * (3 * 4 * len(taps9) + 3 * 4 * t + 3 * t)
+        cases = [("pamr_propagate_cm", "wseg_tpu/ops/pamr_pallas.py:134",
+                  out, out_ref,
+                  lambda: pamr_propagate_cm_reference(aff_ref, m_cm, PAMR_DIL,
+                                                      PAMR_ITER),
+                  lambda: pamr_propagate_cm(aff_ref, m_cm, PAMR_DIL,
+                                            PAMR_ITER),
+                  pamr_propagate_cm.kernel_name,
+                  (aff_ref.numel() + 2 * m_cm.numel()) * 4,
+                  # edge replication: every tap reads a pixel
+                  2 * b * c * PAMR_ITER * t * h * w)]
+        if k == 0:
+            cases.insert(0, (
+                "pamr_affinity_cm", "wseg_tpu/ops/pamr_pallas.py:215", aff,
+                aff_ref, lambda: pamr_affinity_cm_reference(im_cm, PAMR_DIL),
+                lambda: pamr_affinity_cm(im_cm, PAMR_DIL),
+                pamr_affinity_cm.kernel_name,
+                (im_cm.numel() + aff.numel()) * 4, aff_flops))
+        for (name, src, got, want, plain, kernel, kname, nbytes,
+             flops) in cases:
+            max_abs = float((got - want).abs().max())
+            rel = max_abs / float(want.abs().max())
+            print(f"kernel {name} at {shape}, dilations {PAMR_DIL}, "
+                  f"{PAMR_ITER} steps: max_abs_err {max_abs:.3e}, rel "
+                  f"{rel:.3e} (tol {PAMR_REL_TOL:g})", flush=True)
+            check(rel <= PAMR_REL_TOL,
+                  f"{name} disagrees with plain at {shape}: rel {rel}")
+            p1 = cuda_median_ms(plain, reps=10)
+            k1 = cuda_median_ms(kernel, reps=30)
+            k2 = cuda_median_ms(kernel, reps=30)
+            p2 = cuda_median_ms(plain, reps=10)
+            dev = device_ms(kernel, reps=20, match=kname)
+            bnd = bound(nbytes, flops)
+            print(f"kernel {name} {shape} median {k1:.4f} / {k2:.4f} ms "
+                  f"per call (CUDA events), {dev * 1e3:.2f} us of kernel "
+                  f"(profiler, {bnd['bound_ms'] / dev:.1%} of the bound); "
+                  f"plain median {p1:.4f} / {p2:.4f} ms; bound "
+                  f"{bnd['bound_ms'] * 1e3:.2f} us ({bnd['bound_by']}, "
+                  f"{nbytes / 1e6:.1f} MB, {flops / 1e6:.1f} MFLOP) "
+                  f"({card})", flush=True)
+            if k == 0:
+                entries.append({"name": name, "route": "cuda",
+                                "source": "wseg_tpu_torch/csrc/pamr.cu",
+                                "replaces": src, "max_abs_err": max_abs,
+                                "ms": min(k1, k2), "plain_ms": min(p1, p2),
+                                "kernel_ms": dev, **bnd,
+                                "library_ms": None})
     return entries
 
 
@@ -626,9 +666,9 @@ def phase_pamr_variants(card: str) -> list:
          "propagate_mxu"),
         (pv.propagate_mxu_cm, {"block_b": 2, "precision": "default"}, False,
          None))
-    sources = {"propagate_fold": "tools/bench_pamr.py:90",
-               "propagate_dxfirst": "tools/bench_pamr.py:182",
-               "propagate_mxu": "tools/bench_pamr.py:280"}
+    sources = {"propagate_fold": "tools/bench_pamr.py:107",
+               "propagate_dxfirst": "tools/bench_pamr.py:199",
+               "propagate_mxu": "tools/bench_pamr.py:311"}
     entries = []
     for kernel, kw, f32, entry in cases:
         plain = getattr(pv, kernel.__name__ + "_reference")
@@ -1069,23 +1109,23 @@ def phase_lattice_kernels(card: str) -> list:
         e = tables.entries.numel()
         n_real = e // d1  # the pixels the CSR covers
         cases = (  # name, TPU kernel, kernel call, plain call, bytes, flops
-            ("lattice_weights", "wseg_tpu/ops/crf_mm.py:401",
+            ("lattice_weights", "wseg_tpu/ops/crf_mm.py:446",
              lambda: k.lattice_weights(tables.w, tables.w_csr,
                                        tables.entries, norm),
              lambda: k.lattice_weights_reference(tables.w, tables.w_csr,
                                                  tables.entries, norm),
              4 * (2 * n_pix * d1 + 3 * e + n_pix), n_pix * d1 + e),
-            ("lattice_splat", "wseg_tpu/ops/crf_mm.py:453",
+            ("lattice_splat", "wseg_tpu/ops/crf_mm.py:497",
              lambda: k.lattice_splat(tables, wn_csr, q),
              lambda: k.lattice_splat_split_reference(
                  tables.chunk_ptr, tables.chunk_row, tables.entries, wn_csr,
                  q, d1),
              4 * ((m + 1) + 2 * e + n_real * c + (m + 1) * c), 2 * e * c),
-            ("lattice_blur", "wseg_tpu/ops/crf_mm.py:504",
+            ("lattice_blur", "wseg_tpu/ops/crf_mm.py:544",
              lambda: k.lattice_blur(lat, tables.nbr),
              lambda: k.lattice_blur_axes_reference(lat, tables.nbr),
              4 * (2 * (m + 1) * c + 2 * d1 * m), 3 * d1 * m * c),
-            ("lattice_slice", "wseg_tpu/ops/crf_mm.py:504",
+            ("lattice_slice", "wseg_tpu/ops/crf_mm.py:544",
              lambda: k.lattice_slice(lat, tables.ids, wn_pix, tables.alpha),
              lambda: k.lattice_slice_reference(lat, tables.ids, wn_pix,
                                                tables.alpha),

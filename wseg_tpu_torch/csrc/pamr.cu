@@ -25,32 +25,62 @@
 //    guide's re-reads (3 passes x 54 taps) hit L1.  18,432 threads
 //    are 144 blocks, about one per SM.
 //
-// 2. pamr_propagate_kernel replaces pamr_pallas.py::
+// 2. pamr_propagate_cluster_kernel<G, P> replaces pamr_pallas.py::
 //    pamr_propagate_pallas (_propagate_kernel): num_iter Jacobi steps
-//    m <- sum_t aff_t * shift_t(m), all in ONE launch.  One block per
-//    (batch, channel) plane keeps the plane in shared memory, double-
-//    buffered (2 * H * W * 4 bytes: 18 KB at 48x48), and iterates with
-//    __syncthreads(); clamped indexing replaces the TPU kernel's
-//    re-padded copy.  It reads aff from global memory each iteration:
-//    the whole of it (3.5 MB at the flagship) stays in the 50 MB L2.
-//    This is the "(batch, channel) grid with the plane in shared memory"
-//    of the roadmap.  Of the TPU designs in tools/bench_pamr.py it is
-//    closest to propagate_fold (B8: one plane per grid step, all
-//    iterations in-kernel); the dx-first grouping (B9) and the
-//    shifts-as-selector-matmuls form (B10) answer Mosaic's costly lane
-//    rotates, which a gather from shared memory does not have.
-//    What bounds it: at the flagship 8*21*48*48*48*10 = 186 M
-//    multiply-adds against 6.6 MB of compulsory traffic, i.e. neither
-//    HBM nor the FMA rate: the aff re-reads from L2 (0.74 GB per call)
-//    and the 168-block grid (about one wave on 132 SMs) bound it.
-//    Planes above the shared-memory limit (~170^2) are refused; the
-//    wrapper raises with the limit.
+//    m <- sum_t aff_t * shift_t(m), all in ONE launch.  PR 2's kernel
+//    (one block per (b, c) plane) lost on four counts; each part of this
+//    design answers one:
+//    - Affinity reuse.  The unit of work is (image b, a group of G <= 8
+//      channels), as the TPU kernel's grid step holds all channels of an
+//      image: one affinity value feeds G accumulators.  The first `sdil`
+//      dilations' affinities of a CTA's band are kept in shared memory
+//      (each thread copies its own pixels' on the first step and reads
+//      them back later, so no barrier guards the copy); the others are
+//      read where used, from L1 where the shared-memory carveout (the
+//      least that holds the plan's CTAs) leaves room for them, else L2.
+//      PR 2 read an image's affinities 21 x 10 times per call from L2.
+//    - Filling the card.  A thread-block cluster of N CTAs covers one
+//      unit; CTA r owns rows [r H / N, (r + 1) H / N).  Each CTA keeps a
+//      replica of the unit's G planes, double-buffered, and writes each
+//      new value into all N replicas (its own, and its peers' through
+//      distributed shared memory, st.shared::cluster), so the taps'
+//      +-24-row reach costs no remote load in the inner loop; one
+//      cluster barrier per step.
+//    - A plain inner loop.  The dilations sit in the constant bank (the
+//      kernel's parameters); the dilation loop is unrolled to kMaxDil
+//      and its 8 taps inside, so a tap is one add for its address, an
+//      affinity load and G FMAs.  Rows and columns are clamped once per
+//      dilation, not per tap; a thread's pixels advance by a precomputed
+//      (rows, columns) stride, so no step divides; a thread takes P <= 2
+//      of its pixels together, so their loads are in flight at once.
+//    - Fewer shared loads.  A replica holds its G planes as sub-planes
+//      of 4, 2 and 1 channels per pixel (G = 3: 2 + 1), so a tap's G
+//      values come in G / 4 16-byte loads and at most two smaller ones,
+//      each conflict-free across a warp's consecutive pixels.
+//    The host plan (ops/pamr_cuda.py::propagate_plan) picks G, N, the
+//    threads, P, sdil and the carveout from a cost model fitted to the
+//    lab's plan sweep, with the clusters the card holds at once from
+//    cudaOccupancyMaxActiveClusters (wseg_pamr_propagate_clusters); the
+//    C entry only checks the plan.  At the flagship (8, 21, 48, 48),
+//    T = 48, 10 steps, it takes G 3 (seven groups), N 2: 112 CTAs of
+//    576 threads, two pixels each, four dilations staged.
+//    What bounds it: 186 M FMAs (5.5 us at the float32 rate) against
+//    6.6 MB of compulsory bytes, but every FMA takes its plane value
+//    from shared memory, and each tap's affinity comes through the same
+//    shared/L1 path: ~0.9 MB per SM and step at the flagship, ~3.5 us
+//    at 128 B a clock, so ~22 us for the whole card is this design's
+//    floor; the replica writes, the cluster barrier and the staging come
+//    on top.  Planes up to two float32 planes of shared memory (G = 1)
+//    are taken, as PR 2's kernel took.
 //
 // All tensors float32, contiguous, channels-major.  Each launcher runs
 // on the caller's stream, allocates nothing and returns
 // cudaGetLastError().
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -58,7 +88,14 @@ constexpr int kMaxDil = 8;              // dilations per call
 constexpr int kMaxTaps = 8 * kMaxDil;   // 64 taps
 constexpr int kK = 3;                   // guide channels (RGB)
 constexpr int kAffBlock = 128;          // threads per block, along x
-constexpr int kPropBlock = 256;         // threads per (b, c) plane
+// the propagation's limits; ops/pamr_cuda.py's LIMITS holds the same
+constexpr int kMaxGroup = 8;            // channels of a unit
+constexpr int kMaxCluster = 16;         // CTAs of a cluster (> 8 non-portable)
+constexpr int kPortableCluster = 8;
+constexpr int kPropMaxThreads = 768;    // threads of a CTA (80 registers)
+constexpr int kMaxPixels = 2;           // pixels a thread takes together
+constexpr int kSmemLimit = 232448;      // a CTA's dynamic shared memory
+constexpr int kSmemCarveout = 233472;   // the largest carveout, 228 KB
 
 struct Dilations {
   int n;
@@ -165,49 +202,383 @@ pamr_affinity_kernel(const float* __restrict__ im, float* __restrict__ aff,
   }
 }
 
-__global__ void __launch_bounds__(kPropBlock)
-pamr_propagate_kernel(const float* __restrict__ aff,
-                      const float* __restrict__ mask,
-                      float* __restrict__ out, Dilations dil, int C, int H,
-                      int W, int num_iter) {
-  extern __shared__ float planes[];  // 2 x (H * W)
-  __shared__ int s_dy[kMaxTaps];
-  __shared__ int s_dx[kMaxTaps];
+// The G channel slots of a replica buffer (pitch hwp floats a plane):
+// G / 4 sub-planes of 4 floats a pixel, then one of 2, then one of 1.
+template <int G>
+struct Slots {
+  static constexpr int kQuads = G / 4;
+  static constexpr bool kPair = (G % 4) >= 2;
+  static constexpr bool kOne = (G % 2) == 1;
+  static constexpr int kPairBase = 4 * kQuads;  // in planes of hwp floats
+  static constexpr int kOneBase = kPairBase + (kPair ? 2 : 0);
+};
 
-  const int plane = blockIdx.x;  // b * C + c
-  const int b = plane / C;
-  const int hw = H * W;
-  const int T = 8 * dil.n;
-  for (int t = threadIdx.x; t < T; t += blockDim.x) {
-    s_dy[t] = off_y(t % 8) * dil.d[t / 8];
-    s_dx[t] = off_x(t % 8) * dil.d[t / 8];
+// float offset of slot k (a compile-time constant where unrolled) at
+// pixel p
+template <int G>
+__device__ __forceinline__ int slot_offset(int k, int p, int hwp) {
+  using S = Slots<G>;
+  if (k < 4 * S::kQuads) return (k / 4) * 4 * hwp + 4 * p + (k % 4);
+  if (S::kPair && k < S::kPairBase + 2) {
+    return S::kPairBase * hwp + 2 * p + (k - S::kPairBase);
   }
-  float* cur = planes;
-  float* nxt = planes + hw;
-  const float* src = mask + static_cast<size_t>(plane) * hw;
-  for (int p = threadIdx.x; p < hw; p += blockDim.x) cur[p] = src[p];
-  __syncthreads();
+  return S::kOneBase * hwp + p;
+}
 
-  const float* a = aff + static_cast<size_t>(b) * T * hw;
-  for (int it = 0; it < num_iter; ++it) {
-    for (int p = threadIdx.x; p < hw; p += blockDim.x) {
-      const int y = p / W;
-      const int x = p - y * W;
-      float acc = 0.0f;
-      for (int t = 0; t < T; ++t) {
-        const int yy = clampi(y + s_dy[t], H - 1);
-        const int xx = clampi(x + s_dx[t], W - 1);
-        acc += __ldg(a + static_cast<size_t>(t) * hw + p) * cur[yy * W + xx];
+// acc[k] += a * buf[slot k, pixel p] for the G slots
+template <int G>
+__device__ __forceinline__ void fma_tap(const float* __restrict__ buf,
+                                        int hwp, int p, float a,
+                                        float (&acc)[G]) {
+  using S = Slots<G>;
+#pragma unroll
+  for (int s = 0; s < S::kQuads; ++s) {
+    const float4 v = reinterpret_cast<const float4*>(buf + 4 * s * hwp)[p];
+    acc[4 * s] = fmaf(a, v.x, acc[4 * s]);
+    acc[4 * s + 1] = fmaf(a, v.y, acc[4 * s + 1]);
+    acc[4 * s + 2] = fmaf(a, v.z, acc[4 * s + 2]);
+    acc[4 * s + 3] = fmaf(a, v.w, acc[4 * s + 3]);
+  }
+  if constexpr (S::kPair) {
+    const float2 v =
+        reinterpret_cast<const float2*>(buf + S::kPairBase * hwp)[p];
+    acc[S::kPairBase] = fmaf(a, v.x, acc[S::kPairBase]);
+    acc[S::kPairBase + 1] = fmaf(a, v.y, acc[S::kPairBase + 1]);
+  }
+  if constexpr (S::kOne) {
+    acc[G - 1] = fmaf(a, buf[S::kOneBase * hwp + p], acc[G - 1]);
+  }
+}
+
+template <int G>
+__device__ __forceinline__ void store_slots(float* buf, int hwp, int p,
+                                            const float (&acc)[G]) {
+  using S = Slots<G>;
+#pragma unroll
+  for (int s = 0; s < S::kQuads; ++s) {
+    reinterpret_cast<float4*>(buf + 4 * s * hwp)[p] =
+        make_float4(acc[4 * s], acc[4 * s + 1], acc[4 * s + 2],
+                    acc[4 * s + 3]);
+  }
+  if constexpr (S::kPair) {
+    reinterpret_cast<float2*>(buf + S::kPairBase * hwp)[p] =
+        make_float2(acc[S::kPairBase], acc[S::kPairBase + 1]);
+  }
+  if constexpr (S::kOne) buf[S::kOneBase * hwp + p] = acc[G - 1];
+}
+
+// the address of `local` in cluster rank `rank`'s shared memory
+__device__ __forceinline__ unsigned mapa(const float* local, int rank) {
+  unsigned out;
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(local));
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(a), "r"(rank));
+  return out;
+}
+
+// store_slots into a peer's replica at cluster address `buf`
+template <int G>
+__device__ __forceinline__ void store_slots_remote(unsigned buf, int hwp,
+                                                   int p,
+                                                   const float (&acc)[G]) {
+  using S = Slots<G>;
+#pragma unroll
+  for (int s = 0; s < S::kQuads; ++s) {
+    const unsigned a = buf + 4u * (4 * s * hwp + 4 * p);
+    asm volatile(
+        "st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(a),
+        "f"(acc[4 * s]), "f"(acc[4 * s + 1]), "f"(acc[4 * s + 2]),
+        "f"(acc[4 * s + 3])
+        : "memory");
+  }
+  if constexpr (S::kPair) {
+    const unsigned a = buf + 4u * (S::kPairBase * hwp + 2 * p);
+    asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(a),
+                 "f"(acc[S::kPairBase]), "f"(acc[S::kPairBase + 1])
+                 : "memory");
+  }
+  if constexpr (S::kOne) {
+    const unsigned a = buf + 4u * (S::kOneBase * hwp + p);
+    asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(a),
+                 "f"(acc[G - 1])
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Where a dilation's affinities come from: global memory (L1 or L2),
+// shared memory, or global memory on the first step with a copy into
+// shared memory for the later ones.
+enum class AffFrom { kGlobal, kShared, kGlobalToShared };
+
+// For each of a thread's P pixels (y[k], x[k]): acc[k][c] += the 8 taps
+// of dilation d, in tap order, of aff * cur[slot c, tap j's clamped
+// pixel], the affinity of tap j at g[k] + j * hw in global memory or at
+// s[k] + j * npx in shared memory (kFrom).  A tap's address is one add of
+// a row and a column clamped once per dilation; the P pixels' loads of a
+// tap are independent, so they are in flight together.
+template <int G, int P, AffFrom kFrom>
+__device__ __forceinline__ void dilation_taps(
+    const float* cur, int hwp, const int (&y)[P], const int (&x)[P], int H,
+    int W, int d, const float* const (&g)[P], int hw, float* const (&s)[P],
+    int npx, float (&acc)[P][G]) {
+  int rows[P][3], cols[P][3];
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    rows[k][0] = max(y[k] - d, 0) * W;
+    rows[k][1] = y[k] * W;
+    rows[k][2] = min(y[k] + d, H - 1) * W;
+    cols[k][0] = max(x[k] - d, 0);
+    cols[k][1] = x[k];
+    cols[k][2] = min(x[k] + d, W - 1);
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int jj = j < 4 ? j : j + 1;  // 3x3 scan without its centre
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      float a;
+      if constexpr (kFrom == AffFrom::kShared) {
+        a = s[k][j * npx];
+      } else {
+        a = __ldg(g[k] + j * hw);
+        if constexpr (kFrom == AffFrom::kGlobalToShared) s[k][j * npx] = a;
       }
-      nxt[p] = acc;
+      fma_tap<G>(cur, hwp, rows[k][jj / 3] + cols[k][jj % 3], a, acc[k]);
     }
-    __syncthreads();
+  }
+}
+
+// One cluster per unit (image b, channels [c0, c0 + G)), cluster rank r
+// owning rows [r H / N, (r + 1) H / N).  Dynamic shared memory: two
+// replica buffers of G * hwp floats, then the band's affinities of the
+// first `sdil` dilations, [tap][band pixel], staged once per call.  A
+// thread's pixels are q = tid, tid + nt, ... of the band; the other
+// dilations' affinities are read where used (from L1 where the carveout
+// leaves room for them).
+template <int G, int P>
+__global__ void __launch_bounds__(kPropMaxThreads)
+pamr_propagate_cluster_kernel(const float* __restrict__ aff,
+                              const float* __restrict__ mask,
+                              float* __restrict__ out, Dilations dil, int C,
+                              int H, int W, int num_iter, int sdil) {
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int n = static_cast<int>(cluster.num_blocks());
+  const int r = static_cast<int>(cluster.block_rank());
+  const int unit = blockIdx.x / n;
+  const int groups = (C + G - 1) / G;
+  const int b = unit / groups;
+  const int c0 = (unit - b * groups) * G;
+  const int gc = min(G, C - c0);
+  const int hw = H * W;
+  const int hwp = (hw + 3) & ~3;
+  const int y0 = r * H / n;
+  const int npx = ((r + 1) * H / n - y0) * W;
+  const int T = 8 * dil.n;
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  float* cur = smem;
+  float* nxt = smem + G * hwp;
+
+  // stage the unit's G planes: copied as they lie into nxt (all copies
+  // in flight at once), then re-laid into cur's slots, zeros past C
+  const float* src = mask + (static_cast<size_t>(b) * C + c0) * hw;
+  if (hw % 4 == 0) {  // 16-byte copies: every plane starts aligned
+    for (int k = 0; k < gc; ++k) {
+      for (int p = 4 * tid; p < hw; p += 4 * nt) {
+        cp_async16(nxt + k * hwp + p, src + static_cast<size_t>(k) * hw + p);
+      }
+    }
+  } else {
+    for (int k = 0; k < gc; ++k) {
+      for (int p = tid; p < hw; p += nt) {
+        cp_async4(nxt + k * hwp + p, src + static_cast<size_t>(k) * hw + p);
+      }
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < G; ++k) {
+    for (int p = tid; p < hw; p += nt) {
+      cur[slot_offset<G>(k, p, hwp)] = k < gc ? nxt[k * hwp + p] : 0.0f;
+    }
+  }
+  const float* a_img = aff + static_cast<size_t>(b) * T * hw;
+  // the first sdil dilations' affinities of the band, [tap][band pixel]:
+  // each thread copies its own pixels' on the first step and reads them
+  // back on the later ones, so the copy needs no barrier of its own
+  float* s_aff = smem + 2 * G * hwp;
+  cluster.sync();  // every replica staged before any peer writes into it
+
+  // a thread's pixels: q = tid, tid + nt, ... of the band, P at a time;
+  // they advance by (sy rows, sx columns), no division
+  const int ys = y0 + tid / W;
+  const int xs = tid % W;
+  const int sy = nt / W;
+  const int sx = nt % W;
+  for (int it = 0; it < num_iter; ++it) {
+    int yn = ys;
+    int xn = xs;
+    for (int q0 = tid; q0 < npx; q0 += P * nt) {
+      int y[P], x[P], q[P];
+      bool ok[P];
+#pragma unroll
+      for (int k = 0; k < P; ++k) {
+        q[k] = q0 + k * nt;
+        ok[k] = q[k] < npx;  // pixel 0 always is
+        // past the band: pixel 0 stands in, computed again, not stored
+        y[k] = ok[k] ? yn : y[0];
+        x[k] = ok[k] ? xn : x[0];
+        if (!ok[k]) q[k] = q[0];
+        xn += sx;
+        yn += sy;
+        if (xn >= W) {
+          xn -= W;
+          ++yn;
+        }
+      }
+      float acc[P][G];
+#pragma unroll
+      for (int k = 0; k < P; ++k) {
+#pragma unroll
+        for (int c = 0; c < G; ++c) acc[k][c] = 0.0f;
+      }
+      const float* ga[P];
+      float* sa[P];
+#pragma unroll
+      for (int k = 0; k < P; ++k) {
+        ga[k] = a_img + y[k] * W + x[k];
+        sa[k] = s_aff + q[k];
+      }
+#pragma unroll
+      for (int i = 0; i < kMaxDil; ++i) {
+        const int d = dil.d[i];
+        const float* g[P];
+        float* s[P];
+#pragma unroll
+        for (int k = 0; k < P; ++k) {
+          g[k] = ga[k] + i * 8 * hw;
+          s[k] = sa[k] + i * 8 * npx;
+        }
+        if (i < sdil && it > 0) {
+          dilation_taps<G, P, AffFrom::kShared>(cur, hwp, y, x, H, W, d, g,
+                                                hw, s, npx, acc);
+        } else if (i < sdil) {
+          dilation_taps<G, P, AffFrom::kGlobalToShared>(
+              cur, hwp, y, x, H, W, d, g, hw, s, npx, acc);
+        } else if (i < dil.n) {
+          dilation_taps<G, P, AffFrom::kGlobal>(cur, hwp, y, x, H, W, d, g,
+                                                hw, s, npx, acc);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < P; ++k) {
+        if (ok[k]) {
+          const int pix = y[k] * W + x[k];
+          store_slots<G>(nxt, hwp, pix, acc[k]);
+          for (int m = 1; m < n; ++m) {
+            const int rk = r + m < n ? r + m : r + m - n;
+            store_slots_remote<G>(mapa(nxt, rk), hwp, pix, acc[k]);
+          }
+        }
+      }
+    }
+    cluster.sync();  // the step's values are in every replica
     float* tmp = cur;
     cur = nxt;
     nxt = tmp;
   }
-  float* dst = out + static_cast<size_t>(plane) * hw;
-  for (int p = threadIdx.x; p < hw; p += blockDim.x) dst[p] = cur[p];
+
+  float* dst = out + (static_cast<size_t>(b) * C + c0) * hw + y0 * W;
+#pragma unroll
+  for (int k = 0; k < G; ++k) {
+    if (k < gc) {
+      for (int q = tid; q < npx; q += nt) {
+        dst[static_cast<size_t>(k) * hw + q] =
+            cur[slot_offset<G>(k, y0 * W + q, hwp)];
+      }
+    }
+  }
+}
+
+using PropagateKernel = void (*)(const float*, const float*, float*,
+                                 Dilations, int, int, int, int, int);
+
+#define WSEG_PAMR_KERNELS(P)                                           \
+  {pamr_propagate_cluster_kernel<1, P>, pamr_propagate_cluster_kernel<2, P>, \
+   pamr_propagate_cluster_kernel<3, P>, pamr_propagate_cluster_kernel<4, P>, \
+   pamr_propagate_cluster_kernel<5, P>, pamr_propagate_cluster_kernel<6, P>, \
+   pamr_propagate_cluster_kernel<7, P>, pamr_propagate_cluster_kernel<8, P>}
+
+PropagateKernel propagate_kernel(int g, int p) {
+  static const PropagateKernel table[kMaxPixels][kMaxGroup] = {
+      WSEG_PAMR_KERNELS(1), WSEG_PAMR_KERNELS(2)};
+  return table[p - 1][g - 1];
+}
+
+#undef WSEG_PAMR_KERNELS
+
+// dynamic shared memory of a CTA: two replicas of G planes at a pitch of
+// hw rounded up to 4 floats, and the largest band's affinities of `sdil`
+// dilations
+long long propagate_smem(int g, int sdil, int n, int H, int W) {
+  const long long band = static_cast<long long>((H + n - 1) / n) * W;
+  return 4 * (2LL * g * ((static_cast<long long>(H) * W + 3) / 4 * 4) +
+              8LL * sdil * band);
+}
+
+// the launch of a plan: its kernel, attributes and cluster dimension.
+// The shared-memory carveout asks for no more than `ctas` CTAs of `smem`
+// bytes need (and 1 KB each the system reserves), so that the rest of
+// the SM's 256 KB serves as L1 and keeps a band's affinities between
+// steps.
+cudaError_t propagate_config(int g, int p, int n, int threads, int smem,
+                             int ctas, PropagateKernel* kernel,
+                             cudaLaunchConfig_t* cfg,
+                             cudaLaunchAttribute* attr) {
+  *kernel = propagate_kernel(g, p);
+  cudaError_t e = cudaFuncSetAttribute(
+      *kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int carveout = static_cast<int>(
+      (static_cast<long long>(ctas) * (smem + 1024) * 100 + kSmemCarveout -
+       1) / kSmemCarveout);
+  if (e == cudaSuccess) {
+    e = cudaFuncSetAttribute(*kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             carveout < 100 ? carveout : 100);
+  }
+  if (e == cudaSuccess && n > kPortableCluster) {
+    e = cudaFuncSetAttribute(
+        *kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  }
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = n;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->blockDim = dim3(threads);
+  cfg->dynamicSmemBytes = smem;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return e;
 }
 
 bool fill_dilations(const int* d, int n, Dilations* dil) {
@@ -224,7 +595,21 @@ bool fill_dilations(const int* d, int n, Dilations* dil) {
 
 extern "C" int wseg_pamr_max_dilations() { return kMaxDil; }
 
-// largest H * W plane the propagation kernel takes on the current device
+// {max group, max cluster, max threads, shared-memory limit, max pixels
+// a thread takes together}: the limits
+// ops/pamr_cuda.py's LIMITS must equal; returns their count
+extern "C" int wseg_pamr_propagate_limits(int* out) {
+  out[0] = kMaxGroup;
+  out[1] = kMaxCluster;
+  out[2] = kPropMaxThreads;
+  out[3] = kSmemLimit;
+  out[4] = kMaxPixels;
+  return 5;
+}
+
+// largest H * W plane the propagation kernel takes on the current device:
+// G = 1, the affinities read from L2, two planes of a pitch rounded up to
+// 4 floats in shared memory
 extern "C" int wseg_pamr_propagate_max_plane() {
   int dev = 0, optin = 0;
   if (cudaGetDevice(&dev) != cudaSuccess) return 0;
@@ -232,8 +617,8 @@ extern "C" int wseg_pamr_propagate_max_plane() {
                              dev) != cudaSuccess) {
     return 0;
   }
-  const int static_bytes = 2 * kMaxTaps * static_cast<int>(sizeof(int));
-  return (optin - static_bytes) / (2 * static_cast<int>(sizeof(float)));
+  const int limit = optin < kSmemLimit ? optin : kSmemLimit;
+  return limit / (2 * static_cast<int>(sizeof(float))) / 4 * 4;
 }
 
 extern "C" int wseg_pamr_affinity(const void* im, void* aff,
@@ -251,26 +636,67 @@ extern "C" int wseg_pamr_affinity(const void* im, void* aff,
   return static_cast<int>(cudaGetLastError());
 }
 
+// clusters of a plan the current device holds at once
+// (cudaOccupancyMaxActiveClusters) with the carveout for `ctas` CTAs an
+// SM, or minus a CUDA error
+extern "C" int wseg_pamr_propagate_clusters(int g, int p, int n,
+                                            int threads, int smem,
+                                            int ctas) {
+  if (g < 1 || g > kMaxGroup || p < 1 || p > kMaxPixels || n < 1 ||
+      n > kMaxCluster || threads < 32 || threads > kPropMaxThreads ||
+      smem < 0 || smem > kSmemLimit || ctas < 1) {
+    return -static_cast<int>(cudaErrorInvalidValue);
+  }
+  PropagateKernel kernel;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr;
+  cudaError_t e =
+      propagate_config(g, p, n, threads, smem, ctas, &kernel, &cfg, &attr);
+  cfg.gridDim = dim3(n);
+  int clusters = 0;
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  }
+  return e == cudaSuccess ? clusters : -static_cast<int>(e);
+}
+
+// plan: {G, cluster size N, threads, shared memory bytes, CTAs an SM the
+// carveout holds, dilations whose affinities are staged in shared
+// memory, pixels a thread takes together}, from
+// ops/pamr_cuda.py::propagate_plan; checked, not chosen, here
 extern "C" int wseg_pamr_propagate(const void* aff, const void* mask,
                                    void* out, const int* dilations,
                                    int n_dil, int B, int C, int H, int W,
-                                   int num_iter, void* stream) {
+                                   int num_iter, const int* plan,
+                                   void* stream) {
   Dilations dil;
+  const int g = plan[0], n = plan[1], threads = plan[2], smem = plan[3];
+  const int ctas = plan[4], sdil = plan[5], p = plan[6];
   if (!fill_dilations(dilations, n_dil, &dil) || B <= 0 || C <= 0 ||
-      H <= 0 || W <= 0 || num_iter < 0 ||
+      H <= 0 || W <= 0 || num_iter < 0 || g < 1 || g > kMaxGroup ||
+      g > C || n < 1 || n > kMaxCluster || n > H || threads < 32 ||
+      threads % 32 != 0 || threads > kPropMaxThreads || sdil < 0 ||
+      sdil > n_dil || propagate_smem(g, sdil, n, H, W) != smem ||
+      smem > kSmemLimit || ctas < 1 || p < 1 || p > kMaxPixels) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long grid = static_cast<long long>(B) * ((C + g - 1) / g) * n;
+  if (grid > 0x7fffffffLL ||
       static_cast<long long>(H) * W > wseg_pamr_propagate_max_plane()) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = 2 * static_cast<size_t>(H) * W * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        pamr_propagate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  pamr_propagate_kernel<<<B * C, kPropBlock, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(aff), static_cast<const float*>(mask),
-      static_cast<float*>(out), dil, C, H, W, num_iter);
+  PropagateKernel kernel;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr;
+  cudaError_t e =
+      propagate_config(g, p, n, threads, smem, ctas, &kernel, &cfg, &attr);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cfg.gridDim = dim3(static_cast<unsigned>(grid));
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  e = cudaLaunchKernelEx(&cfg, kernel, static_cast<const float*>(aff),
+                         static_cast<const float*>(mask),
+                         static_cast<float*>(out), dil, C, H, W, num_iter,
+                         sdil);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

@@ -124,6 +124,8 @@ def profile_step(model, opt, batch, kw, trace_path=None) -> dict:
                                     ("forward", "loss", "optim"))
     top = dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:15])
     return {"wall_ms": wall_ms, "kernel_ms": busy,
+            "pamr_kernels_ms": {k: v for k, v in kernels.items()
+                                if "pamr_" in k},
             "busy_share": busy / wall_ms, "kernel_launches": launches,
             "host_syncs": syncs, "range_kernel_ms": ranges,
             "top_kernels_ms": top}
@@ -178,6 +180,9 @@ def main(argv=None):
     print("kernel ms per range: " + ", ".join(
         f"{k} {v:.2f}" for k, v in prof["range_kernel_ms"].items()),
         flush=True)
+    print("PAMR kernels: " + ", ".join(
+        f"{k[:60]} {v:.4f} ms" for k, v in prof["pamr_kernels_ms"].items())
+        + f" ({card})", flush=True)
     for k, v in prof["top_kernels_ms"].items():
         print(f"  kernel {v:9.3f} ms  {k[:100]}", flush=True)
     summary = {"card": card, "config": src, "batch": bs, "crop": crop,
