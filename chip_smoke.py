@@ -110,6 +110,8 @@ ORACLE_Q_TOL = 1e-4
 # float32 FLOP/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+# shared memory: 128 B a clock on each of 132 SMs at 1.98 GHz
+SMEM_BYTES_PER_S = 132 * 128 * 1.98e9
 
 
 def check(cond, msg):
@@ -569,17 +571,19 @@ def phase_pamr_kernels(card: str) -> list:
         out_ref = pamr_propagate_cm_reference(aff_ref, m_cm, PAMR_DIL,
                                               PAMR_ITER)
         plan = propagate_plan_for(m_cm, len(PAMR_DIL), PAMR_ITER)
-        inst = f"pamr_propagate_cluster_kernelILi{plan.g}E"
+        inst = f"pamr_propagate_cluster_kernelILi{plan.g}ELi{plan.p}E"
         lines = ptxas_lines("pamr", inst)
         check(lines, f"no ptxas lines for {inst}")
         print(f"propagation plan at {shape}: G {plan.g} channels a unit, "
               f"clusters of N {plan.n} CTAs (rows {list(plan.bands())[:2]} "
-              f"...), the band's affinities {'kept in L1' if plan.aff_in_l1 else 'from L2'} "
-              f"by the model, carveout for {plan.ctas} CTAs an SM, "
-              f"{plan.threads} threads, {plan.smem_bytes()} B of shared "
-              f"memory, {plan.total_ctas} CTAs, {plan.clusters} clusters at once "
-              f"({plan.waves:.2f} waves); ptxas {inst}: "
-              f"{'; '.join(lines)}", flush=True)
+              f"...), {plan.threads} threads taking {plan.p} pixels "
+              f"together, {plan.sdil} dilations' affinities in shared "
+              f"memory (the others' from "
+              f"{'L1' if plan.aff_in_l1 else 'L2'} by the model), "
+              f"{plan.smem_bytes()} B of shared memory, carveout for "
+              f"{plan.ctas} CTAs an SM, {plan.total_ctas} CTAs, "
+              f"{plan.clusters} clusters at once ({plan.waves:.2f} waves); "
+              f"ptxas {inst}: {'; '.join(lines)}", flush=True)
         # affinity: per pixel and channel 4 ops per sigma tap (mean, then
         # deviation squared and summed) + 4 per logit tap; 3 per softmax
         # tap
@@ -616,12 +620,18 @@ def phase_pamr_kernels(card: str) -> list:
             p2 = cuda_median_ms(plain, reps=10)
             dev = device_ms(kernel, reps=20, match=kname)
             bnd = bound(nbytes, flops)
+            # the propagation's floor when every FMA reads its plane value
+            # from shared memory (4 B at 128 B a clock on each of 132
+            # SMs at 1.98 GHz)
+            floor = (f"; shared-memory floor "
+                     f"{flops / 2 * 4 / SMEM_BYTES_PER_S * 1e6:.2f} us"
+                     if name == "pamr_propagate_cm" else "")
             print(f"kernel {name} {shape} median {k1:.4f} / {k2:.4f} ms "
                   f"per call (CUDA events), {dev * 1e3:.2f} us of kernel "
                   f"(profiler, {bnd['bound_ms'] / dev:.1%} of the bound); "
                   f"plain median {p1:.4f} / {p2:.4f} ms; bound "
                   f"{bnd['bound_ms'] * 1e3:.2f} us ({bnd['bound_by']}, "
-                  f"{nbytes / 1e6:.1f} MB, {flops / 1e6:.1f} MFLOP) "
+                  f"{nbytes / 1e6:.1f} MB, {flops / 1e6:.1f} MFLOP){floor} "
                   f"({card})", flush=True)
             if k == 0:
                 entries.append({"name": name, "route": "cuda",

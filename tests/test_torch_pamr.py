@@ -187,7 +187,7 @@ def test_propagate_kernel_refuses_planes_above_shared_memory():
     m = torch.zeros(1, 2, 200, 200, device="cuda")
     with pytest.raises(ValueError, match="shared-memory limit"):
         pc.pamr_propagate_cm(aff, m, FLAGSHIP_DIL, 1)
-    # the library's own limit is no lower than PR 2's kernel's (two
+    # the library's own limit is no lower than the first kernel's (two
     # float32 planes and 512 bytes of tap tables a block)
     with torch.cuda.device(0):
         limit = pc._library().wseg_pamr_propagate_max_plane()

@@ -27,9 +27,9 @@
 //
 // 2. pamr_propagate_cluster_kernel<G, P> replaces pamr_pallas.py::
 //    pamr_propagate_pallas (_propagate_kernel): num_iter Jacobi steps
-//    m <- sum_t aff_t * shift_t(m), all in ONE launch.  PR 2's kernel
-//    (one block per (b, c) plane) lost on four counts; each part of this
-//    design answers one:
+//    m <- sum_t aff_t * shift_t(m), all in ONE launch.  The port's first
+//    kernel (one block per (b, c) plane) lost on four counts; each part
+//    of this design answers one:
 //    - Affinity reuse.  The unit of work is (image b, a group of G <= 8
 //      channels), as the TPU kernel's grid step holds all channels of an
 //      image: one affinity value feeds G accumulators.  The first `sdil`
@@ -38,7 +38,8 @@
 //      them back later, so no barrier guards the copy); the others are
 //      read where used, from L1 where the shared-memory carveout (the
 //      least that holds the plan's CTAs) leaves room for them, else L2.
-//      PR 2 read an image's affinities 21 x 10 times per call from L2.
+//      The first kernel read an image's affinities 21 x 10 times per
+//      call from L2.
 //    - Filling the card.  A thread-block cluster of N CTAs covers one
 //      unit; CTA r owns rows [r H / N, (r + 1) H / N).  Each CTA keeps a
 //      replica of the unit's G planes, double-buffered, and writes each
@@ -66,12 +67,13 @@
 //    576 threads, two pixels each, four dilations staged.
 //    What bounds it: 186 M FMAs (5.5 us at the float32 rate) against
 //    6.6 MB of compulsory bytes, but every FMA takes its plane value
-//    from shared memory, and each tap's affinity comes through the same
-//    shared/L1 path: ~0.9 MB per SM and step at the flagship, ~3.5 us
-//    at 128 B a clock, so ~22 us for the whole card is this design's
-//    floor; the replica writes, the cluster barrier and the staging come
-//    on top.  Planes up to two float32 planes of shared memory (G = 1)
-//    are taken, as PR 2's kernel took.
+//    from shared memory: 744 MB at 128 B a clock on 132 SMs is ~22 us,
+//    this design's floor.  At the flagship plan a step moves ~0.9 MB per
+//    SM through the shared-memory/L1 path (plane values, affinities,
+//    replica writes), ~3.5 us at that rate and ~5.2 us measured (the
+//    cluster barrier, latency); launch and staging add ~4 us a call.
+//    Planes up to two float32 planes of shared memory (G = 1) are
+//    taken, as the first kernel took.
 //
 // All tensors float32, contiguous, channels-major.  Each launcher runs
 // on the caller's stream, allocates nothing and returns
@@ -550,25 +552,43 @@ long long propagate_smem(int g, int sdil, int n, int H, int W) {
 // The shared-memory carveout asks for no more than `ctas` CTAs of `smem`
 // bytes need (and 1 KB each the system reserves), so that the rest of
 // the SM's 256 KB serves as L1 and keeps a band's affinities between
-// steps.
+// steps.  A kernel's attributes are set only where they change (per
+// device, kernel and value), not on every launch.
 cudaError_t propagate_config(int g, int p, int n, int threads, int smem,
                              int ctas, PropagateKernel* kernel,
                              cudaLaunchConfig_t* cfg,
                              cudaLaunchAttribute* attr) {
+  constexpr int kDevices = 16;
+  struct Attrs {
+    int smem, carveout, nonportable;
+  };
+  static Attrs set[kDevices][kMaxPixels][kMaxGroup];
   *kernel = propagate_kernel(g, p);
-  cudaError_t e = cudaFuncSetAttribute(
-      *kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
   const int carveout = static_cast<int>(
       (static_cast<long long>(ctas) * (smem + 1024) * 100 + kSmemCarveout -
        1) / kSmemCarveout);
-  if (e == cudaSuccess) {
+  const Attrs want = {smem, carveout < 100 ? carveout : 100,
+                      n > kPortableCluster ? 1 : 0};
+  Attrs* have = dev < kDevices ? &set[dev][p - 1][g - 1] : nullptr;
+  if (e == cudaSuccess && (!have || have->smem != want.smem)) {
+    e = cudaFuncSetAttribute(
+        *kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, want.smem);
+  }
+  if (e == cudaSuccess && (!have || have->carveout != want.carveout)) {
     e = cudaFuncSetAttribute(*kernel,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
-                             carveout < 100 ? carveout : 100);
+                             want.carveout);
   }
-  if (e == cudaSuccess && n > kPortableCluster) {
+  if (e == cudaSuccess && want.nonportable &&
+      (!have || !have->nonportable)) {
     e = cudaFuncSetAttribute(
         *kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  }
+  if (e == cudaSuccess && have) {
+    *have = {want.smem, want.carveout,
+             have->nonportable | want.nonportable};
   }
   attr->id = cudaLaunchAttributeClusterDimension;
   attr->val.clusterDim.x = n;
@@ -680,11 +700,9 @@ extern "C" int wseg_pamr_propagate(const void* aff, const void* mask,
       smem > kSmemLimit || ctas < 1 || p < 1 || p > kMaxPixels) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  // (a card with less shared memory than kSmemLimit refuses the launch)
   const long long grid = static_cast<long long>(B) * ((C + g - 1) / g) * n;
-  if (grid > 0x7fffffffLL ||
-      static_cast<long long>(H) * W > wseg_pamr_propagate_max_plane()) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (grid > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   PropagateKernel kernel;
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr;

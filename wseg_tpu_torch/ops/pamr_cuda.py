@@ -167,10 +167,10 @@ class PropagatePlan:
     channels); CTA r owns rows [r h / n, (r + 1) h / n) of its unit and
     keeps replicas of the unit's g planes and its band's affinities of
     the first ``sdil`` dilations; a thread takes ``p`` of its pixels
-    together; the shared-memory carveout holds ``ctas`` CTAs an SM.  ``clusters``: clusters the card holds at once;
-    ``aff_in_l1``: whether the model counts the other dilations'
-    affinities as staying in L1 between steps; ``cost``: the model's
-    clocks."""
+    together; the shared-memory carveout holds ``ctas`` CTAs an SM.
+    ``clusters``: clusters the card holds at once; ``aff_in_l1``:
+    whether the model counts the other dilations' affinities as staying
+    in L1 between steps; ``cost``: the model's ns."""
 
     b: int
     c: int
@@ -237,9 +237,10 @@ def propagate_candidates(b: int, c: int, h: int, w: int, n_dil: int,
     """Every launch the kernel takes for the shape, with its modelled
     cost.  ``fit(g, p, n, threads, smem, ctas)`` gives the clusters of
     that launch the card holds at once with the carveout for ``ctas``
-    CTAs an SM (on the card: ``_active_clusters``, cudaOccupancyMaxActiveClusters;
-    0 where none fits).  Channel groups are as even as their count
-    allows (21 channels: 3 x 7, 4 x 6, ...)."""
+    CTAs an SM (on the card: ``_active_clusters``, from
+    cudaOccupancyMaxActiveClusters; 0 where none fits).  Channel groups
+    are as even as their count allows (21 channels: 3 x 7, 4 x 6,
+    ...)."""
     if b <= 0 or c <= 0 or h <= 0 or w <= 0:
         raise ValueError(f"no propagation plan for ({b}, {c}, {h}, {w})")
     if h * w > MAX_PLANE:
@@ -432,6 +433,16 @@ def propagate_plan_for(mask: torch.Tensor, n_dil: int,
     return _plan(b, c, h, w, n_dil, int(num_iter), mask.device.index)
 
 
+@functools.lru_cache(maxsize=256)
+def _plan_ints(plan: PropagatePlan):
+    return (ctypes.c_int * 7)(*plan.host_ints())
+
+
+@functools.lru_cache(maxsize=64)
+def _dilation_ints(dil: Tuple[int, ...]):
+    return (ctypes.c_int * len(dil))(*dil)
+
+
 def launch_propagate(aff: torch.Tensor, mask: torch.Tensor,
                      dil: Tuple[int, ...], num_iter: int,
                      plan: PropagatePlan) -> torch.Tensor:
@@ -441,13 +452,13 @@ def launch_propagate(aff: torch.Tensor, mask: torch.Tensor,
     b, c, h, w = mask.shape
     with torch.cuda.device(mask.device):
         lib = _library()
-        dil_c = _kernel_args(lib, dil, aff, mask)
+        _kernel_args(lib, dil, aff, mask)
         out = torch.empty_like(mask)
-        ints = (ctypes.c_int * 7)(*plan.host_ints())
         rc = lib.wseg_pamr_propagate(
             aff.data_ptr(), mask.data_ptr(), out.data_ptr(),
-            ctypes.addressof(dil_c), len(dil), b, c, h, w, int(num_iter),
-            ctypes.addressof(ints), torch.cuda.current_stream().cuda_stream)
+            ctypes.addressof(_dilation_ints(dil)), len(dil), b, c, h, w,
+            int(num_iter), ctypes.addressof(_plan_ints(plan)),
+            torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"PAMR propagation kernel launch failed: CUDA "
                            f"error {rc}")
@@ -460,7 +471,6 @@ def pamr_propagate_cm(aff: torch.Tensor, mask: torch.Tensor,
     """aff (B, 8 * D, H, W), mask (B, C, H, W), both float32 ->
     (B, C, H, W) float32 after ``num_iter`` Jacobi steps, one launch."""
     dil = _propagate_args(aff, mask, dilations, num_iter)
-    b, c, h, w = mask.shape
     if mask.device.type == "cpu":
         return pamr_propagate_cm_reference(aff, mask, dil, num_iter)
     _require_cuda(mask)
