@@ -24,7 +24,8 @@ from the repository root.  Phases, each printing its own lines:
    their plain versions at the flagship shapes (guide (8, 48, 48, 3),
    mask (8, 48, 48, 21), dilations 1-24, 10 steps), and the propagation
    at (8, 96, 96, 21) too: errors, call times, the profiler's kernel
-   times and bounds, the propagation's host plan and ptxas lines;
+   times and bounds, the propagation's host plan, ptxas lines and host
+   time a call (wrapper, C entry, ctypes);
    then the three lab variants (fold, dxfirst, mxu) against theirs at
    the same shapes, and the lab ``wseg_tpu_torch.bench_pamr`` at
    (8, 96, 96, 21), whose run gives the variants' launch counts;
@@ -208,15 +209,22 @@ def phase_build(card: str) -> None:
 
     names = ("crf_bilateral", "crf_gauss", "pamr", "pamr_variants",
              "crf_lattice", "permutohedral_host")
+    def timed(name):
+        t = time.perf_counter()
+        _build.build(name)
+        return time.perf_counter() - t
+
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
-        list(pool.map(_build.build, names))
+        secs = list(pool.map(timed, names))
     for module in (crf_bilateral, crf_gauss, pamr_cuda, pamr_variants,
                    crf_lattice_cuda, crf_native):
         module._library()
     dt = time.perf_counter() - t0
     print(f"build {', '.join(_build.source(n).name for n in names)} in "
-          f"parallel: {dt:.2f} s ({card})", flush=True)
+          f"parallel: {dt:.2f} s (each: "
+          f"{', '.join(f'{n} {t:.2f} s' for n, t in zip(names, secs))}) "
+          f"({card})", flush=True)
     for name in names:
         for line in _build.build.log.get(name, "").splitlines():
             print(f"  nvcc {name}: {line}", flush=True)
@@ -544,6 +552,39 @@ def pamr_inputs(b: int, h: int, w: int, c: int, seed: int):
             mask.permute(0, 3, 1, 2).contiguous())
 
 
+def propagate_host_us(aff, mask) -> dict:
+    """Host us to enqueue one propagation (0 steps, so the card keeps up
+    with the calls), best of 3 x 400 calls: ``call`` the whole wrapper,
+    ``entry`` its C entry (plan and pointers made beforehand),
+    ``refused`` the same ctypes call with num_iter -1, which the C entry
+    refuses before any CUDA call."""
+    import ctypes
+
+    import torch
+
+    from wseg_tpu_torch.ops import pamr_cuda as pc
+
+    b, c, h, w = mask.shape
+    _, plan_ints, dil_ints = pc._plan(b, c, h, w, PAMR_DIL, 0,
+                                      mask.device.index)
+    lib = pc._library()
+    out = torch.empty_like(mask)
+    ptrs = (aff.data_ptr(), mask.data_ptr(), out.data_ptr(),
+            ctypes.addressof(dil_ints), len(PAMR_DIL), b, c, h, w)
+    plan_ptr = ctypes.addressof(plan_ints)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def entry(steps):
+        return lib.wseg_pamr_propagate(*ptrs, steps, plan_ptr, stream)
+
+    check(entry(-1) != 0, "the propagation's C entry took num_iter -1")
+    check(entry(0) == 0, "the propagation's C entry refused its plan")
+    fns = {"call": lambda: pc.pamr_propagate_cm(aff, mask, PAMR_DIL, 0),
+           "entry": lambda: entry(0), "refused": lambda: entry(-1)}
+    return {name: min(host_us(fn, 400) for _ in range(3))
+            for name, fn in fns.items()}
+
+
 def phase_pamr_kernels(card: str) -> list:
     """Both PAMR kernels against their plain versions at the flagship
     shapes, and the propagation also at the lab's (8, 96, 96, 21):
@@ -570,7 +611,7 @@ def phase_pamr_kernels(card: str) -> list:
         out = pamr_propagate_cm(aff_ref, m_cm, PAMR_DIL, PAMR_ITER)
         out_ref = pamr_propagate_cm_reference(aff_ref, m_cm, PAMR_DIL,
                                               PAMR_ITER)
-        plan = propagate_plan_for(m_cm, len(PAMR_DIL), PAMR_ITER)
+        plan = propagate_plan_for(m_cm, PAMR_DIL, PAMR_ITER)
         inst = f"pamr_propagate_cluster_kernelILi{plan.g}ELi{plan.p}E"
         lines = ptxas_lines("pamr", inst)
         check(lines, f"no ptxas lines for {inst}")
@@ -578,11 +619,9 @@ def phase_pamr_kernels(card: str) -> list:
               f"clusters of N {plan.n} CTAs (rows {list(plan.bands())[:2]} "
               f"...), {plan.threads} threads taking {plan.p} pixels "
               f"together, {plan.sdil} dilations' affinities in shared "
-              f"memory (the others' from "
-              f"{'L1' if plan.aff_in_l1 else 'L2'} by the model), "
-              f"{plan.smem_bytes()} B of shared memory, carveout for "
-              f"{plan.ctas} CTAs an SM, {plan.total_ctas} CTAs, "
-              f"{plan.clusters} clusters at once ({plan.waves:.2f} waves); "
+              f"memory, {plan.smem_bytes()} B of shared memory, "
+              f"{plan.total_ctas} CTAs, {plan.clusters} clusters at once "
+              f"({plan.waves:.2f} waves); "
               f"ptxas {inst}: {'; '.join(lines)}", flush=True)
         # affinity: per pixel and channel 4 ops per sigma tap (mean, then
         # deviation squared and summed) + 4 per logit tap; 3 per softmax
@@ -633,6 +672,16 @@ def phase_pamr_kernels(card: str) -> list:
                   f"{bnd['bound_ms'] * 1e3:.2f} us ({bnd['bound_by']}, "
                   f"{nbytes / 1e6:.1f} MB, {flops / 1e6:.1f} MFLOP){floor} "
                   f"({card})", flush=True)
+            if k == 0 and name == "pamr_propagate_cm":
+                split = propagate_host_us(aff_ref, m_cm)
+                print(f"kernel {name} {shape} host us a call (0 steps, "
+                      f"the card keeping up): wrapper {split['call']:.2f}, "
+                      f"of which the C entry {split['entry']:.2f} (its "
+                      f"ctypes call refused before any CUDA call "
+                      f"{split['refused']:.2f}, so the launch "
+                      f"{split['entry'] - split['refused']:.2f}) and "
+                      f"Python {split['call'] - split['entry']:.2f} "
+                      f"({card})", flush=True)
             if k == 0:
                 entries.append({"name": name, "route": "cuda",
                                 "source": "wseg_tpu_torch/csrc/pamr.cu",

@@ -194,11 +194,12 @@ def test_propagate_kernel_refuses_planes_above_shared_memory():
     assert limit == pc.MAX_PLANE >= (232448 - 512) // 8
 
 
-def _model_fit(g, p, n, threads, smem, ctas):
-    """Clusters an H100-like card holds at once: 8 GPCs of 16 SMs, blocks
-    an SM by the carveout for ``ctas`` CTAs and by threads (the card's
-    count comes from cudaOccupancyMaxActiveClusters)."""
-    per_sm = min(ctas, 2048 // threads, 32)
+def _model_fit(g, p, n, threads, smem):
+    """Clusters an H100-like card holds at once: 8 GPCs of 16 SMs, CTAs
+    an SM by the 228 KB of shared memory (1 KB each reserved) and by
+    threads (the card's count comes from
+    cudaOccupancyMaxActiveClusters)."""
+    per_sm = min(233472 // (smem + 1024), 2048 // threads, 32)
     return 8 * (16 * per_sm // n)
 
 
@@ -224,17 +225,17 @@ def test_propagate_plans_cover_the_tensor_once_within_limits(b, c, h, w,
         chans = [k for c0, c1 in plan.channel_groups()
                  for k in range(c0, c1)]
         assert chans == list(range(c))
-        assert 1 <= plan.g <= min(c, pc.MAX_GROUP)
+        assert plan.g in pc.GROUPS and plan.g <= c
         assert 1 <= plan.n <= min(h, pc.MAX_CLUSTER)
         assert plan.threads % 32 == 0 and plan.threads <= pc.MAX_THREADS
         band = max(y1 - y0 for y0, y1 in plan.bands()) * w
         # a thread takes the fewest pixels of the band it can
         assert -(-band // plan.threads) == -(-band // pc.MAX_THREADS)
         assert plan.smem_bytes() <= pc.SMEM_LIMIT
-        # the carveout holds the plan's CTAs an SM
-        assert plan.ctas >= 1 and pc.l1_bytes(plan.smem_bytes(),
-                                               plan.ctas) >= 0
+        # as many dilations' affinities staged as fit
         assert 0 <= plan.sdil <= n_dil
+        assert plan.sdil == n_dil or (plan.smem_bytes() + 4 * 8 * band
+                                      > pc.SMEM_LIMIT)
         assert plan.clusters == _model_fit(*plan.occupancy_args())
         assert 1 <= plan.p <= min(pc.MAX_PIXELS, -(-band // plan.threads))
     best = pc.propagate_plan(b, c, h, w, n_dil, 10, _model_fit, 132)
@@ -249,10 +250,9 @@ def test_propagate_plan_refuses_what_no_launch_takes():
         pc.propagate_plan(1, 2, side, side, 6, 10, _model_fit, 132)
     with pytest.raises(ValueError, match="shared-memory limit"):
         pc.propagate_plan(1, 1, 1, pc.MAX_PLANE + 1, 1, 10, _model_fit, 132)
-    # the largest plane fits at G = 1, one CTA an SM
+    # the largest plane fits at G = 1, nothing staged
     plan = pc.propagate_plan(1, 4, 1, pc.MAX_PLANE, 1, 10, _model_fit, 132)
-    assert (plan.g, plan.ctas, plan.sdil, plan.smem_bytes()) == (
-        1, 1, 0, pc.SMEM_LIMIT)
+    assert (plan.g, plan.sdil, plan.smem_bytes()) == (1, 0, pc.SMEM_LIMIT)
     with pytest.raises(ValueError, match="no propagation launch"):
         pc.propagate_plan(2, 21, 48, 48, 6, 10, lambda *a: 0, 132)
     with pytest.raises(ValueError):
@@ -262,57 +262,70 @@ def test_propagate_plan_refuses_what_no_launch_takes():
 def test_propagate_plan_picks_channel_groups_and_carveout():
     from wseg_tpu_torch.ops import pamr_cuda as pc
 
-    # groups are as even as their count allows: 21 = 3 x 7, never 8 + 8 + 5
+    # groups are the kernel's instances up to C; a last group short of G
+    # runs with zero slots (21 = 8 + 8 + 5)
     gs = {p.g for p in pc.propagate_candidates(8, 21, 48, 48, 6, 10,
                                                _model_fit, 132)}
-    assert gs == {1, 2, 3, 4, 5, 6, 7}
+    assert gs == set(pc.GROUPS) == {1, 2, 3, 4, 8}
+    gs = {p.g for p in pc.propagate_candidates(2, 5, 24, 24, 6, 10,
+                                               _model_fit, 132)}
+    assert gs == {1, 2, 3, 4}
+    g8 = next(p for p in pc.propagate_candidates(8, 21, 48, 48, 6, 10,
+                                                 _model_fit, 132)
+              if p.g == 8)
+    assert list(g8.channel_groups()) == [(0, 8), (8, 16), (16, 21)]
+    # the flagship and the lab's second shape keep the plan the sweep
+    # found fastest; each fits one SM's largest carveout (228 KB)
     plan = pc.propagate_plan(8, 21, 48, 48, 6, 10, _model_fit, 132)
+    assert (plan.g, plan.n, plan.threads, plan.p, plan.sdil) == (
+        3, 2, 576, 2, 4)
     assert plan.waves <= 1.0
-    band = -(-48 // plan.n) * 48
-    assert plan.smem_bytes() == 4 * (2 * plan.g * 48 * 48
-                                     + 8 * plan.sdil * band)
-    # the carveout is the least that holds the CTAs (and 1 KB each the
-    # system reserves); the rest of the 256 KB is L1
-    assert pc.l1_bytes(129024, 1) == (256 - 132) * 1024
-    assert pc.l1_bytes(110592, 2) == (256 - 228) * 1024
-    assert pc.l1_bytes(pc.SMEM_LIMIT, 1) == (256 - 228) * 1024
-    assert pc.l1_bytes(pc.SMEM_LIMIT, 2) < 0
-    # a 7-channel unit in clusters of 4 keeps its 110.6 KB band of
-    # affinities in the 124 KB of L1 that its 129 KB carveout leaves
-    g7 = [p for p in pc.propagate_candidates(8, 21, 48, 48, 6, 10,
-                                             _model_fit, 132)
-          if (p.g, p.n, p.threads, p.ctas, p.sdil, p.p)
-          == (7, 4, 576, 1, 0, 1)]
-    assert len(g7) == 1 and g7[0].aff_in_l1
+    assert plan.smem_bytes() == 4 * (2 * 3 * 48 * 48 + 8 * 4 * 24 * 48)
+    plan = pc.propagate_plan(8, 21, 96, 96, 6, 10, _model_fit, 132)
+    assert (plan.g, plan.n, plan.threads, plan.p, plan.sdil) == (
+        3, 2, 768, 2, 0)
+    assert plan.smem_bytes() + 1024 <= 228 * 1024
 
 
-def _explicit_plan(b, c, h, w, n_dil, g, n, ctas=1, sdil=0, p=1,
-                   threads=None):
+def _explicit_plan(b, c, h, w, n_dil, g, n, sdil=0, p=1, threads=None):
     from wseg_tpu_torch.ops import pamr_cuda as pc
 
     band = -(-h // n) * w
     if threads is None:
         threads = min(pc.MAX_THREADS, -(-band // 32) * 32)
-    return pc.PropagatePlan(b, c, h, w, n_dil, g, n, threads, p, ctas, sdil,
-                            1, 132, False, 0.0)
+    return pc.PropagatePlan(b, c, h, w, n_dil, g, n, threads, p, sdil, 1,
+                            132, 0.0)
 
 
-# (b, c, h, w, dilations, steps, G, N, CTAs an SM): H not divisible by N,
-# C not divisible by G, C = 1 and 2, 1 and 8 dilations, 0 and 1 steps,
-# 16-CTA clusters, a carveout for 2 CTAs an SM, several pixels a thread
-# and the largest plane (G = 1)
+def _launch(aff, m, dil, steps, plan):
+    """Run the kernel with an explicit plan, counted as
+    ``pamr_propagate_cm`` counts it."""
+    import ctypes
+
+    from wseg_tpu_torch.ops import pamr_cuda as pc
+
+    ints = plan.host_ints()
+    return pc._launch_propagate(aff, m, tuple(dil), steps,
+                                (ctypes.c_int * len(ints))(*ints),
+                                (ctypes.c_int * len(dil))(*dil))
+
+
+# (b, c, h, w, dilations, steps, G, N): H not divisible by N, C not
+# divisible by G (a last group of zero slots), C = 1 and 2, 1 and 8
+# dilations, 0 and 1 steps, 16-CTA clusters, several pixels a thread and
+# the largest plane (G = 1)
 EDGE_CASES = [
-    (2, 21, 47, 48, FLAGSHIP_DIL, 10, 7, 5, 1),
-    (2, 21, 48, 48, FLAGSHIP_DIL, 10, 8, 7, 1),
-    (1, 1, 33, 20, FLAGSHIP_DIL, 10, 1, 4, 1),
-    (2, 2, 29, 41, FLAGSHIP_DIL, 10, 2, 3, 2),
-    (3, 5, 24, 24, (1,), 10, 3, 2, 1),
-    (1, 6, 40, 36, (1, 2, 3, 5, 8, 13, 21, 34), 10, 6, 8, 1),
-    (2, 4, 30, 30, FLAGSHIP_DIL, 0, 4, 3, 1),
-    (2, 4, 30, 30, FLAGSHIP_DIL, 1, 4, 16, 1),
-    (1, 3, 170, 170, FLAGSHIP_DIL, 2, 1, 8, 1),
-    (1, 2, 96, 96, FLAGSHIP_DIL, 3, 2, 2, 1),
-    (1, 2, 1, 29056, (1, 2), 2, 1, 1, 1),
+    (2, 21, 47, 48, FLAGSHIP_DIL, 10, 8, 5),
+    (2, 21, 48, 48, FLAGSHIP_DIL, 10, 8, 7),
+    (1, 1, 33, 20, FLAGSHIP_DIL, 10, 1, 4),
+    (2, 2, 29, 41, FLAGSHIP_DIL, 10, 2, 3),
+    (3, 5, 24, 24, (1,), 10, 3, 2),
+    (1, 6, 40, 36, (1, 2, 3, 5, 8, 13, 21, 34), 10, 4, 8),
+    (2, 4, 30, 30, FLAGSHIP_DIL, 0, 4, 3),
+    (2, 4, 30, 30, FLAGSHIP_DIL, 1, 4, 16),
+    (1, 3, 170, 170, FLAGSHIP_DIL, 2, 1, 8),
+    (1, 2, 96, 96, FLAGSHIP_DIL, 3, 2, 2),
+    (1, 2, 1, 29056, (1, 2), 2, 1, 1),
 ]
 # (b, c, h, w, dilations, steps, G, N, staged dilations, pixels a thread
 # takes together, threads): some, all, and all of 8 dilations'
@@ -320,33 +333,41 @@ EDGE_CASES = [
 # odd multiple of the threads, and more than two passes
 STAGED_CASES = [
     (2, 21, 47, 48, FLAGSHIP_DIL, 10, 3, 2, 4, 1, None),
-    (2, 5, 29, 41, FLAGSHIP_DIL, 10, 5, 3, 6, 1, None),
-    (1, 6, 40, 36, (1, 2, 3, 5, 8, 13, 21, 34), 10, 6, 8, 8, 1, None),
+    (2, 5, 29, 41, FLAGSHIP_DIL, 10, 4, 3, 6, 1, None),
+    (1, 6, 40, 36, (1, 2, 3, 5, 8, 13, 21, 34), 10, 4, 8, 8, 1, None),
     (2, 21, 48, 48, FLAGSHIP_DIL, 10, 3, 2, 4, 2, 576),
-    (2, 21, 48, 48, FLAGSHIP_DIL, 10, 7, 4, 0, 2, 96),
+    (2, 21, 48, 48, FLAGSHIP_DIL, 10, 8, 4, 0, 2, 96),
     (1, 3, 37, 29, FLAGSHIP_DIL, 3, 3, 1, 0, 2, 160),
-    (1, 7, 45, 31, FLAGSHIP_DIL, 4, 7, 3, 2, 2, 128),
+    (1, 7, 45, 31, FLAGSHIP_DIL, 4, 4, 3, 2, 2, 128),
 ]
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("b,c,h,w,dil,steps,g,n,ctas", EDGE_CASES)
-def test_propagate_kernel_matches_plain_at_plan_edges(b, c, h, w, dil, steps,
-                                                      g, n, ctas):
-    _card()
+def _card_inputs(b, c, h, w, dil, seed):
     from wseg_tpu_torch.ops import pamr_cuda as pc
 
-    plan = _explicit_plan(b, c, h, w, len(dil), g, n, ctas)
-    assert plan.smem_bytes() <= pc.SMEM_LIMIT
-    gen = torch.Generator(device="cuda").manual_seed(h * w + c)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     im = torch.rand((b, 3, h, w), generator=gen, device="cuda")
     m = torch.softmax(torch.randn((b, c, h, w), generator=gen,
                                   device="cuda") * 3, dim=1)
-    aff = pc.pamr_affinity_cm(im, dil)
-    got = pc.launch_propagate(aff, m, tuple(dil), steps, plan)
-    again = pc.launch_propagate(aff, m, tuple(dil), steps, plan)
+    return pc.pamr_affinity_cm(im, dil), m
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,c,h,w,dil,steps,g,n", EDGE_CASES)
+def test_propagate_kernel_matches_plain_at_plan_edges(b, c, h, w, dil, steps,
+                                                      g, n):
+    _card()
+    from wseg_tpu_torch.ops import pamr_cuda as pc
+
+    plan = _explicit_plan(b, c, h, w, len(dil), g, n)
+    assert plan.smem_bytes() <= pc.SMEM_LIMIT
+    aff, m = _card_inputs(b, c, h, w, dil, h * w + c)
+    before = pc.pamr_propagate_cm.launches
+    got = _launch(aff, m, dil, steps, plan)
+    again = _launch(aff, m, dil, steps, plan)
     want = pc.pamr_propagate_cm_reference(aff, m, dil, steps)
     torch.cuda.synchronize()
+    assert pc.pamr_propagate_cm.launches == before + 2
     assert torch.equal(got, again)
     # same float32 arithmetic in tap order; FMA contraction differs
     assert float((got - want).abs().max()) <= 1e-5 * float(
@@ -364,12 +385,8 @@ def test_propagate_kernel_matches_plain_with_staged_affinities(
     plan = _explicit_plan(b, c, h, w, len(dil), g, n, sdil=sdil, p=p,
                           threads=threads)
     assert plan.smem_bytes() <= pc.SMEM_LIMIT
-    gen = torch.Generator(device="cuda").manual_seed(h * w + sdil)
-    im = torch.rand((b, 3, h, w), generator=gen, device="cuda")
-    m = torch.softmax(torch.randn((b, c, h, w), generator=gen,
-                                  device="cuda") * 3, dim=1)
-    aff = pc.pamr_affinity_cm(im, dil)
-    got = pc.launch_propagate(aff, m, tuple(dil), steps, plan)
+    aff, m = _card_inputs(b, c, h, w, dil, h * w + sdil)
+    got = _launch(aff, m, dil, steps, plan)
     want = pc.pamr_propagate_cm_reference(aff, m, dil, steps)
     torch.cuda.synchronize()
     assert float((got - want).abs().max()) <= 1e-5 * float(
@@ -377,21 +394,40 @@ def test_propagate_kernel_matches_plain_with_staged_affinities(
 
 
 @pytest.mark.gpu
+def test_propagate_kernel_takes_unaligned_tensors():
+    """Contiguous views at a storage offset of one float, on a plane
+    whose H * W is a multiple of 4: the mask's 16-byte staging copies
+    must not be taken."""
+    _card()
+    from wseg_tpu_torch.ops import pamr_cuda as pc
+
+    b, c, h, w = 2, 5, 24, 24
+    aff, m = _card_inputs(b, c, h, w, FLAGSHIP_DIL, 7)
+    m1 = torch.empty(m.numel() + 1, device="cuda")[1:].view(b, c, h, w)
+    a1 = torch.empty(aff.numel() + 1, device="cuda")[1:].view(aff.shape)
+    m1.copy_(m)
+    a1.copy_(aff)
+    assert m1.is_contiguous() and m1.data_ptr() % 16 == 4
+    got = pc.pamr_propagate_cm(a1, m1, FLAGSHIP_DIL, 10)
+    want = pc.pamr_propagate_cm(aff, m, FLAGSHIP_DIL, 10)
+    ref = pc.pamr_propagate_cm_reference(aff, m, FLAGSHIP_DIL, 10)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+@pytest.mark.gpu
 def test_propagate_kernel_is_deterministic_and_counted():
     _card()
     from wseg_tpu_torch.ops import pamr_cuda as pc
 
-    gen = torch.Generator(device="cuda").manual_seed(5)
-    im = torch.rand((8, 3, 48, 48), generator=gen, device="cuda")
-    m = torch.softmax(torch.randn((8, 21, 48, 48), generator=gen,
-                                  device="cuda"), dim=1)
-    aff = pc.pamr_affinity_cm(im, FLAGSHIP_DIL)
+    aff, m = _card_inputs(8, 21, 48, 48, FLAGSHIP_DIL, 5)
     before = pc.pamr_propagate_cm.launches
     outs = [pc.pamr_propagate_cm(aff, m, FLAGSHIP_DIL, 10) for _ in range(2)]
     torch.cuda.synchronize()
     assert pc.pamr_propagate_cm.launches == before + 2
     assert torch.equal(outs[0], outs[1])
-    plan = pc.propagate_plan_for(m, len(FLAGSHIP_DIL), 10)
+    plan = pc.propagate_plan_for(m, FLAGSHIP_DIL, 10)
     assert plan.clusters > 0 and plan.smem_bytes() <= pc.SMEM_LIMIT
 
 
@@ -401,16 +437,16 @@ def test_propagate_entry_refuses_plans_it_cannot_take():
     from wseg_tpu_torch.ops import pamr_cuda as pc
 
     aff = torch.rand(1, 48, 24, 24, device="cuda")
-    m = torch.rand(1, 4, 24, 24, device="cuda")
-    good = _explicit_plan(1, 4, 24, 24, 6, 4, 2)
-    pc.launch_propagate(aff, m, FLAGSHIP_DIL, 1, good)
-    for bad in (_explicit_plan(1, 4, 24, 24, 6, 5, 2),   # G > C
-                _explicit_plan(1, 4, 24, 24, 6, 4, 25),  # N > H
-                _explicit_plan(1, 4, 24, 24, 6, 4, 17),  # N > 16
+    m = torch.rand(1, 6, 24, 24, device="cuda")
+    good = _explicit_plan(1, 6, 24, 24, 6, 4, 2)
+    _launch(aff, m, FLAGSHIP_DIL, 1, good)
+    for bad in (_explicit_plan(1, 6, 24, 24, 6, 8, 2),   # G > C
+                _explicit_plan(1, 6, 24, 24, 6, 5, 2),   # no G 5 instance
+                _explicit_plan(1, 6, 24, 24, 6, 4, 25),  # N > H
+                _explicit_plan(1, 6, 24, 24, 6, 4, 17),  # N > 16
                 good.__class__(**{**good.__dict__, "threads": 48}),
-                good.__class__(**{**good.__dict__, "ctas": 0}),
                 # more staged dilations than the call has
                 good.__class__(**{**good.__dict__, "sdil": 7}),
                 good.__class__(**{**good.__dict__, "p": 3})):
         with pytest.raises(RuntimeError, match="CUDA error"):
-            pc.launch_propagate(aff, m, FLAGSHIP_DIL, 1, bad)
+            _launch(aff, m, FLAGSHIP_DIL, 1, bad)

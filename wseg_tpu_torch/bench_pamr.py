@@ -1,7 +1,7 @@
 """PAMR kernel lab: time the affinity and propagation variants.
 
     python -m wseg_tpu_torch.bench_pamr [--shape 8,96,96,21] [--iters 10]
-        [--reps 20] [--device cuda] [--sweep]
+        [--reps 20] [--device cuda]
 
 The port of the JAX package's ``tools/bench_pamr.py``, in its row order:
 the affinity kernel and its plain version, then the propagation as the
@@ -18,14 +18,6 @@ events (each propagation feeding the next), and its kernel launches;
 then the rows sorted by chained ms.  Every line carries the card's
 ``nvidia-smi`` name and power limit.  ``main`` returns the rows.
 
-``--sweep`` (card only) then times the propagation kernel at every
-launch of its host plan (``ops/pamr_cuda.py::propagate_candidates``:
-channel group G, cluster size N, threads, dilations whose affinities are
-staged in shared memory) that runs in one wave, and at the plan's pick,
-each checked against the plain version, beside the plan model's cost;
-and the profiler's kernel time of the pick, the fastest and the fastest
-one-CTA cluster at 0, 1, 2 and all steps.
-
 A row that fails raises: the lab does not skip it.  With ``--device
 cpu`` every row runs its plain version, at whatever shape is given.
 """
@@ -38,14 +30,10 @@ import time
 import torch
 
 from wseg_tpu_torch.ops.pamr_cuda import (
-    _active_clusters,
-    launch_propagate,
     pamr_affinity_cm,
     pamr_affinity_cm_reference,
     pamr_propagate_cm,
     pamr_propagate_cm_reference,
-    propagate_candidates,
-    propagate_plan_for,
 )
 from wseg_tpu_torch.ops.pamr_variants import (
     DILATIONS,
@@ -105,87 +93,6 @@ def time_row(call, chained, reps: int, device: torch.device):
     return times[len(times) // 2], _elapsed_ms(chained, device) / CHAIN
 
 
-def sweep(aff, mask, dil, ni, ref, reps: int, card: str):
-    """Time every launch ``propagate_candidates`` gives for the shape
-    (CUDA-event median of ``reps`` bursts of 10 back-to-back launches);
-    returns [(plan, ms per launch, max |err|)], fastest first."""
-    import functools
-
-    b, c, h, w = mask.shape
-    index = mask.device.index
-    pick = propagate_plan_for(mask, len(dil), ni)
-    fit = functools.partial(_active_clusters, index)
-    sms = torch.cuda.get_device_properties(index).multi_processor_count
-    # the launches that run in one wave, the carveout's least CTAs an SM
-    # of each
-    plans = {}
-    for plan in propagate_candidates(b, c, h, w, len(dil), ni, fit, sms):
-        key = (plan.g, plan.n, plan.threads, plan.sdil, plan.p)
-        if plan.waves <= 1 and key not in plans or plan == pick:
-            plans[key] = plan
-    out = []
-    for plan in plans.values():
-        got = launch_propagate(aff, mask, dil, ni, plan)
-        torch.cuda.synchronize()
-        err = float((got - ref).abs().max())
-        if err > 1e-5 * float(ref.abs().max()):
-            raise AssertionError(f"plan {plan} disagrees with plain: {err}")
-
-        def burst(plan=plan):
-            for _ in range(10):
-                launch_propagate(aff, mask, dil, ni, plan)
-        burst()
-        times = sorted(_elapsed_ms(burst, mask.device) / 10
-                       for _ in range(reps))
-        out.append((plan, times[len(times) // 2], err))
-    out.sort(key=lambda r: r[1])
-    print(f"\nplan sweep at ({b},{h},{w},{c}), {ni} steps: G N threads "
-          f"pixels-together CTAs-an-SM staged-dilations clusters waves "
-          f"others-from model_clk ms ({card})")
-    for plan, ms, err in out:
-        mark = "  <- plan" if plan == pick else ""
-        print(f"  G {plan.g} N {plan.n:2d} {plan.threads:4d} {plan.p} "
-              f"{plan.ctas} {plan.sdil} "
-              f"{plan.clusters:4d} {plan.waves:5.2f} "
-              f"{'L1' if plan.aff_in_l1 else 'L2'} {plan.cost:9.0f} "
-              f"{ms:.4f} err {err:.1e}{mark}", flush=True)
-    # where the time goes: the profiler's kernel time of the plan's pick,
-    # the fastest launch and the fastest one-CTA cluster at 0, 1, 2 and
-    # ni steps
-    single = [r[0] for r in out if r[0].n == 1]
-    for plan in dict.fromkeys([pick, out[0][0]] + single[:1]):
-        per = [kernel_us(lambda plan=plan, steps=steps: launch_propagate(
-            aff, mask, dil, steps, plan)) for steps in (0, 1, 2, ni)]
-        print(f"  G {plan.g} N {plan.n} threads {plan.threads} P {plan.p} "
-              f"CTAs an SM {plan.ctas} staged {plan.sdil}: 0 / 1 / 2 / "
-              f"{ni} steps "
-              f"{' / '.join(f'{u:.2f}' for u in per)} us of kernel, "
-              f"{(per[3] - per[1]) / max(ni - 1, 1):.2f} us a step "
-              f"({card})", flush=True)
-    return out
-
-
-def kernel_us(fn, reps: int = 20) -> float:
-    """The profiler's device time of ``fn``'s kernels, per call."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from wseg_tpu_torch.profile_slice import _dev_us
-
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):  # a profiler window now and then records no kernel
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(_dev_us(e, self_only=True) for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA and "pamr_" in e.key)
-        if us > 0:
-            break
-    return us / reps
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--shape", default="8,96,96,21",
@@ -194,8 +101,6 @@ def main(argv=None):
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (cuda, cuda:N, cpu)")
-    ap.add_argument("--sweep", action="store_true",
-                    help="time every launch of the propagation's plan")
     args = ap.parse_args(argv)
     from wseg_tpu_torch.opts import get_device
 
@@ -255,10 +160,6 @@ def main(argv=None):
     for r in sorted(rows, key=lambda r: r["chained_ms"]):
         print(f"{r['name']:24s} {r['ms']:8.4f} {r['chained_ms']:8.4f} "
               f"{r['err']:.2e} ({card})", flush=True)
-    if args.sweep:
-        if device.type != "cuda":
-            raise SystemExit("--sweep needs a CUDA card")
-        sweep(aff, mask, dil, ni, ref, args.reps, card)
     return rows
 
 

@@ -30,16 +30,16 @@
 //    m <- sum_t aff_t * shift_t(m), all in ONE launch.  The port's first
 //    kernel (one block per (b, c) plane) lost on four counts; each part
 //    of this design answers one:
-//    - Affinity reuse.  The unit of work is (image b, a group of G <= 8
-//      channels), as the TPU kernel's grid step holds all channels of an
-//      image: one affinity value feeds G accumulators.  The first `sdil`
-//      dilations' affinities of a CTA's band are kept in shared memory
-//      (each thread copies its own pixels' on the first step and reads
-//      them back later, so no barrier guards the copy); the others are
-//      read where used, from L1 where the shared-memory carveout (the
-//      least that holds the plan's CTAs) leaves room for them, else L2.
-//      The first kernel read an image's affinities 21 x 10 times per
-//      call from L2.
+//    - Affinity reuse.  The unit of work is (image b, a group of G
+//      channels, G in 1, 2, 3, 4, 8; a last group short of G runs with
+//      zero slots), as the TPU kernel's grid step holds all channels of
+//      an image: one affinity value feeds G accumulators.  As many
+//      dilations' affinities of a CTA's band as fit beside the replicas
+//      (`sdil`) are kept in shared memory (each thread copies its own
+//      pixels' on the first step and reads them back later, so no
+//      barrier guards the copy); the others are read where used, from
+//      L1 or L2.  The first kernel read an image's affinities 21 x 10
+//      times per call from L2.
 //    - Filling the card.  A thread-block cluster of N CTAs covers one
 //      unit; CTA r owns rows [r H / N, (r + 1) H / N).  Each CTA keeps a
 //      replica of the unit's G planes, double-buffered, and writes each
@@ -59,12 +59,13 @@
 //      values come in G / 4 16-byte loads and at most two smaller ones,
 //      each conflict-free across a warp's consecutive pixels.
 //    The host plan (ops/pamr_cuda.py::propagate_plan) picks G, N, the
-//    threads, P, sdil and the carveout from a cost model fitted to the
-//    lab's plan sweep, with the clusters the card holds at once from
+//    threads and P from a cost model fitted to a sweep of the plans
+//    (PERF.md, PR 9), with the clusters the card holds at once from
 //    cudaOccupancyMaxActiveClusters (wseg_pamr_propagate_clusters); the
 //    C entry only checks the plan.  At the flagship (8, 21, 48, 48),
 //    T = 48, 10 steps, it takes G 3 (seven groups), N 2: 112 CTAs of
-//    576 threads, two pixels each, four dilations staged.
+//    576 threads, two pixels each, four dilations staged; 202,752 B of
+//    shared memory, so one CTA an SM.
 //    What bounds it: 186 M FMAs (5.5 us at the float32 rate) against
 //    6.6 MB of compulsory bytes, but every FMA takes its plane value
 //    from shared memory: 744 MB at 128 B a clock on 132 SMs is ~22 us,
@@ -82,6 +83,8 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -91,13 +94,14 @@ constexpr int kMaxTaps = 8 * kMaxDil;   // 64 taps
 constexpr int kK = 3;                   // guide channels (RGB)
 constexpr int kAffBlock = 128;          // threads per block, along x
 // the propagation's limits; ops/pamr_cuda.py's LIMITS holds the same
-constexpr int kMaxGroup = 8;            // channels of a unit
+// channels of a unit: bit G set for each instance of G
+constexpr int kGroups =
+    (1 << 1) | (1 << 2) | (1 << 3) | (1 << 4) | (1 << 8);
 constexpr int kMaxCluster = 16;         // CTAs of a cluster (> 8 non-portable)
 constexpr int kPortableCluster = 8;
 constexpr int kPropMaxThreads = 768;    // threads of a CTA (80 registers)
 constexpr int kMaxPixels = 2;           // pixels a thread takes together
 constexpr int kSmemLimit = 232448;      // a CTA's dynamic shared memory
-constexpr int kSmemCarveout = 233472;   // the largest carveout, 228 KB
 
 struct Dilations {
   int n;
@@ -373,8 +377,8 @@ __device__ __forceinline__ void dilation_taps(
 // replica buffers of G * hwp floats, then the band's affinities of the
 // first `sdil` dilations, [tap][band pixel], staged once per call.  A
 // thread's pixels are q = tid, tid + nt, ... of the band; the other
-// dilations' affinities are read where used (from L1 where the carveout
-// leaves room for them).
+// dilations' affinities are read where used (from L1 or L2).  Channel
+// slots past C (the last group short of G) hold zeros.
 template <int G, int P>
 __global__ void __launch_bounds__(kPropMaxThreads)
 pamr_propagate_cluster_kernel(const float* __restrict__ aff,
@@ -403,7 +407,8 @@ pamr_propagate_cluster_kernel(const float* __restrict__ aff,
   // stage the unit's G planes: copied as they lie into nxt (all copies
   // in flight at once), then re-laid into cur's slots, zeros past C
   const float* src = mask + (static_cast<size_t>(b) * C + c0) * hw;
-  if (hw % 4 == 0) {  // 16-byte copies: every plane starts aligned
+  if (hw % 4 == 0 && (reinterpret_cast<uintptr_t>(mask) & 15) == 0) {
+    // 16-byte copies: every plane starts aligned
     for (int k = 0; k < gc; ++k) {
       for (int p = 4 * tid; p < hw; p += 4 * nt) {
         cp_async16(nxt + k * hwp + p, src + static_cast<size_t>(k) * hw + p);
@@ -525,19 +530,26 @@ pamr_propagate_cluster_kernel(const float* __restrict__ aff,
 using PropagateKernel = void (*)(const float*, const float*, float*,
                                  Dilations, int, int, int, int, int);
 
-#define WSEG_PAMR_KERNELS(P)                                           \
-  {pamr_propagate_cluster_kernel<1, P>, pamr_propagate_cluster_kernel<2, P>, \
-   pamr_propagate_cluster_kernel<3, P>, pamr_propagate_cluster_kernel<4, P>, \
-   pamr_propagate_cluster_kernel<5, P>, pamr_propagate_cluster_kernel<6, P>, \
-   pamr_propagate_cluster_kernel<7, P>, pamr_propagate_cluster_kernel<8, P>}
-
-PropagateKernel propagate_kernel(int g, int p) {
-  static const PropagateKernel table[kMaxPixels][kMaxGroup] = {
-      WSEG_PAMR_KERNELS(1), WSEG_PAMR_KERNELS(2)};
-  return table[p - 1][g - 1];
+// the instance of G channels (one of kGroups) and P pixels a thread
+template <int P>
+PropagateKernel propagate_kernel(int g) {
+  switch (g) {
+    case 1: return pamr_propagate_cluster_kernel<1, P>;
+    case 2: return pamr_propagate_cluster_kernel<2, P>;
+    case 3: return pamr_propagate_cluster_kernel<3, P>;
+    case 4: return pamr_propagate_cluster_kernel<4, P>;
+    case 8: return pamr_propagate_cluster_kernel<8, P>;
+    default: return nullptr;
+  }
 }
 
-#undef WSEG_PAMR_KERNELS
+PropagateKernel propagate_kernel(int g, int p) {
+  return p == 1 ? propagate_kernel<1>(g) : propagate_kernel<2>(g);
+}
+
+bool valid_group(int g) {
+  return g >= 1 && g <= 30 && ((kGroups >> g) & 1);
+}
 
 // dynamic shared memory of a CTA: two replicas of G planes at a pitch of
 // hw rounded up to 4 floats, and the largest band's affinities of `sdil`
@@ -549,37 +561,25 @@ long long propagate_smem(int g, int sdil, int n, int H, int W) {
 }
 
 // the launch of a plan: its kernel, attributes and cluster dimension.
-// The shared-memory carveout asks for no more than `ctas` CTAs of `smem`
-// bytes need (and 1 KB each the system reserves), so that the rest of
-// the SM's 256 KB serves as L1 and keeps a band's affinities between
-// steps.  A kernel's attributes are set only where they change (per
-// device, kernel and value), not on every launch.
+// A kernel's attributes are set only where they change (per device,
+// kernel and value), not on every launch.
 cudaError_t propagate_config(int g, int p, int n, int threads, int smem,
-                             int ctas, PropagateKernel* kernel,
+                             PropagateKernel* kernel,
                              cudaLaunchConfig_t* cfg,
                              cudaLaunchAttribute* attr) {
   constexpr int kDevices = 16;
   struct Attrs {
-    int smem, carveout, nonportable;
+    int smem, nonportable;
   };
-  static Attrs set[kDevices][kMaxPixels][kMaxGroup];
+  static Attrs set[kDevices][kMaxPixels][9];
   *kernel = propagate_kernel(g, p);
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
-  const int carveout = static_cast<int>(
-      (static_cast<long long>(ctas) * (smem + 1024) * 100 + kSmemCarveout -
-       1) / kSmemCarveout);
-  const Attrs want = {smem, carveout < 100 ? carveout : 100,
-                      n > kPortableCluster ? 1 : 0};
-  Attrs* have = dev < kDevices ? &set[dev][p - 1][g - 1] : nullptr;
+  const Attrs want = {smem, n > kPortableCluster ? 1 : 0};
+  Attrs* have = dev < kDevices ? &set[dev][p - 1][g] : nullptr;
   if (e == cudaSuccess && (!have || have->smem != want.smem)) {
     e = cudaFuncSetAttribute(
         *kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, want.smem);
-  }
-  if (e == cudaSuccess && (!have || have->carveout != want.carveout)) {
-    e = cudaFuncSetAttribute(*kernel,
-                             cudaFuncAttributePreferredSharedMemoryCarveout,
-                             want.carveout);
   }
   if (e == cudaSuccess && want.nonportable &&
       (!have || !have->nonportable)) {
@@ -587,8 +587,7 @@ cudaError_t propagate_config(int g, int p, int n, int threads, int smem,
         *kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   }
   if (e == cudaSuccess && have) {
-    *have = {want.smem, want.carveout,
-             have->nonportable | want.nonportable};
+    *have = {want.smem, have->nonportable | want.nonportable};
   }
   attr->id = cudaLaunchAttributeClusterDimension;
   attr->val.clusterDim.x = n;
@@ -615,11 +614,11 @@ bool fill_dilations(const int* d, int n, Dilations* dil) {
 
 extern "C" int wseg_pamr_max_dilations() { return kMaxDil; }
 
-// {max group, max cluster, max threads, shared-memory limit, max pixels
-// a thread takes together}: the limits
-// ops/pamr_cuda.py's LIMITS must equal; returns their count
+// {channel groups (bit G set for an instance of G), max cluster, max
+// threads, shared-memory limit, max pixels a thread takes together}: the
+// limits ops/pamr_cuda.py's LIMITS must equal; returns their count
 extern "C" int wseg_pamr_propagate_limits(int* out) {
-  out[0] = kMaxGroup;
+  out[0] = kGroups;
   out[1] = kMaxCluster;
   out[2] = kPropMaxThreads;
   out[3] = kSmemLimit;
@@ -657,21 +656,19 @@ extern "C" int wseg_pamr_affinity(const void* im, void* aff,
 }
 
 // clusters of a plan the current device holds at once
-// (cudaOccupancyMaxActiveClusters) with the carveout for `ctas` CTAs an
-// SM, or minus a CUDA error
+// (cudaOccupancyMaxActiveClusters), or minus a CUDA error
 extern "C" int wseg_pamr_propagate_clusters(int g, int p, int n,
-                                            int threads, int smem,
-                                            int ctas) {
-  if (g < 1 || g > kMaxGroup || p < 1 || p > kMaxPixels || n < 1 ||
+                                            int threads, int smem) {
+  if (!valid_group(g) || p < 1 || p > kMaxPixels || n < 1 ||
       n > kMaxCluster || threads < 32 || threads > kPropMaxThreads ||
-      smem < 0 || smem > kSmemLimit || ctas < 1) {
+      smem < 0 || smem > kSmemLimit) {
     return -static_cast<int>(cudaErrorInvalidValue);
   }
   PropagateKernel kernel;
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr;
   cudaError_t e =
-      propagate_config(g, p, n, threads, smem, ctas, &kernel, &cfg, &attr);
+      propagate_config(g, p, n, threads, smem, &kernel, &cfg, &attr);
   cfg.gridDim = dim3(n);
   int clusters = 0;
   if (e == cudaSuccess) {
@@ -680,10 +677,10 @@ extern "C" int wseg_pamr_propagate_clusters(int g, int p, int n,
   return e == cudaSuccess ? clusters : -static_cast<int>(e);
 }
 
-// plan: {G, cluster size N, threads, shared memory bytes, CTAs an SM the
-// carveout holds, dilations whose affinities are staged in shared
-// memory, pixels a thread takes together}, from
-// ops/pamr_cuda.py::propagate_plan; checked, not chosen, here
+// plan: {G, cluster size N, threads, shared memory bytes, dilations
+// whose affinities are staged in shared memory, pixels a thread takes
+// together}, from ops/pamr_cuda.py::propagate_plan; checked, not chosen,
+// here
 extern "C" int wseg_pamr_propagate(const void* aff, const void* mask,
                                    void* out, const int* dilations,
                                    int n_dil, int B, int C, int H, int W,
@@ -691,13 +688,13 @@ extern "C" int wseg_pamr_propagate(const void* aff, const void* mask,
                                    void* stream) {
   Dilations dil;
   const int g = plan[0], n = plan[1], threads = plan[2], smem = plan[3];
-  const int ctas = plan[4], sdil = plan[5], p = plan[6];
+  const int sdil = plan[4], p = plan[5];
   if (!fill_dilations(dilations, n_dil, &dil) || B <= 0 || C <= 0 ||
-      H <= 0 || W <= 0 || num_iter < 0 || g < 1 || g > kMaxGroup ||
-      g > C || n < 1 || n > kMaxCluster || n > H || threads < 32 ||
+      H <= 0 || W <= 0 || num_iter < 0 || !valid_group(g) || g > C ||
+      n < 1 || n > kMaxCluster || n > H || threads < 32 ||
       threads % 32 != 0 || threads > kPropMaxThreads || sdil < 0 ||
       sdil > n_dil || propagate_smem(g, sdil, n, H, W) != smem ||
-      smem > kSmemLimit || ctas < 1 || p < 1 || p > kMaxPixels) {
+      smem > kSmemLimit || p < 1 || p > kMaxPixels) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   // (a card with less shared memory than kSmemLimit refuses the launch)
@@ -707,7 +704,7 @@ extern "C" int wseg_pamr_propagate(const void* aff, const void* mask,
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr;
   cudaError_t e =
-      propagate_config(g, p, n, threads, smem, ctas, &kernel, &cfg, &attr);
+      propagate_config(g, p, n, threads, smem, &kernel, &cfg, &attr);
   if (e != cudaSuccess) return static_cast<int>(e);
   cfg.gridDim = dim3(static_cast<unsigned>(grid));
   cfg.stream = static_cast<cudaStream_t>(stream);

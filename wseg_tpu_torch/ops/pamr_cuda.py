@@ -29,7 +29,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import itertools
 import math
 from dataclasses import dataclass
 from typing import Callable, Iterator, Sequence, Tuple
@@ -116,29 +115,24 @@ def pamr_propagate_cm_reference(aff: torch.Tensor, mask: torch.Tensor,
 # the propagation kernel's limits (csrc/pamr.cu); ``_library`` checks
 # them against the built kernel's.  ``propagate_plan`` alone picks a
 # launch within them, and the C entry only checks it.
-MAX_GROUP = 8        # channels of a unit
+GROUPS = (1, 2, 3, 4, 8)  # channels of a unit: the kernel's instances
 MAX_CLUSTER = 16     # CTAs of a cluster (above 8 non-portable)
 MAX_THREADS = 768    # threads of a CTA
 SMEM_LIMIT = 232448  # dynamic shared memory a CTA may use (H100)
 MAX_PIXELS = 2       # pixels a thread takes together
-LIMITS = (MAX_GROUP, MAX_CLUSTER, MAX_THREADS, SMEM_LIMIT, MAX_PIXELS)
+MAX_DILATIONS = 8    # dilations of a call (both kernels)
+LIMITS = (sum(1 << g for g in GROUPS), MAX_CLUSTER, MAX_THREADS, SMEM_LIMIT,
+          MAX_PIXELS)
 # largest plane: G = 1, two planes of a pitch rounded up to 4 floats
 MAX_PLANE = SMEM_LIMIT // 8 // 4 * 4
-# the H100 SM's 256 KB of L1 and shared memory, and the shared-memory
-# carveouts it offers (KB); the kernel asks for the least that holds its
-# CTAs (and 1 KB each the system reserves), the rest is L1
-SM_L1_KB = 256
-CARVEOUTS_KB = (0, 8, 16, 32, 64, 100, 132, 164, 196, 228)
-# the plan's cost model, in ns, fitted to the lab's sweep on an H100
-# (``python -m wseg_tpu_torch.bench_pamr --sweep``): a step takes
-# STEP_NS_PER_BYTE for each byte an SM's shared memory and L1 serve
-# (the G plane values and the affinity of every tap, the replica writes
-# of the CTA's peers), and PEER_NS more for each peer of a cluster;
-# affinities read from L2 count L2_FACTOR times their bytes; staging
-# takes STAGE_NS and STAGE_NS_PER_BYTE for each byte staged
+# the plan's cost model, in ns, fitted to a sweep of the plans on an
+# H100 (PERF.md, PR 9): a step takes STEP_NS_PER_BYTE for each byte an
+# SM's shared memory and L1 serve (the G plane values and the affinity
+# of every tap, the replica writes of the CTA's peers), and PEER_NS
+# more for each peer of a cluster; staging takes STAGE_NS and
+# STAGE_NS_PER_BYTE for each byte staged
 STEP_NS_PER_BYTE = 5.2e-3
 PEER_NS = 300.0
-L2_FACTOR = 1.25
 STAGE_NS = 3000.0
 STAGE_NS_PER_BYTE = 2e-3
 
@@ -152,25 +146,15 @@ def propagate_smem(g: int, sdil: int, n: int, h: int, w: int) -> int:
     return 4 * (2 * g * (-(-(h * w) // 4) * 4) + 8 * sdil * band)
 
 
-def l1_bytes(smem: int, ctas: int) -> int:
-    """L1 left on an SM whose carveout holds ``ctas`` CTAs of ``smem``
-    bytes."""
-    need = -(-ctas * (smem + 1024) // 1024)
-    carve = min((k for k in CARVEOUTS_KB if k >= need), default=None)
-    return -1 if carve is None else (SM_L1_KB - carve) * 1024
-
-
 @dataclass(frozen=True)
 class PropagatePlan:
     """The propagation kernel's launch for (b, c, h, w) with ``n_dil``
     dilations: one cluster of ``n`` CTAs per unit (image, group of ``g``
     channels); CTA r owns rows [r h / n, (r + 1) h / n) of its unit and
     keeps replicas of the unit's g planes and its band's affinities of
-    the first ``sdil`` dilations; a thread takes ``p`` of its pixels
-    together; the shared-memory carveout holds ``ctas`` CTAs an SM.
-    ``clusters``: clusters the card holds at once; ``aff_in_l1``:
-    whether the model counts the other dilations' affinities as staying
-    in L1 between steps; ``cost``: the model's ns."""
+    the first ``sdil`` dilations (as many as fit); a thread takes ``p``
+    of its pixels together.  ``clusters``: clusters the card holds at
+    once; ``cost``: the model's ns."""
 
     b: int
     c: int
@@ -181,11 +165,9 @@ class PropagatePlan:
     n: int
     threads: int
     p: int
-    ctas: int
     sdil: int
     clusters: int
     sms: int
-    aff_in_l1: bool
     cost: float
 
     @property
@@ -218,16 +200,14 @@ class PropagatePlan:
         return propagate_smem(self.g, self.sdil, self.n, self.h, self.w)
 
     def host_ints(self) -> Tuple[int, ...]:
-        """{G, N, threads, shared bytes, CTAs an SM, staged dilations,
-        pixels a thread takes together}, the C entry's plan in its
-        order."""
-        return (self.g, self.n, self.threads, self.smem_bytes(), self.ctas,
-                self.sdil, self.p)
+        """{G, N, threads, shared bytes, staged dilations, pixels a
+        thread takes together}, the C entry's plan in its order."""
+        return (self.g, self.n, self.threads, self.smem_bytes(), self.sdil,
+                self.p)
 
     def occupancy_args(self) -> Tuple[int, ...]:
-        """(g, p, n, threads, smem, ctas), the arguments of ``fit``."""
-        return (self.g, self.p, self.n, self.threads, self.smem_bytes(),
-                self.ctas)
+        """(g, p, n, threads, smem), the arguments of ``fit``."""
+        return (self.g, self.p, self.n, self.threads, self.smem_bytes())
 
 
 def propagate_candidates(b: int, c: int, h: int, w: int, n_dil: int,
@@ -235,12 +215,10 @@ def propagate_candidates(b: int, c: int, h: int, w: int, n_dil: int,
                          fit: Callable[..., int],
                          sms: int) -> Iterator[PropagatePlan]:
     """Every launch the kernel takes for the shape, with its modelled
-    cost.  ``fit(g, p, n, threads, smem, ctas)`` gives the clusters of
-    that launch the card holds at once with the carveout for ``ctas``
-    CTAs an SM (on the card: ``_active_clusters``, from
-    cudaOccupancyMaxActiveClusters; 0 where none fits).  Channel groups
-    are as even as their count allows (21 channels: 3 x 7, 4 x 6,
-    ...)."""
+    cost.  ``fit(g, p, n, threads, smem)`` gives the clusters of that
+    launch the card holds at once (on the card: ``_active_clusters``,
+    from cudaOccupancyMaxActiveClusters; 0 where none fits).  G is one
+    of ``GROUPS`` up to C (21 channels in groups of 8: 8 + 8 + 5)."""
     if b <= 0 or c <= 0 or h <= 0 or w <= 0:
         raise ValueError(f"no propagation plan for ({b}, {c}, {h}, {w})")
     if h * w > MAX_PLANE:
@@ -249,9 +227,7 @@ def propagate_candidates(b: int, c: int, h: int, w: int, n_dil: int,
             f"shared-memory limit of {MAX_PLANE} pixels (two float32 "
             "planes a CTA)")
     taps = 8 * n_dil
-    gs = sorted({-(-c // k) for k in range(1, c + 1)} & set(
-        range(1, MAX_GROUP + 1)))
-    for g in gs:
+    for g in (g for g in GROUPS if g <= c):
         units = b * -(-c // g)
         if propagate_smem(g, 0, 1, h, w) > SMEM_LIMIT:
             continue
@@ -260,35 +236,25 @@ def propagate_candidates(b: int, c: int, h: int, w: int, n_dil: int,
             # the band's pixels evenly over the fewest passes of a thread
             passes = -(-px // MAX_THREADS)
             threads = -(-px // (passes * 32)) * 32
-            # no affinities staged, or as many dilations' as fit
-            room = (SMEM_LIMIT - propagate_smem(g, 0, n, h, w)) // (
-                4 * 8 * px)
-            for sdil, p in itertools.product(
-                    sorted({0, min(n_dil, room)}),
-                    range(1, min(passes, MAX_PIXELS) + 1)):
+            # as many dilations' affinities as fit beside the replicas
+            sdil = min(n_dil, (SMEM_LIMIT - propagate_smem(g, 0, n, h, w))
+                       // (4 * 8 * px))
+            for p in range(1, min(passes, MAX_PIXELS) + 1):
                 smem = propagate_smem(g, sdil, n, h, w)
-                for ctas in range(1, 2048 // threads + 1):
-                    l1 = l1_bytes(smem, ctas)
-                    if l1 < 0:
-                        break
-                    clusters = fit(g, p, n, threads, smem, ctas)
-                    if clusters <= 0:
-                        continue
-                    waves = math.ceil(units / clusters)
-                    # CTAs on the busiest SM
-                    share = max(1, -(-min(units, clusters) * n // sms))
-                    rest = taps - 8 * sdil  # read where used
-                    in_l1 = share * px * rest * 4 <= l1
-                    per_px = 4 * (taps * (g + 1) + g * (n - 1)
-                                  + (0 if in_l1 else (L2_FACTOR - 1) * rest))
-                    step = (px * per_px * STEP_NS_PER_BYTE * share
-                            + PEER_NS * (n - 1))
-                    stage = STAGE_NS + STAGE_NS_PER_BYTE * 4 * (
-                        g * h * w + 8 * sdil * px) * share
-                    cost = waves * (num_iter * step + stage)
-                    yield PropagatePlan(b, c, h, w, n_dil, g, n, threads,
-                                        p, ctas, sdil, clusters, sms, in_l1,
-                                        cost)
+                clusters = fit(g, p, n, threads, smem)
+                if clusters <= 0:
+                    continue
+                waves = math.ceil(units / clusters)
+                # CTAs on the busiest SM
+                share = max(1, -(-min(units, clusters) * n // sms))
+                per_px = 4 * (taps * (g + 1) + g * (n - 1))
+                step = (px * per_px * STEP_NS_PER_BYTE * share
+                        + PEER_NS * (n - 1))
+                stage = STAGE_NS + STAGE_NS_PER_BYTE * 4 * (
+                    g * h * w + 8 * sdil * px) * share
+                cost = waves * (num_iter * step + stage)
+                yield PropagatePlan(b, c, h, w, n_dil, g, n, threads, p,
+                                    sdil, clusters, sms, cost)
 
 
 def propagate_plan(b: int, c: int, h: int, w: int, n_dil: int,
@@ -298,7 +264,7 @@ def propagate_plan(b: int, c: int, h: int, w: int, n_dil: int,
     """The least-cost launch of ``propagate_candidates``; raises where
     none fits."""
     best = min(propagate_candidates(b, c, h, w, n_dil, num_iter, fit, sms),
-               key=lambda p: (p.cost, -p.g, p.n, p.ctas, -p.sdil, -p.p),
+               key=lambda p: (p.cost, -p.g, p.n, -p.p),
                default=None)
     if best is None:
         raise ValueError(f"no propagation launch fits ({b}, {c}, {h}, {w}) "
@@ -313,7 +279,7 @@ def _library():
     lib.wseg_pamr_affinity.argtypes = [ptr, ptr, ptr, i, i, i, i, ptr]
     lib.wseg_pamr_propagate.argtypes = [ptr, ptr, ptr, ptr, i, i, i, i, i,
                                         i, ptr, ptr]
-    lib.wseg_pamr_propagate_clusters.argtypes = [i] * 6
+    lib.wseg_pamr_propagate_clusters.argtypes = [i] * 5
     lib.wseg_pamr_propagate_limits.argtypes = [ptr]
     for name in ("wseg_pamr_affinity", "wseg_pamr_propagate",
                  "wseg_pamr_max_dilations", "wseg_pamr_propagate_max_plane",
@@ -324,22 +290,21 @@ def _library():
     lib.wseg_pamr_propagate_max_plane.argtypes = []
     got = (ctypes.c_int * 8)()
     n = lib.wseg_pamr_propagate_limits(ctypes.addressof(got))
-    if tuple(got[:n]) != LIMITS:
+    limits = tuple(got[:n]) + (lib.wseg_pamr_max_dilations(),)
+    if limits != LIMITS + (MAX_DILATIONS,):
         raise RuntimeError(
-            f"csrc/pamr.cu's limits {tuple(got[:n])} differ from "
-            f"ops/pamr_cuda.py's {LIMITS}: change both together")
+            f"csrc/pamr.cu's limits {limits} differ from ops/pamr_cuda.py's "
+            f"{LIMITS + (MAX_DILATIONS,)}: change both together")
     return lib
 
 
 @functools.lru_cache(maxsize=None)
 def _active_clusters(index: int, g: int, p: int, n: int, threads: int,
-                     smem: int, ctas: int) -> int:
+                     smem: int) -> int:
     """Clusters of a launch that card ``index`` holds at once
-    (cudaOccupancyMaxActiveClusters), its carveout sized for ``ctas``
-    CTAs an SM."""
+    (cudaOccupancyMaxActiveClusters)."""
     with torch.cuda.device(index):
-        k = _library().wseg_pamr_propagate_clusters(g, p, n, threads, smem,
-                                                    ctas)
+        k = _library().wseg_pamr_propagate_clusters(g, p, n, threads, smem)
     if k < 0:
         raise RuntimeError(f"no occupancy for the propagation launch (G "
                            f"{g}, N {n}): CUDA error {-k}")
@@ -347,12 +312,16 @@ def _active_clusters(index: int, g: int, p: int, n: int, threads: int,
 
 
 @functools.lru_cache(maxsize=256)
-def _plan(b: int, c: int, h: int, w: int, n_dil: int, num_iter: int,
-          index: int) -> PropagatePlan:
-    return propagate_plan(b, c, h, w, n_dil, num_iter,
+def _plan(b: int, c: int, h: int, w: int, dil: Tuple[int, ...],
+          num_iter: int, index: int):
+    """(plan, the C entry's plan ints, its dilation ints) of a
+    propagation on card ``index``, cached by shape."""
+    plan = propagate_plan(b, c, h, w, len(dil), num_iter,
                           functools.partial(_active_clusters, index),
                           torch.cuda.get_device_properties(index)
                           .multi_processor_count)
+    return (plan, (ctypes.c_int * 6)(*plan.host_ints()),
+            (ctypes.c_int * len(dil))(*dil))
 
 
 def _check(t: torch.Tensor, name: str) -> None:
@@ -368,14 +337,14 @@ def _require_cuda(t: torch.Tensor) -> None:
         raise ValueError(f"no PAMR kernel for device {t.device}")
 
 
-def _kernel_args(lib, dil: Tuple[int, ...], *tensors: torch.Tensor):
+def _check_kernel_args(max_dil: int, dil: Tuple[int, ...],
+                       *tensors: torch.Tensor) -> None:
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("PAMR kernel tensors must be contiguous "
                          "channels-major (B, ., H, W)")
-    if len(dil) > lib.wseg_pamr_max_dilations():
+    if len(dil) > max_dil:
         raise ValueError(f"{len(dil)} dilations exceed the kernel's "
-                         f"{lib.wseg_pamr_max_dilations()}")
-    return (ctypes.c_int * len(dil))(*dil)
+                         f"{max_dil}")
 
 
 def pamr_affinity_cm(im: torch.Tensor,
@@ -392,7 +361,8 @@ def pamr_affinity_cm(im: torch.Tensor,
                       device=im.device)
     with torch.cuda.device(im.device):
         lib = _library()
-        dil_c = _kernel_args(lib, dil, im)
+        _check_kernel_args(MAX_DILATIONS, dil, im)
+        dil_c = (ctypes.c_int * len(dil))(*dil)
         if k != 3:
             raise ValueError(f"the affinity kernel takes 3 guide channels, "
                              f"got {k}")
@@ -426,42 +396,32 @@ def _propagate_args(aff: torch.Tensor, mask: torch.Tensor,
     return dil
 
 
-def propagate_plan_for(mask: torch.Tensor, n_dil: int,
+def propagate_plan_for(mask: torch.Tensor, dilations: Sequence[int],
                        num_iter: int) -> PropagatePlan:
     """The plan ``pamr_propagate_cm`` launches for ``mask`` on its card."""
     b, c, h, w = mask.shape
-    return _plan(b, c, h, w, n_dil, int(num_iter), mask.device.index)
+    return _plan(b, c, h, w, _dilations(dilations), int(num_iter),
+                 mask.device.index)[0]
 
 
-@functools.lru_cache(maxsize=256)
-def _plan_ints(plan: PropagatePlan):
-    return (ctypes.c_int * 7)(*plan.host_ints())
-
-
-@functools.lru_cache(maxsize=64)
-def _dilation_ints(dil: Tuple[int, ...]):
-    return (ctypes.c_int * len(dil))(*dil)
-
-
-def launch_propagate(aff: torch.Tensor, mask: torch.Tensor,
-                     dil: Tuple[int, ...], num_iter: int,
-                     plan: PropagatePlan) -> torch.Tensor:
-    """Launch the propagation kernel with ``plan`` (checked arguments,
-    CUDA tensors); counts nothing: ``pamr_propagate_cm`` does, and the
-    lab's plan sweep calls this directly."""
+def _launch_propagate(aff: torch.Tensor, mask: torch.Tensor,
+                      dil: Tuple[int, ...], num_iter: int, plan_ints,
+                      dil_ints) -> torch.Tensor:
+    """Launch the propagation kernel with a plan's C ints (checked
+    arguments, CUDA tensors) and count it."""
     b, c, h, w = mask.shape
     with torch.cuda.device(mask.device):
         lib = _library()
-        _kernel_args(lib, dil, aff, mask)
         out = torch.empty_like(mask)
         rc = lib.wseg_pamr_propagate(
             aff.data_ptr(), mask.data_ptr(), out.data_ptr(),
-            ctypes.addressof(_dilation_ints(dil)), len(dil), b, c, h, w,
-            int(num_iter), ctypes.addressof(_plan_ints(plan)),
+            ctypes.addressof(dil_ints), len(dil), b, c, h, w, num_iter,
+            ctypes.addressof(plan_ints),
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"PAMR propagation kernel launch failed: CUDA "
                            f"error {rc}")
+    pamr_propagate_cm.launches += 1
     return out
 
 
@@ -474,12 +434,14 @@ def pamr_propagate_cm(aff: torch.Tensor, mask: torch.Tensor,
     if mask.device.type == "cpu":
         return pamr_propagate_cm_reference(aff, mask, dil, num_iter)
     _require_cuda(mask)
+    _check_kernel_args(MAX_DILATIONS, dil, aff, mask)
     if mask.numel() == 0:
         return torch.empty_like(mask)
-    out = launch_propagate(aff, mask, dil, num_iter,
-                           propagate_plan_for(mask, len(dil), num_iter))
-    pamr_propagate_cm.launches += 1
-    return out
+    b, c, h, w = mask.shape
+    num_iter = int(num_iter)
+    _, plan_ints, dil_ints = _plan(b, c, h, w, dil, num_iter,
+                                   mask.device.index)
+    return _launch_propagate(aff, mask, dil, num_iter, plan_ints, dil_ints)
 
 
 pamr_affinity_cm.launches = 0

@@ -44,7 +44,7 @@ import torch
 from wseg_tpu_torch import _build
 from wseg_tpu_torch.ops.pamr_cuda import (
     _edge_pad,
-    _kernel_args,
+    _check_kernel_args,
     _propagate_args,
     _require_cuda,
     pamr_taps,
@@ -221,7 +221,7 @@ def _simt_variant(name, grouping, aff, mask, dilations, num_iter, block_b,
     b, c, h, w = mask.shape
     with torch.cuda.device(mask.device):
         lib = _library()
-        _kernel_args(lib, dil, aff, mask)
+        _check_kernel_args(lib.wseg_pamr_max_dilations(), dil, aff, mask)
         if nb > lib.wseg_pamr_variant_max_block():
             raise ValueError(f"block_b {nb} exceeds the kernel's "
                              f"{lib.wseg_pamr_variant_max_block()} planes")
@@ -273,7 +273,7 @@ def propagate_mxu_cm(aff, mask, dilations=DILATIONS, num_iter: int = 10,
     b, c, h, w = mask.shape
     with torch.cuda.device(mask.device):
         lib = _library()
-        _kernel_args(lib, dil, aff, mask)
+        _check_kernel_args(lib.wseg_pamr_max_dilations(), dil, aff, mask)
         tiles = -(-nb * h // 16) * -(-w // 8)
         if tiles > lib.wseg_pamr_mxu_max_tiles():
             raise ValueError(
