@@ -24,8 +24,8 @@ from the repository root.  Phases, each printing its own lines:
    their plain versions at the flagship shapes (guide (8, 48, 48, 3),
    mask (8, 48, 48, 21), dilations 1-24, 10 steps), and the propagation
    at (8, 96, 96, 21) too: errors, call times, the profiler's kernel
-   times and bounds, the propagation's host plan, ptxas lines and host
-   time a call (wrapper, C entry, ctypes);
+   times and bounds, both kernels' host plans and ptxas lines, and each
+   one's host time a call (wrapper, C entry, ctypes);
    then the three lab variants (fold, dxfirst, mxu) against theirs at
    the same shapes, and the lab ``wseg_tpu_torch.bench_pamr`` at
    (8, 96, 96, 21), whose run gives the variants' launch counts;
@@ -44,7 +44,8 @@ from the repository root.  Phases, each printing its own lines:
    500x375 image on the 384x512 merge canvas (the blur also bit for bit
    against the chain of per-axis plain blurs), errors, median times,
    bounds, cuSPARSE products as the library yardstick and lattice
-   sizes; the splat at several chunk sizes; the one-call filter
+   sizes; the slice's L2 floor (the row sectors its gathers touch, the
+   tables and out once) at the L2 rate of a copy; the one-call filter
    against the same steps called one by one;
 8. exact serving slice: the flagship model serves the 8 images with
    ``TEST.CRF_MODE exact`` (host lattice build + one host call of the
@@ -585,6 +586,38 @@ def propagate_host_us(aff, mask) -> dict:
             for name, fn in fns.items()}
 
 
+def affinity_host_us(im) -> dict:
+    """Host us to enqueue one affinity, best of 3 x 400 calls: ``call``
+    the whole wrapper, ``entry`` its C entry (plan and pointers made
+    beforehand), ``refused`` the same ctypes call with no dilations,
+    which the C entry refuses before any CUDA call."""
+    import ctypes
+
+    import torch
+
+    from wseg_tpu_torch.ops import pamr_cuda as pc
+
+    b, _, h, w = im.shape
+    _, plan_ints, dil_ints = pc._affinity_launch(b, h, w, PAMR_DIL,
+                                                 im.device.index)
+    lib = pc._library()
+    out = torch.empty((b, 8 * len(PAMR_DIL), h, w), device=im.device)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def entry(n_dil):
+        return lib.wseg_pamr_affinity(
+            im.data_ptr(), out.data_ptr(), ctypes.addressof(dil_ints), n_dil,
+            b, h, w, ctypes.addressof(plan_ints), stream)
+
+    check(entry(0) != 0, "the affinity's C entry took no dilations")
+    check(entry(len(PAMR_DIL)) == 0, "the affinity's C entry refused its "
+          "plan")
+    fns = {"call": lambda: pc.pamr_affinity_cm(im, PAMR_DIL),
+           "entry": lambda: entry(len(PAMR_DIL)), "refused": lambda: entry(0)}
+    return {name: min(host_us(fn, 400) for _ in range(3))
+            for name, fn in fns.items()}
+
+
 def phase_pamr_kernels(card: str) -> list:
     """Both PAMR kernels against their plain versions at the flagship
     shapes, and the propagation also at the lab's (8, 96, 96, 21):
@@ -592,6 +625,7 @@ def phase_pamr_kernels(card: str) -> list:
     propagation's host plan and ptxas lines.  Returns the flagship's
     (affinity entry, propagation entry) without launches."""
     from wseg_tpu_torch.ops.pamr_cuda import (
+        affinity_plan_for,
         pamr_affinity_cm,
         pamr_affinity_cm_reference,
         pamr_propagate_cm,
@@ -623,6 +657,15 @@ def phase_pamr_kernels(card: str) -> list:
               f"{plan.total_ctas} CTAs, {plan.clusters} clusters at once "
               f"({plan.waves:.2f} waves); "
               f"ptxas {inst}: {'; '.join(lines)}", flush=True)
+        aplan = affinity_plan_for(im_cm, PAMR_DIL)
+        inst = f"pamr_affinity_kernelILi{aplan.g}EE"
+        lines = ptxas_lines("pamr", inst)
+        check(lines, f"no ptxas lines for {inst}")
+        print(f"affinity plan at {(b, 3, h, w)}: G {aplan.g} lanes a pixel, "
+              f"tiles of {aplan.rows} x {aplan.cols} pixels, "
+              f"{aplan.threads} threads, {aplan.smem_bytes()} B of shared "
+              f"memory, {aplan.ctas} CTAs; ptxas {inst}: "
+              f"{'; '.join(lines)}", flush=True)
         # affinity: per pixel and channel 4 ops per sigma tap (mean, then
         # deviation squared and summed) + 4 per logit tap; 3 per softmax
         # tap
@@ -672,9 +715,12 @@ def phase_pamr_kernels(card: str) -> list:
                   f"{bnd['bound_ms'] * 1e3:.2f} us ({bnd['bound_by']}, "
                   f"{nbytes / 1e6:.1f} MB, {flops / 1e6:.1f} MFLOP){floor} "
                   f"({card})", flush=True)
-            if k == 0 and name == "pamr_propagate_cm":
-                split = propagate_host_us(aff_ref, m_cm)
-                print(f"kernel {name} {shape} host us a call (0 steps, "
+            if k == 0:
+                split = (propagate_host_us(aff_ref, m_cm)
+                         if name == "pamr_propagate_cm"
+                         else affinity_host_us(im_cm))
+                print(f"kernel {name} {shape} host us a call ("
+                      f"{'0 steps, ' if name == 'pamr_propagate_cm' else ''}"
                       f"the card keeping up): wrapper {split['call']:.2f}, "
                       f"of which the C entry {split['entry']:.2f} (its "
                       f"ctypes call refused before any CUDA call "
@@ -1125,6 +1171,41 @@ def lattice_filter_row(name, tables, wn_pix, wn_csr, q, card: str) -> None:
         flush=True)
 
 
+def l2_rate() -> float:
+    """Bytes/s, read and written, of a float32 copy between two 8 MB
+    tensors resident in the 50 MB L2 (the profiler's kernel time of 50
+    copies): the L2 rate a plain streaming kernel reaches."""
+    import torch
+
+    x = torch.rand(2 << 20, device="cuda")
+    y = torch.empty_like(x)
+    return 2 * x.numel() * 4 / (device_ms(lambda: y.copy_(x), reps=50) / 1e3)
+
+
+def slice_l2_bytes(tables, c: int) -> dict:
+    """The slice's traffic through L2 if no gather hit L1: the 32 B
+    sectors of the vertex row (C floats) each real (pixel, slot) gathers,
+    and the ids, weights and out once; and the distinct row sectors of
+    each warp's tile (what L1 reuse inside a tile leaves)."""
+    import torch
+
+    ids = tables.ids.long()
+    real = ids < tables.m
+    first = ids * 4 * c // 32
+    last = (ids * 4 * c + 4 * c - 1) // 32
+    rows = int((last - first + 1)[real].sum()) * 32
+    once = 4 * (2 * ids.numel() + ids.shape[0] * c)
+    tile = 32 if c >= 4 else 128
+    pix = torch.arange(ids.shape[0], device=ids.device)[:, None].expand_as(ids)
+    span = int((last - first).max()) + 1
+    sec = (first[..., None] + torch.arange(span, device=ids.device))
+    keep = real[..., None] & (sec <= last[..., None])
+    key = (pix[..., None] // tile) * (int(last.max()) + 1) + sec
+    distinct = int(torch.unique(key[keep]).numel()) * 32
+    return {"rows": rows, "once": once, "floor": rows + once,
+            "tile_distinct": distinct}
+
+
 def phase_lattice_kernels(card: str) -> list:
     """The four exact-CRF kernels against their plain versions on the
     lattices of one photo-like VOC image on the flagship merge canvas:
@@ -1158,6 +1239,7 @@ def phase_lattice_kernels(card: str) -> list:
     gen = torch.Generator(device="cuda").manual_seed(2)
     q = torch.softmax(torch.randn((hc * wc, 21), generator=gen,
                                   device="cuda") * 3, dim=-1)
+    l2_bps = l2_rate()
     entries = []
     for name, tables in (("Gaussian", lat_g), ("bilateral", lat_b)):
         norm = kernel_norm(tables)
@@ -1237,10 +1319,24 @@ def phase_lattice_kernels(card: str) -> list:
             enqueue = host_us(kernel)
             print(f"kernel {kname} ({name}) median {k1:.4f} / {k2:.4f} ms "
                   f"per call (CUDA events), {dev * 1e3:.2f} us of kernel "
-                  f"(profiler), host enqueue {enqueue:.1f} us per call; plain "
+                  f"(profiler, {bnd['bound_ms'] / dev:.1%} of the bound), "
+                  f"host enqueue {enqueue:.1f} us per call; plain "
                   f"median {p1:.4f} / {p2:.4f} ms; bound "
                   f"{bnd['bound_ms'] * 1e3:.2f} us ({bnd['bound_by']}, "
                   f"{nbytes / 1e6:.2f} MB) ({card})", flush=True)
+            if kname == "lattice_slice":
+                l2 = slice_l2_bytes(tables, c)
+                floor_us = l2["floor"] / l2_bps * 1e6
+                tiles_us = (l2["tile_distinct"] + l2["once"]) / l2_bps * 1e6
+                print(f"  L2 floor of the slice ({name}, C {c}): "
+                      f"{l2['rows'] / 1e6:.2f} MB of gathered row sectors "
+                      f"+ {l2['once'] / 1e6:.2f} MB of tables and out = "
+                      f"{l2['floor'] / 1e6:.2f} MB, {floor_us:.2f} us at "
+                      f"the L2 rate of a copy, {l2_bps / 1e12:.2f} TB/s "
+                      f"(the kernel takes {dev * 1e3 / floor_us:.1%} of "
+                      f"it); with each warp tile's distinct row sectors "
+                      f"once ({l2['tile_distinct'] / 1e6:.2f} MB) "
+                      f"{tiles_us:.2f} us ({card})", flush=True)
             if name == "bilateral":
                 entries.append({
                     "name": kname, "route": "cuda",

@@ -400,3 +400,83 @@ def test_refused_cooperative_launch_raises_on_card():
     out = k.lattice_filter_cuda(q, tables, tables.w, tables.w_csr)
     torch.cuda.synchronize()
     assert torch.isfinite(out).all()
+
+
+def _slice_inputs(n_pix, d1, c, m, seed):
+    """A lattice (m+1, C) with a zero row m, and a pixel table of n_pix
+    rows: random vertex ids and weights, every seventh pixel padded (all
+    slots on row m, weight 0), some real pixels with a slot on row m."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    lat = torch.rand((m + 1, c), generator=gen, device="cuda")
+    lat[m] = 0
+    ids = torch.randint(0, m, (n_pix, d1), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    wn = torch.rand((n_pix, d1), generator=gen, device="cuda")
+    ids[::7] = m
+    wn[::7] = 0
+    ids[3::11, -1] = m
+    return lat, ids, wn
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d1", [3, 6])
+@pytest.mark.parametrize("c", [1, 7, 21, 33])
+def test_slice_kernel_matches_plain_on_card(d1, c):
+    """d+1 of 3 and 6; C of 1, 21, 7 and 33 (not multiples of 4, one
+    above a warp); 1,013 pixels (not a multiple of a block's pixels),
+    padded pixels: within 1e-5 of the plain version, padded pixels 0,
+    two runs bit-equal, one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from wseg_tpu_torch.ops import crf_lattice_cuda as k
+
+    lat, ids, wn = _slice_inputs(1013, d1, c, 300, d1 * 100 + c)
+    before = k.lattice_slice.launches
+    got = k.lattice_slice(lat, ids, wn, 0.75)
+    again = k.lattice_slice(lat, ids, wn, 0.75)
+    want = k.lattice_slice_reference(lat, ids, wn, 0.75)
+    torch.cuda.synchronize()
+    assert k.lattice_slice.launches == before + 2
+    assert got.shape == (1013, c)
+    assert torch.equal(got, again)
+    assert _rel(got, want) <= 1e-5
+    assert (got[::7] == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["bilateral", "gaussian"])
+@pytest.mark.parametrize("c", [1, 7, 21])
+def test_filter_slices_with_the_new_kernel_on_card(kind, c):
+    """The one-call filter on a 97x129 canvas (12,513 pixels, padded
+    border): its slice is the kernel the step call launches, bit-equal;
+    within 1e-5 of the plain filter; padded pixels 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from wseg_tpu_torch.ops import crf_lattice_cuda as k
+
+    tables = _tables(kind, 90, 120, canvas=(97, 129)).to("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(c)
+    q = torch.rand((tables.ids.shape[0], c), generator=gen, device="cuda")
+    before = k.lattice_slice.launches
+    out = k.lattice_filter_cuda(q, tables, tables.w, tables.w_csr)
+    lat = k.lattice_blur(k.lattice_splat(tables, tables.w_csr, q),
+                         tables.nbr)
+    steps = k.lattice_slice(lat, tables.ids, tables.w, tables.alpha)
+    want = k.lattice_filter_reference(q, tables, tables.w, tables.w_csr)
+    torch.cuda.synchronize()
+    assert k.lattice_slice.launches == before + 2
+    assert torch.equal(out, steps)
+    assert _rel(out, want) <= 1e-5
+    padded = (tables.ids == tables.m).all(1)
+    assert padded.any() and (out[padded] == 0).all()
+
+
+@pytest.mark.gpu
+def test_slice_kernel_refuses_more_slots_than_its_instances():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from wseg_tpu_torch.ops import crf_lattice_cuda as k
+
+    lat, ids, wn = _slice_inputs(64, 9, 4, 50, 0)
+    with pytest.raises(ValueError, match="1 to 8"):
+        k.lattice_slice(lat, ids, wn, 1.0)

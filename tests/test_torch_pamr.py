@@ -450,3 +450,184 @@ def test_propagate_entry_refuses_plans_it_cannot_take():
                 good.__class__(**{**good.__dict__, "p": 3})):
         with pytest.raises(RuntimeError, match="CUDA error"):
             _launch(aff, m, FLAGSHIP_DIL, 1, bad)
+
+
+# ------------------------------------------------------ the affinity plan
+# (b, h, w, dilations): the flagship, the lab's second shape, W of 1, 47,
+# 129 and 29,056 (column tiles), 1 and 8 dilations, a dilation >= H, a
+# plane whose window needs more than 48 KB of shared memory
+AFFINITY_SHAPES = [(8, 48, 48, FLAGSHIP_DIL), (8, 96, 96, FLAGSHIP_DIL),
+                   (1, 20, 1, (1,)), (1, 30, 47, (1, 2, 3)),
+                   (2, 17, 129, (1, 2, 4, 8, 12, 24, 32, 40)),
+                   (1, 5, 48, (3, 7)), (1, 1, 29056, (1, 2)),
+                   (1, 170, 170, FLAGSHIP_DIL), (3, 29, 41, FLAGSHIP_DIL),
+                   (64, 48, 48, FLAGSHIP_DIL)]
+
+
+@pytest.mark.parametrize("b,h,w,dil", AFFINITY_SHAPES)
+def test_affinity_plans_cover_each_pixel_once_within_limits(b, h, w, dil):
+    from wseg_tpu_torch.ops import pamr_cuda as pc
+
+    plan = pc.affinity_plan(b, h, w, dil, 132)
+    seen = np.zeros((h, w), np.int64)
+    for y0, y1, x0, x1 in plan.tiles():
+        assert 0 < y1 - y0 <= plan.rows and 0 < x1 - x0 <= plan.cols
+        seen[y0:y1, x0:x1] += 1
+    assert (seen == 1).all()
+    gx, gy, gb = plan.grid
+    assert len(list(plan.tiles())) == gx * gy and gb == b <= 65535
+    assert gy <= 65535 and plan.ctas == gx * gy * b
+    assert plan.g in pc.AFFINITY_GROUPS
+    # every pixel of a tile has its g lanes; whole warps, within the limit
+    assert plan.rows * plan.cols * plan.g <= plan.threads
+    assert plan.threads % 32 == 0
+    assert plan.threads <= pc.AFFINITY_MAX_THREADS
+    assert plan.threads - plan.rows * plan.cols * plan.g < 32
+    assert plan.smem_bytes() <= pc.SMEM_LIMIT
+    assert plan.host_ints() == (plan.g, plan.rows, plan.cols, plan.threads,
+                                plan.smem_bytes())
+
+
+def test_affinity_plan_picks_lanes_and_tiles():
+    from wseg_tpu_torch.ops import pamr_cuda as pc
+
+    # the flagship: too few pixels for a wave at 4 lanes a pixel, so 8;
+    # one row a CTA keeps 2 CTAs an SM (384 CTAs on 132 SMs); the window
+    # is the whole 48x48 image (rows 24 above and below)
+    plan = pc.affinity_plan(8, 48, 48, FLAGSHIP_DIL, 132)
+    assert (plan.g, plan.rows, plan.cols, plan.threads, plan.ctas) == (
+        8, 1, 48, 384, 384)
+    assert plan.smem_bytes() == 4 * (3 * 48 * 48 + 48 * 52)
+    # (8, 96, 96): four lanes a pixel fill a wave of 132 x 2,048 lanes
+    plan = pc.affinity_plan(8, 96, 96, FLAGSHIP_DIL, 132)
+    assert (plan.g, plan.rows, plan.cols, plan.threads) == (4, 1, 96, 384)
+    assert plan.smem_bytes() == 4 * (3 * 49 * 96 + 48 * 104)
+    # on a small card: the fewest lanes that fill it, and as many rows a
+    # CTA as its threads take while the grid keeps 2 CTAs an SM
+    plan = pc.affinity_plan(8, 48, 48, FLAGSHIP_DIL, 16)
+    assert (plan.g, plan.rows, plan.cols, plan.threads) == (4, 2, 48, 384)
+    plan = pc.affinity_plan(64, 16, 16, (1, 2), 16)
+    assert (plan.g, plan.rows, plan.cols, plan.threads) == (4, 8, 16, 512)
+    plan = pc.affinity_plan(4, 16, 16, (1, 2), 4)
+    assert (plan.g, plan.rows, plan.cols, plan.threads) == (8, 4, 16, 512)
+    # a row wider than a CTA's threads at 8 lanes: even column tiles
+    plan = pc.affinity_plan(1, 3, 129, (1,), 132)
+    assert (plan.g, plan.cols, plan.grid[0]) == (8, 43, 3)
+    # a dilation beyond the plane clamps like max(h, w)
+    assert pc.affinity_reach((1, 500), 20, 30) == 30
+    assert (pc.affinity_smem(8, 1, 30, (1, 500), 20, 30)
+            == pc.affinity_smem(8, 1, 30, (1, 30), 20, 30))
+
+
+def test_affinity_plan_refuses_what_no_launch_takes():
+    from wseg_tpu_torch.ops import pamr_cuda as pc
+
+    # a 400-row reach over 400 columns: one column a CTA still stages
+    # 400 x 400 x 3 floats
+    with pytest.raises(ValueError, match="shared-memory limit"):
+        pc.affinity_plan(1, 400, 400, (1, 400), 132)
+    with pytest.raises(ValueError):
+        pc.affinity_plan(0, 48, 48, FLAGSHIP_DIL, 132)
+    with pytest.raises(ValueError):
+        pc.affinity_plan(1, 48, 48, (0,), 132)
+
+
+@pytest.mark.parametrize("g", [4, 8])
+def test_affinity_pitch_spreads_a_warps_stores_over_the_banks(g):
+    """A warp's store of one round: lane l = group * (32 / g) + pixel
+    writes tap 8 i + group + g u of tile pixel slot0 + pixel, at
+    (tap) * pitch + slot; the 32 addresses fall in 32 banks."""
+    from wseg_tpu_torch.ops import pamr_cuda as pc
+
+    lanes = 32 // g
+    for px in range(1, 300):
+        pitch = pc.affinity_pitch(px, g)
+        assert pitch >= px and pitch % lanes == 0 and pitch % 4 == 0
+        for slot0 in range(0, px, lanes):
+            for i in range(8):
+                for u in range(8 // g):
+                    banks = {((8 * i + grp + g * u) * pitch + slot0 + k) % 32
+                             for grp in range(g) for k in range(lanes)}
+                    assert len(banks) == 32
+
+
+# ------------------------------------------------ the affinity on the card
+CARD_AFFINITY_SHAPES = [(1, 20, 1, (1,)), (8, 48, 48, FLAGSHIP_DIL),
+                        (1, 30, 47, (1, 2, 3)),
+                        (2, 17, 129, (1, 2, 4, 8, 12, 24, 32, 40)),
+                        (1, 5, 48, (3, 7)), (8, 96, 96, FLAGSHIP_DIL),
+                        (1, 1, 29056, (1, 2)), (1, 170, 170, FLAGSHIP_DIL)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,w,dil", CARD_AFFINITY_SHAPES)
+def test_affinity_kernel_matches_plain_on_card(b, h, w, dil):
+    """One to eight dilations, a largest dilation >= H, W of 1, 47, 48,
+    129 and 29,056, B of 1, 2 and 8: within 1e-5 of the plain version,
+    two runs bit-equal, one launch a call."""
+    _card()
+    from wseg_tpu_torch.ops import pamr_cuda as pc
+
+    gen = torch.Generator(device="cuda").manual_seed(h * w + len(dil))
+    im = torch.rand((b, 3, h, w), generator=gen, device="cuda")
+    before = pc.pamr_affinity_cm.launches
+    got = pc.pamr_affinity_cm(im, dil)
+    again = pc.pamr_affinity_cm(im, dil)
+    want = pc.pamr_affinity_cm_reference(im, dil)
+    torch.cuda.synchronize()
+    assert pc.pamr_affinity_cm.launches == before + 2
+    assert got.shape == (b, 8 * len(dil), h, w)
+    assert torch.equal(got, again)
+    # same float32 arithmetic; sum order and FMA contraction differ
+    assert float((got - want).abs().max()) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_affinity_kernel_takes_unaligned_guides():
+    """A contiguous guide at a storage offset of one float, W a multiple
+    of 4 (whole rows of an aligned guide take the 16-byte copies): the
+    4-byte copies give the same bits."""
+    _card()
+    from wseg_tpu_torch.ops import pamr_cuda as pc
+
+    b, h, w = 2, 24, 48
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    im = torch.rand((b, 3, h, w), generator=gen, device="cuda")
+    im1 = torch.empty(im.numel() + 1, device="cuda")[1:].view(im.shape)
+    im1.copy_(im)
+    assert im1.is_contiguous() and im1.data_ptr() % 16 == 4
+    got = pc.pamr_affinity_cm(im1, FLAGSHIP_DIL)
+    want = pc.pamr_affinity_cm(im, FLAGSHIP_DIL)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_affinity_entry_refuses_plans_it_cannot_take():
+    """The C entry checks the plan: a launch for which it was not made
+    fails with a CUDA error and is not counted."""
+    _card()
+    import ctypes
+
+    from wseg_tpu_torch.ops import pamr_cuda as pc
+
+    im = torch.rand(1, 3, 24, 24, device="cuda")
+    dil = (1, 2)
+    good = pc.affinity_plan(1, 24, 24, dil, 132)
+    dil_c = (ctypes.c_int * 2)(*dil)
+
+    def launch(ints):
+        return pc._launch_affinity(im, dil, (ctypes.c_int * 5)(*ints), dil_c)
+
+    launch(good.host_ints())
+    before = pc.pamr_affinity_cm.launches
+    g, rows, cols, threads, smem = good.host_ints()
+    for bad in ((2, rows, cols, threads, smem),      # no G 2 instance
+                (g, rows, cols, threads, smem + 4),  # not this plan's smem
+                (g, rows, cols, 544, smem),          # above 512 threads
+                (g, rows, cols, threads - 1, smem),  # not whole warps
+                (g, 25, cols, threads, smem),        # rows > H
+                (g, rows, cols, 32, smem)):          # fewer lanes than px
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            launch(bad)
+    assert pc.pamr_affinity_cm.launches == before

@@ -28,7 +28,8 @@
 // pixels' q rows (15.8 MB) and 9 MB of CSR and writes m x 84 B of
 // lattice (m ~ 18k, ~8 us at HBM rate); a blur reads and writes the
 // 1.5 MB lattice per axis, which stays in the 50 MB L2; a slice reads
-// the lattice and 9.4 MB of tables and writes 16.5 MB.  In practice the
+// the lattice and 9.4 MB of tables and writes 16.5 MB (its gathers are
+// its cost, see below).  In practice the
 // splat is bound by L2 traffic: it gathers one 84 B q row (3-4 sectors)
 // per CSR entry, ~1.1M rows on the bilateral lattice, and more loads in
 // flight per warp made it slower on the H100; the blur is bound by
@@ -63,8 +64,29 @@
 //   (lat[n1] + lat[n2]) in the per-axis order (bit-equal to d+1 one-axis
 //   passes) and rewrites the zero slot (row m, where missing neighbours
 //   and padded pixels point) as zero.
-// * lattice_slice (replaces _gather_call's slice product): one thread per
-//   (pixel, channel) gathers its d+1 vertex rows.
+// * lattice_slice (replaces _gather_call's slice product).  Its bound is
+//   bytes: the lattice, the (Np, d+1) ids and weights and out once, 27.5
+//   MB at the flagship bilateral filter (Np 196,608, d+1 6, C 21, m
+//   18,241), 8.2 us at the HBM rate.  Its gathers are the cost: each
+//   (pixel, slot) reads an 84 B vertex row that spans 3-4 sectors of 32 B
+//   (rows are not sector-aligned), 125.9 MB of row sectors on the
+//   photo-like lattice of chip_smoke.py; with the tables and out once,
+//   151.8 MB through L2 if no gather hit L1 (the L2 floor; chip_smoke.py
+//   prints its time at the L2 rate it measures).  Neighbouring pixels
+//   share vertices, so a warp's 32-pixel tile touches only 22.1 MB of
+//   distinct row sectors: L1 can take the rest.  The first kernel (one
+//   thread per (pixel, channel), 4.1 M threads, a 64-bit division each,
+//   the pixel's d+1 ids and weights re-read by each of its C threads)
+//   took 31 us.  This design: a warp per tile of pixels copies the
+//   tile's ids and weights once, coalesced, into shared memory; lanes
+//   walk the tile's outputs in pixel-major order, so neighbouring lanes
+//   gather neighbouring channels of one vertex row and a warp's rounds
+//   share rows in L1; d+1 is a template (the loads of a round in flight
+//   together), each output sums its slots in slot order (two runs
+//   bit-equal); a slot on the zero row m (every slot of a padded canvas
+//   pixel) issues no load; outputs leave through shared memory as one
+//   16-byte store a lane per 128 outputs.  (Times in this note: NVIDIA
+//   H100 80GB HBM3 at a 700 W power limit, chip_smoke.py.)
 // * The splat and the blur are cooperative launches at as many blocks as
 //   the card holds at once (grid.sync needs no -rdc since CUDA 11).  A
 //   grid that cannot be co-resident is refused
@@ -82,6 +104,7 @@
 
 #include <atomic>
 #include <climits>
+#include <cstdint>
 
 namespace cg = cooperative_groups;
 
@@ -92,6 +115,9 @@ constexpr int kWarpsPerBlock = kBlock / 32;
 constexpr int kUnroll = 8;  // q-row loads in flight per splat warp
 constexpr int kBlurBlock = 1024;
 constexpr int kBlurIlp = 4;
+constexpr int kSliceBlock = 128;
+constexpr int kSliceWarps = kSliceBlock / 32;
+constexpr int kSliceMaxD1 = 8;  // slots a pixel: instances 1 .. 8
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxDevices = 64;
 
@@ -247,22 +273,120 @@ lattice_blur_kernel(const float* in, float* buf0, float* buf1,
   }
 }
 
-__global__ void __launch_bounds__(kBlock)
+// pixels a slice warp takes: 32, or for C < 4 enough that the warp's
+// tile has at least 128 outputs (one 16-byte store a lane)
+__host__ __device__ constexpr int slice_tile(int C) {
+  return C >= 4 ? 32 : 32 * ((4 + C - 1) / C);
+}
+
+// dynamic shared memory of a slice block: each warp's (id, weight) pairs
+// and its 128-output staging buffer
+constexpr int slice_smem(int C, int d1) {
+  return kSliceWarps * (slice_tile(C) * d1 * 8 + 128 * 4);
+}
+
+// Warp w of block k takes the tile of pixels [p0, p0 + tile), p0 = (k *
+// kSliceWarps + w) * tile: it copies their (Np, D1) ids and weights, one
+// contiguous span each, into shared memory as (id, weight) pairs, D1
+// loads of each in flight at once per 32 pixels; then it walks the
+// tile's outputs (pixel-major, p * C + c) 128 at a time, lane l taking
+// outputs 32 r + l of rounds r = 0..3: neighbouring lanes gather
+// neighbouring channels of one vertex row, each output sums its D1 slots
+// in slot order, a slot on the zero row m (a padded pixel's) issues no
+// load.  The 128 outputs go through shared memory to one 16-byte store a
+// lane.  (pixel, channel) advance by (32 / C, 32 % C) a round, so nothing
+// divides in the loop.  out is 16-byte aligned (the entry checks).
+template <int D1>
+__global__ void __launch_bounds__(kSliceBlock)
 lattice_slice_kernel(const float* __restrict__ lat,
                      const int* __restrict__ ids,
-                     const float* __restrict__ wn, int n_pix, int C, int d1,
+                     const float* __restrict__ wn, int n_pix, int C, int m,
                      float alpha, float* __restrict__ out) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (i >= static_cast<long long>(n_pix) * C) return;
-  const int p = static_cast<int>(i / C);
-  const int c = static_cast<int>(i - static_cast<long long>(p) * C);
-  const int* ip = ids + static_cast<size_t>(p) * d1;
-  const float* wp = wn + static_cast<size_t>(p) * d1;
-  float acc = 0.0f;
-  for (int s = 0; s < d1; ++s)
-    acc += wp[s] * __ldg(lat + static_cast<size_t>(ip[s]) * C + c);
-  out[i] = alpha * acc;
+  extern __shared__ __align__(16) unsigned char slice_smem_raw[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int tile = slice_tile(C);
+  int2* tab = reinterpret_cast<int2*>(slice_smem_raw);
+  float* stage =
+      reinterpret_cast<float*>(tab + kSliceWarps * tile * D1) + warp * 128;
+  tab += warp * tile * D1;
+  const int p0 = (blockIdx.x * kSliceWarps + warp) * tile;
+  if (p0 >= n_pix) return;  // warp-uniform; no block barrier follows
+  const int np = min(tile, n_pix - p0);
+  const int* wid = ids + static_cast<size_t>(p0) * D1;
+  const float* wwn = wn + static_cast<size_t>(p0) * D1;
+  for (int j = 0; j < np * D1; j += 32 * D1) {
+    int id[D1];
+    float w[D1];
+#pragma unroll
+    for (int s = 0; s < D1; ++s) {
+      const int i = j + lane + 32 * s;
+      id[s] = i < np * D1 ? __ldg(wid + i) : 0;
+      w[s] = i < np * D1 ? __ldg(wwn + i) : 0.0f;
+    }
+#pragma unroll
+    for (int s = 0; s < D1; ++s) {
+      tab[j + lane + 32 * s] = make_int2(id[s], __float_as_int(w[s]));
+    }
+  }
+  __syncwarp();
+  const int span = np * C;
+  const int pstep = 32 / C, cstep = 32 - pstep * C;
+  int p = lane / C, c = lane - p * C;
+  float* dst = out + static_cast<size_t>(p0) * C;
+  for (int base = 0; base < span; base += 128) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      // past the tile's end a lane reads its last pixel (stored nowhere),
+      // so the rounds' loads need no branch and issue together
+      const int2* e = tab + min(p, np - 1) * D1;
+      float w[D1], x[D1];
+#pragma unroll
+      for (int s = 0; s < D1; ++s) {
+        const int2 v = e[s];
+        w[s] = __int_as_float(v.y);
+        x[s] = static_cast<unsigned>(v.x) < static_cast<unsigned>(m)
+                   ? __ldg(lat + v.x * C + c)
+                   : 0.0f;
+      }
+      float acc = 0.0f;
+#pragma unroll
+      for (int s = 0; s < D1; ++s) acc = fmaf(w[s], x[s], acc);
+      stage[32 * r + lane] = alpha * acc;
+      c += cstep;
+      p += pstep;
+      if (c >= C) {
+        c -= C;
+        ++p;
+      }
+    }
+    __syncwarp();
+    const int n = min(128, span - base);
+    if (4 * lane + 4 <= n) {
+      reinterpret_cast<float4*>(dst + base)[lane] =
+          reinterpret_cast<const float4*>(stage)[lane];
+    } else {
+      for (int k = 4 * lane; k < n; ++k) dst[base + k] = stage[k];
+    }
+    __syncwarp();
+  }
+}
+
+using SliceKernel = void (*)(const float*, const int*, const float*, int,
+                             int, int, float, float*);
+
+// the instance of d+1 = d1 slots (1 .. kSliceMaxD1)
+SliceKernel slice_kernel(int d1) {
+  switch (d1) {
+    case 1: return lattice_slice_kernel<1>;
+    case 2: return lattice_slice_kernel<2>;
+    case 3: return lattice_slice_kernel<3>;
+    case 4: return lattice_slice_kernel<4>;
+    case 5: return lattice_slice_kernel<5>;
+    case 6: return lattice_slice_kernel<6>;
+    case 7: return lattice_slice_kernel<7>;
+    case 8: return lattice_slice_kernel<8>;
+    default: return nullptr;
+  }
 }
 
 unsigned blocks_for(long long n) {
@@ -349,17 +473,24 @@ cudaError_t launch_blur(const float* in, float* buf0, float* buf1,
                      stream);
 }
 
+// the slice of an (m+1, C) lattice: blocks of kSliceWarps warps, a warp
+// per slice_tile(C) pixels
 cudaError_t launch_slice(const float* lat, const int* ids, const float* wn,
-                         int n_pix, int C, int d1, float alpha, float* out,
-                         cudaStream_t stream) {
-  const long long n = static_cast<long long>(n_pix) * C;
-  if (n_pix < 0 || C <= 0 || d1 <= 0 ||
-      (n + kBlock - 1) / kBlock > kMaxBlocks) {
+                         int n_pix, int C, int d1, int m, float alpha,
+                         float* out, cudaStream_t stream) {
+  const SliceKernel kernel = slice_kernel(d1);
+  const long long per_block =
+      static_cast<long long>(kSliceWarps) * slice_tile(C > 0 ? C : 1);
+  if (n_pix < 0 || C <= 0 || !kernel || m < 0 ||
+      static_cast<long long>(m + 1) * C > INT_MAX ||
+      n_pix + per_block > INT_MAX ||
+      (reinterpret_cast<uintptr_t>(out) & 15) != 0) {
     return cudaErrorInvalidValue;
   }
-  if (n == 0) return cudaSuccess;
-  lattice_slice_kernel<<<blocks_for(n), kBlock, 0, stream>>>(
-      lat, ids, wn, n_pix, C, d1, alpha, out);
+  if (n_pix == 0) return cudaSuccess;
+  kernel<<<static_cast<unsigned>((n_pix + per_block - 1) / per_block),
+           kSliceBlock, slice_smem(C, d1), stream>>>(lat, ids, wn, n_pix, C,
+                                                     m, alpha, out);
   return cudaGetLastError();
 }
 
@@ -411,13 +542,23 @@ extern "C" int wseg_lattice_blur(const void* lat, void* buf0, void* buf1,
       grid, static_cast<cudaStream_t>(stream)));
 }
 
+// lat (m+1, C), row m the zero slot; out 16-byte aligned
 extern "C" int wseg_lattice_slice(const void* lat, const void* ids,
                                   const void* wn, int n_pix, int C, int d1,
-                                  float alpha, void* out, void* stream) {
+                                  int m, float alpha, void* out,
+                                  void* stream) {
   return static_cast<int>(launch_slice(
       static_cast<const float*>(lat), static_cast<const int*>(ids),
-      static_cast<const float*>(wn), n_pix, C, d1, alpha,
+      static_cast<const float*>(wn), n_pix, C, d1, m, alpha,
       static_cast<float*>(out), static_cast<cudaStream_t>(stream)));
+}
+
+// {slots of a pixel, threads of a slice block}: the limits
+// ops/crf_lattice_cuda.py's SLICE_LIMITS must equal; returns their count
+extern "C" int wseg_lattice_slice_limits(int* out) {
+  out[0] = kSliceMaxD1;
+  out[1] = kSliceBlock;
+  return 2;
 }
 
 // One filter: splat -> all d1 blur axes -> slice, back to back.  scratch
@@ -446,6 +587,7 @@ extern "C" int wseg_lattice_filter(
   const float* blurred = ((d1 - 1) & 1) ? lat : lat2;
   return static_cast<int>(launch_slice(
       blurred, static_cast<const int*>(ids),
-      static_cast<const float*>(w_pix), n_pix, C, d1, alpha,
+      static_cast<const float*>(w_pix), n_pix, C, d1, m, alpha,
       static_cast<float*>(out), s));
 }
+

@@ -8,22 +8,47 @@
 // T = 8 * D taps.  Edge replication equals clamping the coordinates,
 // since every offset is at most pad = max(dilations).
 //
-// 1. pamr_affinity_kernel replaces wseg_tpu/ops/pamr_pallas.py::
+// 1. pamr_affinity_kernel<G> replaces wseg_tpu/ops/pamr_pallas.py::
 //    pamr_affinity_pallas (_affinity_kernel).  The TPU kernel rolls an
 //    edge-padded copy of the guide through VMEM twice per tap (Mosaic
-//    rotates whole lanes).  Here one thread owns one output pixel
-//    (b, y, x): it reads the 3 guide channels at the 9 * D clamped taps
-//    (centre once per dilation), keeps per-channel sums in registers,
-//    takes sigma per channel with the two-pass Bessel-corrected variance
-//    of the lax path (wseg_tpu/ops/pamr.py:82-85, not the Pallas
-//    kernel's one-pass form), forms the T logits
-//    -mean_K |c - n| / (1e-8 + 0.1 sigma) in registers and softmaxes
-//    them there.  Output is channels-major (B, T, H, W), the layout the
+//    rotates whole lanes).  Per output pixel (b, y, x) it takes sigma
+//    per guide channel over the 9 * D clamped taps (centre once per
+//    dilation) with the two-pass Bessel-corrected variance of the lax
+//    path (wseg_tpu/ops/pamr.py:82-85, not the Pallas kernel's one-pass
+//    form), the T logits -mean_K |c - n| / (1e-8 + 0.1 sigma) and their
+//    softmax.  Output is channels-major (B, T, H, W), the layout the
 //    propagation kernel reads.
-//    What bounds it: latency.  At the flagship (B=8, 48x48, D=6) it
-//    reads 0.22 MB and writes 3.5 MB, about 1 us of HBM time; the
-//    guide's re-reads (3 passes x 54 taps) hit L1.  18,432 threads
-//    are 144 blocks, about one per SM.
+//    What bounds it: latency and parallelism, not bytes.  At the
+//    flagship (B=8, 48x48, D=6) it reads 0.22 MB and writes 3.5 MB,
+//    1.1 us at the HBM rate; its ~26 MFLOP take 0.4 us.  The port's
+//    first kernel (one thread a pixel, a grid (ceil(W / 128), H, B) of
+//    128-thread blocks: 384 blocks of 48 live lanes each, 62.5% of the
+//    lanes idle) took 28.9 us: 18,432 threads, about one live warp a
+//    scheduler, each walking three dependent passes of 54-162 global
+//    loads with the clamped addresses recomputed in every pass.  This
+//    design:
+//    - a CTA owns a tile of `rows` x `cols` pixels of one image and
+//      stages the guide's window (the tile and its clamped +-max(d)
+//      halo, three planes) in shared memory by cp.async, every copy of
+//      a thread in flight at once, 16-byte copies where the window is
+//      whole rows of an aligned guide; every tap is read from there;
+//    - G lanes (4 or 8, a template) share a pixel: lane g takes the
+//      neighbours j = g, g + G, ... of every dilation, clamps their row
+//      and column once per dilation and keeps the 3 channel values of
+//      its taps in registers, so the mean, the variance and the logits
+//      read shared memory once; the mean, variance, max and sum are
+//      combined by xor shuffles (commutative, so every lane of a group
+//      holds the same bits);
+//    - the softmax values go to a shared tile (T planes at a pitch that
+//      spreads a warp's 32/G pixels and G taps over the 32 banks), then
+//      out[b, t, y, x] is written along x, 16-byte stores where the
+//      tile is whole rows of an aligned plane.
+//    The host plan (ops/pamr_cuda.py::affinity_plan) picks G, the tile
+//    and the threads from (B, H, W, D) and the SM count; the C entry
+//    only checks it.  At the flagship: G 8, one row a CTA, 384 CTAs of
+//    384 threads, 147,456 lanes (8x the first kernel's live threads).
+//    (Times in this note: NVIDIA H100 80GB HBM3 at a 700 W power limit,
+//    chip_smoke.py.)
 //
 // 2. pamr_propagate_cluster_kernel<G, P> replaces pamr_pallas.py::
 //    pamr_propagate_pallas (_propagate_kernel): num_iter Jacobi steps
@@ -90,9 +115,11 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kMaxDil = 8;              // dilations per call
-constexpr int kMaxTaps = 8 * kMaxDil;   // 64 taps
 constexpr int kK = 3;                   // guide channels (RGB)
-constexpr int kAffBlock = 128;          // threads per block, along x
+// the affinity's limits; ops/pamr_cuda.py's AFFINITY_LIMITS holds the
+// same: lanes a pixel (bit G set for each instance of G), threads of a CTA
+constexpr int kAffGroups = (1 << 4) | (1 << 8);
+constexpr int kAffMaxThreads = 512;
 // the propagation's limits; ops/pamr_cuda.py's LIMITS holds the same
 // channels of a unit: bit G set for each instance of G
 constexpr int kGroups =
@@ -116,95 +143,246 @@ __device__ __forceinline__ int clampi(int v, int hi) {
 __device__ __forceinline__ int off_y(int j) { return (j < 4 ? j : j + 1) / 3 - 1; }
 __device__ __forceinline__ int off_x(int j) { return (j < 4 ? j : j + 1) % 3 - 1; }
 
-__global__ void __launch_bounds__(kAffBlock)
-pamr_affinity_kernel(const float* __restrict__ im, float* __restrict__ aff,
-                     Dilations dil, int H, int W) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y;
-  const int b = blockIdx.z;
-  if (x >= W) return;
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src));
+}
 
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// pixels a warp of pamr_affinity_kernel<G> takes: 32 / G.  The tile's
+// pitch in shared memory is an odd multiple of that count, so a warp's
+// stores (32 / G consecutive pixels of G taps t = 8 i + g) fall in 32
+// distinct banks.
+__host__ __device__ inline int affinity_pitch(int px, int g) {
+  const int lanes = 32 / g;
+  return (((px + lanes - 1) / lanes) | 1) * lanes;
+}
+
+// floats of one guide plane's window in shared memory: the largest tile
+// with its clamped +-reach halo, rounded up to 4 floats
+long long affinity_window(int rows, int cols, int reach, int H, int W) {
+  const long long wr = rows + 2LL * reach < H ? rows + 2LL * reach : H;
+  const long long wc = cols + 2LL * reach < W ? cols + 2LL * reach : W;
+  return (wr * wc + 3) / 4 * 4;
+}
+
+// dynamic shared memory of an affinity CTA: the three planes' windows
+// and the tile's T softmax planes
+long long affinity_smem(int g, int rows, int cols, int n_dil, int reach,
+                        int H, int W) {
+  return 4 * (kK * affinity_window(rows, cols, reach, H, W) +
+              8LL * n_dil * affinity_pitch(rows * cols, g));
+}
+
+// One CTA a tile of `rows` x `cols` pixels (blockIdx.x the column tile,
+// .y the row tile, .z the image); G lanes a pixel, lane g of a pixel's
+// group taking neighbours g, g + G, ... of every dilation.  `window`
+// floats a staged plane; `reach` the largest dilation (no larger than
+// max(H, W): a larger one clamps the same).
+template <int G>
+__global__ void __launch_bounds__(kAffMaxThreads)
+pamr_affinity_kernel(const float* __restrict__ im, float* __restrict__ aff,
+                     Dilations dil, int H, int W, int rows, int cols,
+                     int reach, int window) {
+  extern __shared__ __align__(16) float aff_smem[];
+  constexpr int kJ = 8 / G;    // neighbours a lane takes per dilation
+  constexpr int kPx = 32 / G;  // pixels a warp takes
+  constexpr unsigned kFull = 0xffffffffu;
+  const int n = dil.n;
+  const int T = 8 * n;
+  const int x0 = blockIdx.x * cols, y0 = blockIdx.y * rows;
+  const int b = blockIdx.z;
+  const int tw = min(cols, W - x0), th = min(rows, H - y0);
+  const int wx0 = max(0, x0 - reach), wy0 = max(0, y0 - reach);
+  const int wc = min(W, x0 + tw + reach) - wx0;
+  const int wr = min(H, y0 + th + reach) - wy0;
+  const int pitch = affinity_pitch(rows * cols, G);
+  float* win = aff_smem;                 // kK planes of `window` floats
+  float* tile = aff_smem + kK * window;  // T planes of `pitch` floats
   const size_t hw = static_cast<size_t>(H) * W;
   const float* img = im + static_cast<size_t>(b) * kK * hw;
-  const int T = 8 * dil.n;
-  const float n9 = 9.0f * dil.n;
 
-  float c[kK];
-#pragma unroll
-  for (int k = 0; k < kK; ++k) c[k] = img[k * hw + static_cast<size_t>(y) * W + x];
-
-  // pass 1: per-channel mean over the 9 * D taps
-  float s[kK] = {0.0f, 0.0f, 0.0f};
-  for (int i = 0; i < dil.n; ++i) {
-    const int d = dil.d[i];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const size_t p = static_cast<size_t>(clampi(y + off_y(j) * d, H - 1)) * W +
-                       clampi(x + off_x(j) * d, W - 1);
-#pragma unroll
-      for (int k = 0; k < kK; ++k) s[k] += __ldg(img + k * hw + p);
-    }
-#pragma unroll
-    for (int k = 0; k < kK; ++k) s[k] += c[k];
-  }
-  float mean[kK];
-#pragma unroll
-  for (int k = 0; k < kK; ++k) mean[k] = s[k] / n9;
-
-  // pass 2: Bessel-corrected variance about that mean
-  float q[kK] = {0.0f, 0.0f, 0.0f};
-  for (int i = 0; i < dil.n; ++i) {
-    const int d = dil.d[i];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const size_t p = static_cast<size_t>(clampi(y + off_y(j) * d, H - 1)) * W +
-                       clampi(x + off_x(j) * d, W - 1);
-#pragma unroll
-      for (int k = 0; k < kK; ++k) {
-        const float e = __ldg(img + k * hw + p) - mean[k];
-        q[k] += e * e;
+  // the window by cp.async, every copy of a thread in flight at once:
+  // whole rows of an aligned guide in 16-byte copies
+  if (wc == W && (W & 3) == 0 &&
+      (reinterpret_cast<uintptr_t>(im) & 15) == 0) {
+    const int n4 = wr * W / 4;
+    const float* src = img + static_cast<size_t>(wy0) * W;
+    for (int k = 0; k < kK; ++k) {
+      for (int r = threadIdx.x; r < n4; r += blockDim.x) {
+        cp_async16(win + k * window + 4 * r, src + k * hw + 4 * r);
       }
     }
-#pragma unroll
+  } else {
     for (int k = 0; k < kK; ++k) {
-      const float e = c[k] - mean[k];
-      q[k] += e * e;
+      for (int yy = 0; yy < wr; ++yy) {
+        const float* src = img + k * hw + static_cast<size_t>(wy0 + yy) * W;
+        for (int xx = threadIdx.x; xx < wc; xx += blockDim.x) {
+          cp_async4(win + k * window + yy * wc + xx, src + wx0 + xx);
+        }
+      }
     }
   }
-  float den[kK];
-#pragma unroll
-  for (int k = 0; k < kK; ++k) den[k] = 1e-8f + 0.1f * sqrtf(q[k] / (n9 - 1.0f));
+  cp_async_wait_all();
+  __syncthreads();
 
-  // logits, then the softmax over the T taps, all in registers
-  float logit[kMaxTaps];
+  const int lane = threadIdx.x & 31;
+  const int g = lane / kPx;
+  const int slot = (threadIdx.x >> 5) * kPx + lane % kPx;  // tile pixel
+  const bool live = slot < th * tw;  // others compute pixel 0, store nothing
+  const int py = live ? slot / tw : 0;
+  const int px = live ? slot - py * tw : 0;
+  const int y = y0 + py, x = x0 + px;
+  float c[kK];
+#pragma unroll
+  for (int k = 0; k < kK; ++k) {
+    c[k] = win[k * window + (y - wy0) * wc + (x - wx0)];
+  }
+  int oy[kJ], ox[kJ];
+#pragma unroll
+  for (int u = 0; u < kJ; ++u) {
+    oy[u] = off_y(g + G * u);
+    ox[u] = off_x(g + G * u);
+  }
+
+  // this lane's taps: their row and column clamped once per dilation,
+  // their kK values kept for the mean, the variance and the logits
+  float v[kMaxDil][kJ][kK];
+  float s[kK] = {0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int i = 0; i < kMaxDil; ++i) {
+    if (i < n) {
+      const int d = dil.d[i];
+#pragma unroll
+      for (int u = 0; u < kJ; ++u) {
+        const int o = (clampi(y + oy[u] * d, H - 1) - wy0) * wc +
+                      clampi(x + ox[u] * d, W - 1) - wx0;
+#pragma unroll
+        for (int k = 0; k < kK; ++k) {
+          v[i][u][k] = win[k * window + o];
+          s[k] += v[i][u][k];
+        }
+      }
+    }
+  }
+  // the group's sums by xor shuffles: a + b == b + a, so every lane of
+  // the group ends with the same bits
+#pragma unroll
+  for (int o = kPx; o < 32; o <<= 1) {
+#pragma unroll
+    for (int k = 0; k < kK; ++k) s[k] += __shfl_xor_sync(kFull, s[k], o);
+  }
+  const float fn = static_cast<float>(n);
+  const float n9 = 9.0f * fn;
+  float mean[kK];
+#pragma unroll
+  for (int k = 0; k < kK; ++k) mean[k] = (s[k] + fn * c[k]) / n9;
+
+  // two-pass Bessel-corrected variance about that mean
+  float q[kK] = {0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int i = 0; i < kMaxDil; ++i) {
+    if (i < n) {
+#pragma unroll
+      for (int u = 0; u < kJ; ++u) {
+#pragma unroll
+        for (int k = 0; k < kK; ++k) {
+          const float e = v[i][u][k] - mean[k];
+          q[k] += e * e;
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int o = kPx; o < 32; o <<= 1) {
+#pragma unroll
+    for (int k = 0; k < kK; ++k) q[k] += __shfl_xor_sync(kFull, q[k], o);
+  }
+  float inv[kK];  // 1 / (1e-8 + 0.1 sigma)
+#pragma unroll
+  for (int k = 0; k < kK; ++k) {
+    const float e = c[k] - mean[k];
+    inv[k] = 1.0f / (1e-8f + 0.1f * sqrtf((q[k] + fn * (e * e)) /
+                                          (n9 - 1.0f)));
+  }
+
+  // logits, then the softmax over the group's T taps
+  float a[kMaxDil][kJ];
   float mx = __int_as_float(0xff800000);  // -inf
 #pragma unroll
-  for (int t = 0; t < kMaxTaps; ++t) {
-    if (t < T) {
-      const int d = dil.d[t / 8];
-      const int j = t % 8;
-      const size_t p = static_cast<size_t>(clampi(y + off_y(j) * d, H - 1)) * W +
-                       clampi(x + off_x(j) * d, W - 1);
-      float a = 0.0f;
+  for (int i = 0; i < kMaxDil; ++i) {
+    if (i < n) {
 #pragma unroll
-      for (int k = 0; k < kK; ++k) a += -fabsf(c[k] - __ldg(img + k * hw + p)) / den[k];
-      a = a / static_cast<float>(kK);
-      logit[t] = a;
-      mx = fmaxf(mx, a);
+      for (int u = 0; u < kJ; ++u) {
+        float t = 0.0f;
+#pragma unroll
+        for (int k = 0; k < kK; ++k) t -= fabsf(c[k] - v[i][u][k]) * inv[k];
+        a[i][u] = t / static_cast<float>(kK);
+        mx = fmaxf(mx, a[i][u]);
+      }
     }
+  }
+#pragma unroll
+  for (int o = kPx; o < 32; o <<= 1) {
+    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, o));
   }
   float tot = 0.0f;
 #pragma unroll
-  for (int t = 0; t < kMaxTaps; ++t) {
-    if (t < T) {
-      logit[t] = expf(logit[t] - mx);
-      tot += logit[t];
+  for (int i = 0; i < kMaxDil; ++i) {
+    if (i < n) {
+#pragma unroll
+      for (int u = 0; u < kJ; ++u) {
+        a[i][u] = expf(a[i][u] - mx);
+        tot += a[i][u];
+      }
     }
   }
-  float* out = aff + static_cast<size_t>(b) * T * hw + static_cast<size_t>(y) * W + x;
 #pragma unroll
-  for (int t = 0; t < kMaxTaps; ++t) {
-    if (t < T) out[static_cast<size_t>(t) * hw] = logit[t] / tot;
+  for (int o = kPx; o < 32; o <<= 1) tot += __shfl_xor_sync(kFull, tot, o);
+  tot = 1.0f / tot;
+  if (live) {
+#pragma unroll
+    for (int i = 0; i < kMaxDil; ++i) {
+      if (i < n) {
+#pragma unroll
+        for (int u = 0; u < kJ; ++u) {
+          tile[(8 * i + g + G * u) * pitch + slot] = a[i][u] * tot;
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  // out[b, t, y, x] along x: whole rows of an aligned plane in 16-byte
+  // stores
+  const int np = th * tw;
+  float* dst = aff + static_cast<size_t>(b) * T * hw +
+               static_cast<size_t>(y0) * W + x0;
+  if (tw == W && (W & 3) == 0 &&
+      (reinterpret_cast<uintptr_t>(aff) & 15) == 0) {
+    const int n4 = np / 4;
+    for (int i = threadIdx.x; i < T * n4; i += blockDim.x) {
+      const int t = i / n4, r = i - t * n4;
+      reinterpret_cast<float4*>(dst + t * hw)[r] =
+          reinterpret_cast<const float4*>(tile + t * pitch)[r];
+    }
+  } else {
+    for (int i = threadIdx.x; i < T * np; i += blockDim.x) {
+      const int t = i / np, r = i - t * np;
+      const int ry = r / tw, rx = r - ry * tw;
+      dst[t * hw + static_cast<size_t>(ry) * W + rx] = tile[t * pitch + r];
+    }
   }
 }
 
@@ -310,23 +488,6 @@ __device__ __forceinline__ void store_slots_remote(unsigned buf, int hwp,
                  "f"(acc[G - 1])
                  : "memory");
   }
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\n" ::);
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // Where a dilation's affinities come from: global memory (L1 or L2),
@@ -600,6 +761,28 @@ cudaError_t propagate_config(int g, int p, int n, int threads, int smem,
   return e;
 }
 
+using AffinityKernel = void (*)(const float*, float*, Dilations, int, int,
+                                int, int, int, int);
+
+// the affinity instance of G lanes a pixel; its dynamic shared-memory
+// attribute is raised only where a launch needs more than it was given
+// (per device and instance)
+cudaError_t affinity_kernel(int g, int smem, AffinityKernel* kernel) {
+  constexpr int kDevices = 16;
+  static int given[kDevices][2];
+  *kernel = g == 4 ? pamr_affinity_kernel<4> : pamr_affinity_kernel<8>;
+  if (smem <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  int* have = dev < kDevices ? &given[dev][g == 8 ? 1 : 0] : nullptr;
+  if (e == cudaSuccess && (!have || *have < smem)) {
+    e = cudaFuncSetAttribute(
+        *kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e == cudaSuccess && have) *have = smem;
+  }
+  return e;
+}
+
 bool fill_dilations(const int* d, int n, Dilations* dil) {
   if (n <= 0 || n > kMaxDil) return false;
   dil->n = n;
@@ -640,18 +823,52 @@ extern "C" int wseg_pamr_propagate_max_plane() {
   return limit / (2 * static_cast<int>(sizeof(float))) / 4 * 4;
 }
 
+// {lanes a pixel (bit G set for each instance of G), threads of a CTA}:
+// the limits ops/pamr_cuda.py's AFFINITY_LIMITS must equal; returns
+// their count
+extern "C" int wseg_pamr_affinity_limits(int* out) {
+  out[0] = kAffGroups;
+  out[1] = kAffMaxThreads;
+  return 2;
+}
+
+// plan: {G lanes a pixel, rows and columns of a CTA's tile, threads,
+// shared memory bytes}, from ops/pamr_cuda.py::affinity_plan; checked,
+// not chosen, here
 extern "C" int wseg_pamr_affinity(const void* im, void* aff,
                                   const int* dilations, int n_dil, int B,
-                                  int H, int W, void* stream) {
+                                  int H, int W, const int* plan,
+                                  void* stream) {
   Dilations dil;
+  const int g = plan[0], rows = plan[1], cols = plan[2];
+  const int threads = plan[3], smem = plan[4];
   if (!fill_dilations(dilations, n_dil, &dil) || B <= 0 || B > 65535 ||
-      H <= 0 || H > 65535 || W <= 0) {
+      H <= 0 || W <= 0 || static_cast<long long>(H) * W > 0x7fffffffLL ||
+      g < 1 || g > 30 || !((kAffGroups >> g) & 1) || rows < 1 ||
+      rows > H || (H + rows - 1) / rows > 65535 || cols < 1 || cols > W ||
+      threads < 32 || threads % 32 != 0 || threads > kAffMaxThreads ||
+      static_cast<long long>(rows) * cols * g > threads) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid((W + kAffBlock - 1) / kAffBlock, H, B);
-  pamr_affinity_kernel<<<grid, kAffBlock, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(im), static_cast<float*>(aff), dil, H, W);
+  // a dilation beyond max(H, W) clamps every tap as max(H, W) does
+  const int most = H > W ? H : W;
+  int reach = 0;
+  for (int i = 0; i < n_dil; ++i) {
+    if (dil.d[i] > most) dil.d[i] = most;
+    if (dil.d[i] > reach) reach = dil.d[i];
+  }
+  if (affinity_smem(g, rows, cols, n_dil, reach, H, W) != smem ||
+      smem > kSmemLimit) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  AffinityKernel kernel;
+  cudaError_t e = affinity_kernel(g, smem, &kernel);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((W + cols - 1) / cols, (H + rows - 1) / rows, B);
+  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(im), static_cast<float*>(aff), dil, H, W,
+      rows, cols, reach,
+      static_cast<int>(affinity_window(rows, cols, reach, H, W)));
   return static_cast<int>(cudaGetLastError());
 }
 

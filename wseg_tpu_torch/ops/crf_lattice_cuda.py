@@ -126,6 +126,13 @@ def lattice_filter_reference(values: torch.Tensor, tables,
 
 
 # ------------------------------------------------------------- kernels
+# the slice kernel's limits (csrc/crf_lattice.cu); ``_library`` checks
+# them against the built kernel's: d+1 of its instances (the host lattice
+# library packs at most 5 coordinates, d+1 = 6), threads of a block
+SLICE_MAX_D1 = 8
+SLICE_LIMITS = (SLICE_MAX_D1, 128)
+
+
 @functools.lru_cache(maxsize=None)
 def _library():
     lib = _build.load("crf_lattice")
@@ -137,13 +144,21 @@ def _library():
     lib.wseg_lattice_splat.argtypes = [p, p, p, i, i, p, p, p, i, i, p, p, i,
                                        p]
     lib.wseg_lattice_blur.argtypes = [p, p, p, p, i, i, i, i, p]
-    lib.wseg_lattice_slice.argtypes = [p, p, p, i, i, i, f, p, p]
+    lib.wseg_lattice_slice.argtypes = [p, p, p, i, i, i, i, f, p, p]
+    lib.wseg_lattice_slice_limits.argtypes = [p]
     lib.wseg_lattice_filter.argtypes = [p, p, p, i, i, p, p, p, i, i, p, i,
                                         p, p, i, f, p, p, p]
     for name in ("wseg_lattice_weights", "wseg_lattice_splat",
                  "wseg_lattice_blur", "wseg_lattice_slice",
-                 "wseg_lattice_filter"):
+                 "wseg_lattice_slice_limits", "wseg_lattice_filter"):
         getattr(lib, name).restype = ctypes.c_int
+    got = (ctypes.c_int * 4)()
+    limits = tuple(got[:lib.wseg_lattice_slice_limits(ctypes.addressof(got))])
+    if limits != SLICE_LIMITS:
+        raise RuntimeError(
+            f"csrc/crf_lattice.cu's slice limits {limits} differ from "
+            f"ops/crf_lattice_cuda.py's {SLICE_LIMITS}: change both "
+            "together")
     return lib
 
 
@@ -168,6 +183,12 @@ def _check(name: str, **tensors: Tuple[torch.Tensor, torch.dtype, int]):
     if not all(t.is_contiguous() for t, _, _ in tensors.values()):
         raise ValueError(f"{name}: kernel tensors must be contiguous")
     return "cuda"
+
+
+def _check_slots(name: str, d1: int) -> None:
+    if not 1 <= d1 <= SLICE_MAX_D1:
+        raise ValueError(f"{name}: {d1} slots a pixel; the slice kernel "
+                         f"takes 1 to {SLICE_MAX_D1}")
 
 
 def _launch(fn, what: str, device: torch.device, *args) -> None:
@@ -280,11 +301,13 @@ def lattice_slice(lat: torch.Tensor, ids: torch.Tensor, wn: torch.Tensor,
                          f"{tuple(wn.shape)}")
     if where == "cpu":
         return lattice_slice_reference(lat, ids, wn, alpha)
+    _check_slots("lattice_slice", ids.shape[1])
     out = torch.empty((ids.shape[0], lat.shape[1]), dtype=f32,
                       device=lat.device)
     _launch(_library().wseg_lattice_slice, "lattice_slice", lat.device,
             lat.data_ptr(), ids.data_ptr(), wn.data_ptr(), ids.shape[0],
-            lat.shape[1], ids.shape[1], float(alpha), out.data_ptr())
+            lat.shape[1], ids.shape[1], lat.shape[0] - 1, float(alpha),
+            out.data_ptr())
     _count(lattice_slice)
     return out
 
@@ -309,6 +332,7 @@ def lattice_filter_cuda(values: torch.Tensor, tables, w_pix: torch.Tensor,
                          f"{tuple(tables.nbr.shape)}, m {m}")
     if where == "cpu":
         return lattice_filter_reference(values, tables, w_pix, w_csr)
+    _check_slots("lattice_filter", d1)
     n_chunks = tables.chunk_row.numel()
     buf = torch.empty(((n_pix + 2 * (m + 1) + n_chunks) * c,), dtype=f32,
                       device=values.device)  # the output, then scratch

@@ -14,10 +14,12 @@ the plain version beside it (``*_reference``), a CUDA tensor launches
 the kernel (building it on first use) or raises.  ``.launches`` counts
 kernel launches.
 
-The propagation kernel's launch comes from ``propagate_plan``, a pure
-Python host plan: a thread-block cluster per (image, group of G
-channels), its CTAs splitting the plane's rows (``csrc/pamr.cu`` says
-why); the C entry only checks the plan.
+Each kernel's launch comes from a pure Python host plan, which the C
+entry only checks (``csrc/pamr.cu`` says why each is shaped so):
+``affinity_plan`` gives the affinity a CTA per tile of pixels, with the
+guide's window in shared memory and G lanes a pixel;
+``propagate_plan`` gives the propagation a thread-block cluster per
+(image, group of G channels), its CTAs splitting the plane's rows.
 
 Taps are ``pamr_taps(dilations)``: for each dilation d, the 8
 neighbours of a row-major 3x3 scan without its centre, times d (the
@@ -110,6 +112,123 @@ def pamr_propagate_cm_reference(aff: torch.Tensor, mask: torch.Tensor,
                 :, :, pad + dy:pad + dy + h, pad + dx:pad + dx + w]
         m = acc
     return m
+
+
+# the affinity kernel's limits (csrc/pamr.cu); ``_library`` checks them
+# against the built kernel's.  ``affinity_plan`` alone picks a launch
+# within them, and the C entry only checks it.
+AFFINITY_GROUPS = (4, 8)  # lanes a pixel: the kernel's instances
+AFFINITY_MAX_THREADS = 512
+AFFINITY_LIMITS = (sum(1 << g for g in AFFINITY_GROUPS),
+                   AFFINITY_MAX_THREADS)
+# lanes an SM holds at once (2,048 threads): the plan takes the fewest
+# lanes a pixel that still give the card one full wave of lanes
+SM_LANES = 2048
+# CTAs an SM the plan keeps at least, so one CTA's staging overlaps
+# another's taps
+AFFINITY_CTAS_PER_SM = 2
+
+
+def affinity_reach(dil: Sequence[int], h: int, w: int) -> int:
+    """Rows and columns a tap reaches: the largest dilation, no more than
+    max(h, w) (a larger one clamps every tap the same)."""
+    return min(max(dil), max(h, w))
+
+
+def affinity_pitch(px: int, g: int) -> int:
+    """Floats between two taps' planes of a CTA's softmax tile: an odd
+    multiple of a warp's 32 / g pixels at least ``px`` (conflict-free
+    stores; csrc/pamr.cu ``affinity_pitch``)."""
+    lanes = 32 // g
+    return (-(-px // lanes) | 1) * lanes
+
+
+def affinity_smem(g: int, rows: int, cols: int, dil: Sequence[int], h: int,
+                  w: int) -> int:
+    """Dynamic shared memory of an affinity CTA: three guide planes of
+    the largest tile's window (the tile and its clamped +-reach halo,
+    rounded up to 4 floats) and its 8 * D softmax planes (csrc/pamr.cu
+    ``affinity_smem``)."""
+    reach = affinity_reach(dil, h, w)
+    window = min(h, rows + 2 * reach) * min(w, cols + 2 * reach)
+    return 4 * (3 * (-(-window // 4) * 4)
+                + 8 * len(dil) * affinity_pitch(rows * cols, g))
+
+
+@dataclass(frozen=True)
+class AffinityPlan:
+    """The affinity kernel's launch for a (b, 3, h, w) guide: a CTA per
+    tile of ``rows`` x ``cols`` pixels of one image, ``g`` lanes a pixel,
+    ``threads`` threads."""
+
+    b: int
+    h: int
+    w: int
+    dil: Tuple[int, ...]
+    g: int
+    rows: int
+    cols: int
+    threads: int
+
+    @property
+    def grid(self) -> Tuple[int, int, int]:
+        """(column tiles, row tiles, images)."""
+        return -(-self.w // self.cols), -(-self.h // self.rows), self.b
+
+    @property
+    def ctas(self) -> int:
+        return math.prod(self.grid)
+
+    def tiles(self) -> Iterator[Tuple[int, int, int, int]]:
+        """(y0, y1, x0, x1) of each tile of an image."""
+        for y0 in range(0, self.h, self.rows):
+            for x0 in range(0, self.w, self.cols):
+                yield (y0, min(self.h, y0 + self.rows), x0,
+                       min(self.w, x0 + self.cols))
+
+    def smem_bytes(self) -> int:
+        return affinity_smem(self.g, self.rows, self.cols, self.dil, self.h,
+                             self.w)
+
+    def host_ints(self) -> Tuple[int, ...]:
+        """{G, rows, columns, threads, shared bytes}, the C entry's plan
+        in its order."""
+        return (self.g, self.rows, self.cols, self.threads,
+                self.smem_bytes())
+
+
+def affinity_plan(b: int, h: int, w: int, dilations: Sequence[int],
+                  sms: int) -> AffinityPlan:
+    """The affinity's launch for a (b, 3, h, w) guide on a card of
+    ``sms`` SMs.  G: the fewest lanes a pixel (of ``AFFINITY_GROUPS``)
+    that give the card ``SM_LANES`` lanes an SM, else the most.  Columns:
+    the fewest column tiles whose tile fits a CTA's threads and, one row
+    high, shared memory.  Rows: the most that fit both while the grid
+    keeps ``AFFINITY_CTAS_PER_SM`` CTAs an SM.  Raises where no launch
+    fits."""
+    dil = _dilations(dilations)
+    if b <= 0 or h <= 0 or w <= 0:
+        raise ValueError(f"no affinity plan for ({b}, 3, {h}, {w})")
+    g = next((g for g in AFFINITY_GROUPS if b * h * w * g
+              >= sms * SM_LANES), AFFINITY_GROUPS[-1])
+    per_cta = AFFINITY_MAX_THREADS // g
+    n_cols = -(-w // per_cta)
+    while affinity_smem(g, 1, -(-w // n_cols), dil, h, w) > SMEM_LIMIT:
+        if -(-w // n_cols) == 1:
+            raise ValueError(
+                f"the affinity's guide window for a {h}x{w} plane with "
+                f"dilations {dil} exceeds the shared-memory limit of "
+                f"{SMEM_LIMIT} B")
+        n_cols += 1
+    cols = -(-w // n_cols)
+    rows = 1
+    for r in range(2, min(h, per_cta // cols) + 1):
+        if (affinity_smem(g, r, cols, dil, h, w) > SMEM_LIMIT
+                or b * -(-h // r) * n_cols < AFFINITY_CTAS_PER_SM * sms):
+            break
+        rows = r
+    return AffinityPlan(b, h, w, dil, g, rows, cols,
+                        -(-(rows * cols * g) // 32) * 32)
 
 
 # the propagation kernel's limits (csrc/pamr.cu); ``_library`` checks
@@ -276,12 +395,14 @@ def propagate_plan(b: int, c: int, h: int, w: int, n_dil: int,
 def _library():
     lib = _build.load("pamr")
     ptr, i = ctypes.c_void_p, ctypes.c_int
-    lib.wseg_pamr_affinity.argtypes = [ptr, ptr, ptr, i, i, i, i, ptr]
+    lib.wseg_pamr_affinity.argtypes = [ptr, ptr, ptr, i, i, i, i, ptr, ptr]
+    lib.wseg_pamr_affinity_limits.argtypes = [ptr]
     lib.wseg_pamr_propagate.argtypes = [ptr, ptr, ptr, ptr, i, i, i, i, i,
                                         i, ptr, ptr]
     lib.wseg_pamr_propagate_clusters.argtypes = [i] * 5
     lib.wseg_pamr_propagate_limits.argtypes = [ptr]
-    for name in ("wseg_pamr_affinity", "wseg_pamr_propagate",
+    for name in ("wseg_pamr_affinity", "wseg_pamr_affinity_limits",
+                 "wseg_pamr_propagate",
                  "wseg_pamr_max_dilations", "wseg_pamr_propagate_max_plane",
                  "wseg_pamr_propagate_clusters",
                  "wseg_pamr_propagate_limits"):
@@ -291,10 +412,13 @@ def _library():
     got = (ctypes.c_int * 8)()
     n = lib.wseg_pamr_propagate_limits(ctypes.addressof(got))
     limits = tuple(got[:n]) + (lib.wseg_pamr_max_dilations(),)
-    if limits != LIMITS + (MAX_DILATIONS,):
+    n = lib.wseg_pamr_affinity_limits(ctypes.addressof(got))
+    limits += tuple(got[:n])
+    want = LIMITS + (MAX_DILATIONS,) + AFFINITY_LIMITS
+    if limits != want:
         raise RuntimeError(
             f"csrc/pamr.cu's limits {limits} differ from ops/pamr_cuda.py's "
-            f"{LIMITS + (MAX_DILATIONS,)}: change both together")
+            f"{want}: change both together")
     return lib
 
 
@@ -347,6 +471,51 @@ def _check_kernel_args(max_dil: int, dil: Tuple[int, ...],
                          f"{max_dil}")
 
 
+@functools.lru_cache(maxsize=256)
+def _affinity_launch(b: int, h: int, w: int, dil: Tuple[int, ...],
+                     index: int):
+    """(plan, the C entry's plan ints, its dilation ints) of an affinity
+    on card ``index``, cached by shape and dilations."""
+    plan = affinity_plan(b, h, w, dil,
+                         torch.cuda.get_device_properties(index)
+                         .multi_processor_count)
+    return (plan, (ctypes.c_int * 5)(*plan.host_ints()),
+            (ctypes.c_int * len(dil))(*dil))
+
+
+def affinity_plan_for(im: torch.Tensor,
+                      dilations: Sequence[int]) -> AffinityPlan:
+    """The plan ``pamr_affinity_cm`` launches for guide ``im`` on its
+    card."""
+    b, _, h, w = im.shape
+    return _affinity_launch(b, h, w, _dilations(dilations),
+                            im.device.index)[0]
+
+
+def _launch_affinity(im: torch.Tensor, dil: Tuple[int, ...], plan_ints,
+                     dil_ints) -> torch.Tensor:
+    """Launch the affinity kernel with a plan's C ints (checked
+    arguments, a CUDA guide) and count it; enters the guide's device
+    only where it is not the current one."""
+    b, _, h, w = im.shape
+    out = im.new_empty((b, 8 * len(dil), h, w))
+    args = (im.data_ptr(), out.data_ptr(), ctypes.addressof(dil_ints),
+            len(dil), b, h, w, ctypes.addressof(plan_ints))
+    lib = _library()
+    if im.device.index == torch.cuda.current_device():
+        rc = lib.wseg_pamr_affinity(*args,
+                                    torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(im.device):
+            rc = lib.wseg_pamr_affinity(
+                *args, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"PAMR affinity kernel launch failed: CUDA "
+                           f"error {rc}")
+    pamr_affinity_cm.launches += 1
+    return out
+
+
 def pamr_affinity_cm(im: torch.Tensor,
                      dilations: Sequence[int]) -> torch.Tensor:
     """Guide (B, 3, H, W) float32 -> (B, 8 * D, H, W) float32 softmax
@@ -356,26 +525,16 @@ def pamr_affinity_cm(im: torch.Tensor,
     if im.device.type == "cpu":
         return pamr_affinity_cm_reference(im, dil)
     _require_cuda(im)
+    _check_kernel_args(MAX_DILATIONS, dil, im)
     b, k, h, w = im.shape
-    out = torch.empty((b, 8 * len(dil), h, w), dtype=torch.float32,
-                      device=im.device)
-    with torch.cuda.device(im.device):
-        lib = _library()
-        _check_kernel_args(MAX_DILATIONS, dil, im)
-        dil_c = (ctypes.c_int * len(dil))(*dil)
-        if k != 3:
-            raise ValueError(f"the affinity kernel takes 3 guide channels, "
-                             f"got {k}")
-        if out.numel() == 0:
-            return out
-        rc = lib.wseg_pamr_affinity(
-            im.data_ptr(), out.data_ptr(), ctypes.addressof(dil_c),
-            len(dil), b, h, w, torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"PAMR affinity kernel launch failed: CUDA "
-                           f"error {rc}")
-    pamr_affinity_cm.launches += 1
-    return out
+    if k != 3:
+        raise ValueError(f"the affinity kernel takes 3 guide channels, got "
+                         f"{k}")
+    if im.numel() == 0:
+        return torch.empty((b, 8 * len(dil), h, w), dtype=torch.float32,
+                           device=im.device)
+    _, plan_ints, dil_ints = _affinity_launch(b, h, w, dil, im.device.index)
+    return _launch_affinity(im, dil, plan_ints, dil_ints)
 
 
 def _propagate_args(aff: torch.Tensor, mask: torch.Tensor,
