@@ -71,22 +71,29 @@
 //   (pixel, slot) reads an 84 B vertex row that spans 3-4 sectors of 32 B
 //   (rows are not sector-aligned), 125.9 MB of row sectors on the
 //   photo-like lattice of chip_smoke.py; with the tables and out once,
-//   151.8 MB through L2 if no gather hit L1 (the L2 floor; chip_smoke.py
-//   prints its time at the L2 rate it measures).  Neighbouring pixels
-//   share vertices, so a warp's 32-pixel tile touches only 22.1 MB of
-//   distinct row sectors: L1 can take the rest.  The first kernel (one
-//   thread per (pixel, channel), 4.1 M threads, a 64-bit division each,
-//   the pixel's d+1 ids and weights re-read by each of its C threads)
-//   took 31 us.  This design: a warp per tile of pixels copies the
-//   tile's ids and weights once, coalesced, into shared memory; lanes
-//   walk the tile's outputs in pixel-major order, so neighbouring lanes
-//   gather neighbouring channels of one vertex row and a warp's rounds
-//   share rows in L1; d+1 is a template (the loads of a round in flight
-//   together), each output sums its slots in slot order (two runs
-//   bit-equal); a slot on the zero row m (every slot of a padded canvas
-//   pixel) issues no load; outputs leave through shared memory as one
-//   16-byte store a lane per 128 outputs.  (Times in this note: NVIDIA
-//   H100 80GB HBM3 at a 700 W power limit, chip_smoke.py.)
+//   151.8 MB through L2 if no gather hit L1: the L2 floor, 32 us at the
+//   4.7 TB/s of a copy between two L2-resident tensors.  Neighbouring
+//   pixels share vertices, so a warp's 32-pixel tile touches only 22.1
+//   MB of distinct row sectors (10 us with the tables and out): L1 takes
+//   the rest.  The first kernel (one thread per (pixel, channel), 4.1 M
+//   threads, a 64-bit division each, the pixel's d+1 ids and weights
+//   re-read by each of its C threads) took 31-33 us.  This design: a
+//   warp per tile of pixels copies the tile's ids and weights once,
+//   coalesced, into shared memory; lanes walk the tile's outputs in
+//   pixel-major order, so neighbouring lanes gather neighbouring
+//   channels of one vertex row and a warp's rounds share rows in L1;
+//   d+1 is a template (the loads of a round in flight together), each
+//   output sums its slots in slot order (two runs bit-equal); a slot on
+//   the zero row m (every slot of a padded canvas pixel) issues no load;
+//   outputs leave through shared memory as one 16-byte store a lane per
+//   128 outputs.  It takes 20-21 us, two thirds of the L2 floor's time
+//   and 2.5x the bound: without its gathers the same kernel takes 8.3-8.7
+//   us (at the bound), so the gathers' trips through L1, not HBM bytes,
+//   hold it.  At C = 1 (the norm filter) it is 0.6 us slower than the
+//   first kernel (3.1-4.5 us): one round of 32 outputs a tile leaves its
+//   staging little to hide behind.  (Times in this note: NVIDIA H100
+//   80GB HBM3 at a 700 W power limit, chip_smoke.py and
+//   bench_old_kernels.py.)
 // * The splat and the blur are cooperative launches at as many blocks as
 //   the card holds at once (grid.sync needs no -rdc since CUDA 11).  A
 //   grid that cannot be co-resident is refused

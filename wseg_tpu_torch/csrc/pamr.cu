@@ -46,9 +46,16 @@
 //    The host plan (ops/pamr_cuda.py::affinity_plan) picks G, the tile
 //    and the threads from (B, H, W, D) and the SM count; the C entry
 //    only checks it.  At the flagship: G 8, one row a CTA, 384 CTAs of
-//    384 threads, 147,456 lanes (8x the first kernel's live threads).
-//    (Times in this note: NVIDIA H100 80GB HBM3 at a 700 W power limit,
-//    chip_smoke.py.)
+//    384 threads, 147,456 lanes (8x the first kernel's live threads),
+//    all resident at once.  It takes 7.9-8.2 us, 3.7x faster than the
+//    first kernel and still 7x its bound: the floor of this design is
+//    one CTA's chain (the window's round trip, the dependent sums,
+//    shuffles, divisions and exponentials, the barrier, the write-out)
+//    plus the launch, since every CTA runs in the one wave.  4 lanes a
+//    pixel take as long as 8 (8.1 against 8.2 us) and staging only the
+//    13 rows the taps reach was slower (9.4 us), so neither lanes nor
+//    staged bytes hold it.  (Times in this note: NVIDIA H100 80GB HBM3
+//    at a 700 W power limit, chip_smoke.py and bench_old_kernels.py.)
 //
 // 2. pamr_propagate_cluster_kernel<G, P> replaces pamr_pallas.py::
 //    pamr_propagate_pallas (_propagate_kernel): num_iter Jacobi steps
