@@ -44,8 +44,8 @@ from the repository root.  Phases, each printing its own lines:
    500x375 image on the 384x512 merge canvas (the blur also bit for bit
    against the chain of per-axis plain blurs), errors, median times,
    bounds, cuSPARSE products as the library yardstick and lattice
-   sizes; the slice's L2 floor (the row sectors its gathers touch, the
-   tables and out once) at the L2 rate of a copy; the one-call filter
+   sizes; the slice's L2 floor (each warp tile's distinct row sectors,
+   the tables and out once) at the L2 rate of a copy; the one-call filter
    against the same steps called one by one;
 8. exact serving slice: the flagship model serves the 8 images with
    ``TEST.CRF_MODE exact`` (host lattice build + one host call of the
@@ -598,8 +598,7 @@ def affinity_host_us(im) -> dict:
     from wseg_tpu_torch.ops import pamr_cuda as pc
 
     b, _, h, w = im.shape
-    _, plan_ints, dil_ints = pc._affinity_launch(b, h, w, PAMR_DIL,
-                                                 im.device.index)
+    _, plan_ints, dil_ints = pc._affinity_launch(b, h, w, PAMR_DIL)
     lib = pc._library()
     out = torch.empty((b, 8 * len(PAMR_DIL), h, w), device=im.device)
     stream = torch.cuda.current_stream().cuda_stream
@@ -658,11 +657,11 @@ def phase_pamr_kernels(card: str) -> list:
               f"({plan.waves:.2f} waves); "
               f"ptxas {inst}: {'; '.join(lines)}", flush=True)
         aplan = affinity_plan_for(im_cm, PAMR_DIL)
-        inst = f"pamr_affinity_kernelILi{aplan.g}EE"
+        inst = "pamr_affinity_kernel"
         lines = ptxas_lines("pamr", inst)
         check(lines, f"no ptxas lines for {inst}")
-        print(f"affinity plan at {(b, 3, h, w)}: G {aplan.g} lanes a pixel, "
-              f"tiles of {aplan.rows} x {aplan.cols} pixels, "
+        print(f"affinity plan at {(b, 3, h, w)}: tiles of one row of "
+              f"{aplan.cols} pixels, "
               f"{aplan.threads} threads, {aplan.smem_bytes()} B of shared "
               f"memory, {aplan.ctas} CTAs; ptxas {inst}: "
               f"{'; '.join(lines)}", flush=True)
@@ -1183,10 +1182,11 @@ def l2_rate() -> float:
 
 
 def slice_l2_bytes(tables, c: int) -> dict:
-    """The slice's traffic through L2 if no gather hit L1: the 32 B
-    sectors of the vertex row (C floats) each real (pixel, slot) gathers,
-    and the ids, weights and out once; and the distinct row sectors of
-    each warp's tile (what L1 reuse inside a tile leaves)."""
+    """The slice's L2 floor: the distinct 32 B vertex-row sectors (a row
+    is C floats) that each warp's tile of pixels gathers, which it must
+    read at least once, and the ids, weights and out once.  And, as an
+    upper estimate of its traffic, the row sectors of every real (pixel,
+    slot) gather, as if none hit L1."""
     import torch
 
     ids = tables.ids.long()
@@ -1202,7 +1202,7 @@ def slice_l2_bytes(tables, c: int) -> dict:
     keep = real[..., None] & (sec <= last[..., None])
     key = (pix[..., None] // tile) * (int(last.max()) + 1) + sec
     distinct = int(torch.unique(key[keep]).numel()) * 32
-    return {"rows": rows, "once": once, "floor": rows + once,
+    return {"no_l1": rows, "once": once, "floor": distinct + once,
             "tile_distinct": distinct}
 
 
@@ -1327,16 +1327,18 @@ def phase_lattice_kernels(card: str) -> list:
             if kname == "lattice_slice":
                 l2 = slice_l2_bytes(tables, c)
                 floor_us = l2["floor"] / l2_bps * 1e6
-                tiles_us = (l2["tile_distinct"] + l2["once"]) / l2_bps * 1e6
-                print(f"  L2 floor of the slice ({name}, C {c}): "
-                      f"{l2['rows'] / 1e6:.2f} MB of gathered row sectors "
-                      f"+ {l2['once'] / 1e6:.2f} MB of tables and out = "
+                no_l1_us = (l2["no_l1"] + l2["once"]) / l2_bps * 1e6
+                print(f"  L2 floor of the slice ({name}, C {c}): each warp "
+                      f"tile's distinct row sectors once, "
+                      f"{l2['tile_distinct'] / 1e6:.2f} MB, + "
+                      f"{l2['once'] / 1e6:.2f} MB of tables and out = "
                       f"{l2['floor'] / 1e6:.2f} MB, {floor_us:.2f} us at "
                       f"the L2 rate of a copy, {l2_bps / 1e12:.2f} TB/s "
-                      f"(the kernel takes {dev * 1e3 / floor_us:.1%} of "
-                      f"it); with each warp tile's distinct row sectors "
-                      f"once ({l2['tile_distinct'] / 1e6:.2f} MB) "
-                      f"{tiles_us:.2f} us ({card})", flush=True)
+                      f"(the kernel takes {dev * 1e3 / floor_us:.2f}x it); "
+                      f"upper estimate of its L2 traffic, if no gather hit "
+                      f"L1: {l2['no_l1'] / 1e6:.2f} MB of row sectors, "
+                      f"{no_l1_us:.2f} us with the tables and out "
+                      f"({card})", flush=True)
             if name == "bilateral":
                 entries.append({
                     "name": kname, "route": "cuda",

@@ -444,6 +444,28 @@ def test_slice_kernel_matches_plain_on_card(d1, c):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("c", [1, 21])
+def test_slice_kernel_takes_row_m_as_zero_on_card(c):
+    """The zero-row condition ``lattice_slice`` states: with a non-zero
+    row m, the kernel gives what the plain version gives on the same
+    lattice with row m set to zero (padded pixels 0)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from wseg_tpu_torch.ops import crf_lattice_cuda as k
+
+    lat, ids, wn = _slice_inputs(1013, 6, c, 300, 7 + c)
+    lat[300] = 1.0 + torch.rand(c, device="cuda")
+    wn[::7] = 1.0
+    got = k.lattice_slice(lat, ids, wn, 0.75)
+    zeroed = lat.clone()
+    zeroed[300] = 0
+    want = k.lattice_slice_reference(zeroed, ids, wn, 0.75)
+    torch.cuda.synchronize()
+    assert _rel(got, want) <= 1e-5
+    assert (got[::7] == 0).all()
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("kind", ["bilateral", "gaussian"])
 @pytest.mark.parametrize("c", [1, 7, 21])
 def test_filter_slices_with_the_new_kernel_on_card(kind, c):

@@ -468,55 +468,49 @@ AFFINITY_SHAPES = [(8, 48, 48, FLAGSHIP_DIL), (8, 96, 96, FLAGSHIP_DIL),
 def test_affinity_plans_cover_each_pixel_once_within_limits(b, h, w, dil):
     from wseg_tpu_torch.ops import pamr_cuda as pc
 
-    plan = pc.affinity_plan(b, h, w, dil, 132)
+    plan = pc.affinity_plan(b, h, w, dil)
     seen = np.zeros((h, w), np.int64)
-    for y0, y1, x0, x1 in plan.tiles():
-        assert 0 < y1 - y0 <= plan.rows and 0 < x1 - x0 <= plan.cols
-        seen[y0:y1, x0:x1] += 1
+    for y, x0, x1 in plan.tiles():
+        assert 0 < x1 - x0 <= plan.cols
+        seen[y, x0:x1] += 1
     assert (seen == 1).all()
     gx, gy, gb = plan.grid
     assert len(list(plan.tiles())) == gx * gy and gb == b <= 65535
-    assert gy <= 65535 and plan.ctas == gx * gy * b
-    assert plan.g in pc.AFFINITY_GROUPS
-    # every pixel of a tile has its g lanes; whole warps, within the limit
-    assert plan.rows * plan.cols * plan.g <= plan.threads
+    assert gy == h <= 65535 and plan.ctas == gx * gy * b
+    # every pixel of a tile has its lanes; whole warps, within the limit
+    assert plan.cols * pc.AFFINITY_LANES <= plan.threads
     assert plan.threads % 32 == 0
     assert plan.threads <= pc.AFFINITY_MAX_THREADS
-    assert plan.threads - plan.rows * plan.cols * plan.g < 32
+    assert plan.threads - plan.cols * pc.AFFINITY_LANES < 32
     assert plan.smem_bytes() <= pc.SMEM_LIMIT
-    assert plan.host_ints() == (plan.g, plan.rows, plan.cols, plan.threads,
-                                plan.smem_bytes())
+    assert plan.host_ints() == (plan.cols, plan.threads, plan.smem_bytes())
 
 
 def test_affinity_plan_picks_lanes_and_tiles():
     from wseg_tpu_torch.ops import pamr_cuda as pc
 
-    # the flagship: too few pixels for a wave at 4 lanes a pixel, so 8;
-    # one row a CTA keeps 2 CTAs an SM (384 CTAs on 132 SMs); the window
-    # is the whole 48x48 image (rows 24 above and below)
-    plan = pc.affinity_plan(8, 48, 48, FLAGSHIP_DIL, 132)
-    assert (plan.g, plan.rows, plan.cols, plan.threads, plan.ctas) == (
-        8, 1, 48, 384, 384)
-    assert plan.smem_bytes() == 4 * (3 * 48 * 48 + 48 * 52)
-    # (8, 96, 96): four lanes a pixel fill a wave of 132 x 2,048 lanes
-    plan = pc.affinity_plan(8, 96, 96, FLAGSHIP_DIL, 132)
-    assert (plan.g, plan.rows, plan.cols, plan.threads) == (4, 1, 96, 384)
+    # the flagship: a CTA per image row, 4 lanes a pixel (384 CTAs of
+    # 192 threads); the window is the whole 48x48 image (rows 24 above
+    # and below)
+    plan = pc.affinity_plan(8, 48, 48, FLAGSHIP_DIL)
+    assert (plan.cols, plan.threads, plan.ctas) == (48, 192, 384)
+    assert plan.smem_bytes() == 4 * (3 * 48 * 48 + 48 * 56)
+    # (8, 96, 96): 49 rows of the window, 384 threads
+    plan = pc.affinity_plan(8, 96, 96, FLAGSHIP_DIL)
+    assert (plan.cols, plan.threads, plan.ctas) == (96, 384, 768)
     assert plan.smem_bytes() == 4 * (3 * 49 * 96 + 48 * 104)
-    # on a small card: the fewest lanes that fill it, and as many rows a
-    # CTA as its threads take while the grid keeps 2 CTAs an SM
-    plan = pc.affinity_plan(8, 48, 48, FLAGSHIP_DIL, 16)
-    assert (plan.g, plan.rows, plan.cols, plan.threads) == (4, 2, 48, 384)
-    plan = pc.affinity_plan(64, 16, 16, (1, 2), 16)
-    assert (plan.g, plan.rows, plan.cols, plan.threads) == (4, 8, 16, 512)
-    plan = pc.affinity_plan(4, 16, 16, (1, 2), 4)
-    assert (plan.g, plan.rows, plan.cols, plan.threads) == (8, 4, 16, 512)
-    # a row wider than a CTA's threads at 8 lanes: even column tiles
-    plan = pc.affinity_plan(1, 3, 129, (1,), 132)
-    assert (plan.g, plan.cols, plan.grid[0]) == (8, 43, 3)
+    # a row wider than a CTA's 128 pixels: even column tiles
+    plan = pc.affinity_plan(1, 3, 129, (1,))
+    assert (plan.cols, plan.threads, plan.grid[0]) == (65, 288, 2)
+    # a window too large at 128 columns takes narrower tiles
+    plan = pc.affinity_plan(1, 170, 170, (1, 60))
+    assert plan.grid[0] > 2 and plan.smem_bytes() <= pc.SMEM_LIMIT
+    assert pc.affinity_smem(-(-170 // (plan.grid[0] - 1)), (1, 60), 170,
+                            170) > pc.SMEM_LIMIT
     # a dilation beyond the plane clamps like max(h, w)
     assert pc.affinity_reach((1, 500), 20, 30) == 30
-    assert (pc.affinity_smem(8, 1, 30, (1, 500), 20, 30)
-            == pc.affinity_smem(8, 1, 30, (1, 30), 20, 30))
+    assert (pc.affinity_smem(30, (1, 500), 20, 30)
+            == pc.affinity_smem(30, (1, 30), 20, 30))
 
 
 def test_affinity_plan_refuses_what_no_launch_takes():
@@ -525,23 +519,38 @@ def test_affinity_plan_refuses_what_no_launch_takes():
     # a 400-row reach over 400 columns: one column a CTA still stages
     # 400 x 400 x 3 floats
     with pytest.raises(ValueError, match="shared-memory limit"):
-        pc.affinity_plan(1, 400, 400, (1, 400), 132)
+        pc.affinity_plan(1, 400, 400, (1, 400))
     with pytest.raises(ValueError):
-        pc.affinity_plan(0, 48, 48, FLAGSHIP_DIL, 132)
+        pc.affinity_plan(0, 48, 48, FLAGSHIP_DIL)
     with pytest.raises(ValueError):
-        pc.affinity_plan(1, 48, 48, (0,), 132)
+        pc.affinity_plan(1, 65536, 4, (1,))
+    with pytest.raises(ValueError):
+        pc.affinity_plan(1, 48, 48, (0,))
 
 
-@pytest.mark.parametrize("g", [4, 8])
-def test_affinity_pitch_spreads_a_warps_stores_over_the_banks(g):
-    """A warp's store of one round: lane l = group * (32 / g) + pixel
-    writes tap 8 i + group + g u of tile pixel slot0 + pixel, at
-    (tap) * pitch + slot; the 32 addresses fall in 32 banks."""
+def test_affinity_plan_takes_dilations_up_to_68_on_large_planes():
+    """The limit its docstring states: one column's window of (1 + 2 r)^2
+    pixels of three planes fits shared memory for a largest dilation r of
+    68 with 8 dilations, not 69."""
     from wseg_tpu_torch.ops import pamr_cuda as pc
 
+    dil = (1, 2, 4, 8, 12, 24, 32)
+    plan = pc.affinity_plan(1, 200, 200, dil + (68,))
+    assert plan.smem_bytes() <= pc.SMEM_LIMIT
+    with pytest.raises(ValueError, match="shared-memory limit"):
+        pc.affinity_plan(1, 200, 200, dil + (69,))
+
+
+def test_affinity_pitch_spreads_a_warps_stores_over_the_banks():
+    """A warp's store of one round: lane l = group * 8 + pixel writes tap
+    8 i + group + 4 u of tile pixel slot0 + pixel, at (tap) * pitch +
+    slot; the 32 addresses fall in 32 banks."""
+    from wseg_tpu_torch.ops import pamr_cuda as pc
+
+    g = pc.AFFINITY_LANES
     lanes = 32 // g
     for px in range(1, 300):
-        pitch = pc.affinity_pitch(px, g)
+        pitch = pc.affinity_pitch(px)
         assert pitch >= px and pitch % lanes == 0 and pitch % 4 == 0
         for slot0 in range(0, px, lanes):
             for i in range(8):
@@ -613,21 +622,21 @@ def test_affinity_entry_refuses_plans_it_cannot_take():
 
     im = torch.rand(1, 3, 24, 24, device="cuda")
     dil = (1, 2)
-    good = pc.affinity_plan(1, 24, 24, dil, 132)
+    good = pc.affinity_plan(1, 24, 24, dil)
     dil_c = (ctypes.c_int * 2)(*dil)
 
     def launch(ints):
-        return pc._launch_affinity(im, dil, (ctypes.c_int * 5)(*ints), dil_c)
+        return pc._launch_affinity(im, dil, (ctypes.c_int * 3)(*ints), dil_c)
 
     launch(good.host_ints())
     before = pc.pamr_affinity_cm.launches
-    g, rows, cols, threads, smem = good.host_ints()
-    for bad in ((2, rows, cols, threads, smem),      # no G 2 instance
-                (g, rows, cols, threads, smem + 4),  # not this plan's smem
-                (g, rows, cols, 544, smem),          # above 512 threads
-                (g, rows, cols, threads - 1, smem),  # not whole warps
-                (g, 25, cols, threads, smem),        # rows > H
-                (g, rows, cols, 32, smem)):          # fewer lanes than px
+    cols, threads, smem = good.host_ints()
+    for bad in ((cols, threads, smem + 4),  # not this plan's smem
+                (cols, 544, smem),          # above 512 threads
+                (cols, threads - 1, smem),  # not whole warps
+                (25, threads, smem),        # columns > W
+                (0, threads, smem),         # no columns
+                (cols, 32, smem)):          # fewer lanes than pixels
         with pytest.raises(RuntimeError, match="CUDA error"):
             launch(bad)
     assert pc.pamr_affinity_cm.launches == before

@@ -69,15 +69,15 @@
 //   MB at the flagship bilateral filter (Np 196,608, d+1 6, C 21, m
 //   18,241), 8.2 us at the HBM rate.  Its gathers are the cost: each
 //   (pixel, slot) reads an 84 B vertex row that spans 3-4 sectors of 32 B
-//   (rows are not sector-aligned), 125.9 MB of row sectors on the
-//   photo-like lattice of chip_smoke.py; with the tables and out once,
-//   151.8 MB through L2 if no gather hit L1: the L2 floor, 32 us at the
-//   4.7 TB/s of a copy between two L2-resident tensors.  Neighbouring
-//   pixels share vertices, so a warp's 32-pixel tile touches only 22.1
-//   MB of distinct row sectors (10 us with the tables and out): L1 takes
-//   the rest.  The first kernel (one thread per (pixel, channel), 4.1 M
-//   threads, a 64-bit division each, the pixel's d+1 ids and weights
-//   re-read by each of its C threads) took 31-33 us.  This design: a
+//   (rows are not sector-aligned).  Neighbouring pixels share vertices,
+//   so a warp's 32-pixel tile touches only 22.1 MB of distinct row
+//   sectors on the photo-like lattice of chip_smoke.py: with the tables
+//   and out once, 48.0 MB, this design's L2 floor, 10.1 us at the 4.7
+//   TB/s of a copy between two L2-resident tensors.  (Had no gather hit
+//   L1, the row sectors would be 125.9 MB: an upper estimate of the
+//   traffic, not a floor.)  The first kernel (one thread per (pixel,
+//   channel), 4.1 M threads, a 64-bit division each, the pixel's d+1 ids
+//   and weights re-read by each of its C threads) took 31-33 us.  This design: a
 //   warp per tile of pixels copies the tile's ids and weights once,
 //   coalesced, into shared memory; lanes walk the tile's outputs in
 //   pixel-major order, so neighbouring lanes gather neighbouring
@@ -86,14 +86,14 @@
 //   output sums its slots in slot order (two runs bit-equal); a slot on
 //   the zero row m (every slot of a padded canvas pixel) issues no load;
 //   outputs leave through shared memory as one 16-byte store a lane per
-//   128 outputs.  It takes 20-21 us, two thirds of the L2 floor's time
-//   and 2.5x the bound: without its gathers the same kernel takes 8.3-8.7
-//   us (at the bound), so the gathers' trips through L1, not HBM bytes,
-//   hold it.  At C = 1 (the norm filter) it is 0.6 us slower than the
+//   128 outputs.  It takes 20-21 us, about twice its L2 floor and 2.5x
+//   the bound: without its gathers the same kernel takes 8.3-8.7 us (at
+//   the bound), so the gathers' trips through L1, not HBM bytes, hold
+//   it.  At C = 1 (the norm filter) it is 0.6 us slower than the
 //   first kernel (3.1-4.5 us): one round of 32 outputs a tile leaves its
 //   staging little to hide behind.  (Times in this note: NVIDIA H100
-//   80GB HBM3 at a 700 W power limit, chip_smoke.py and
-//   bench_old_kernels.py.)
+//   80GB HBM3 at a 700 W power limit, chip_smoke.py and the one-off
+//   comparison committed in 2f4cfb4.)
 // * The splat and the blur are cooperative launches at as many blocks as
 //   the card holds at once (grid.sync needs no -rdc since CUDA 11).  A
 //   grid that cannot be co-resident is refused
@@ -549,7 +549,9 @@ extern "C" int wseg_lattice_blur(const void* lat, void* buf0, void* buf1,
       grid, static_cast<cudaStream_t>(stream)));
 }
 
-// lat (m+1, C), row m the zero slot; out 16-byte aligned
+// lat (m+1, C), ids in [0, m]; row m is the zero slot and must hold
+// zeros: a slot on it (or on any id outside [0, m)) issues no load and
+// adds 0.  out 16-byte aligned
 extern "C" int wseg_lattice_slice(const void* lat, const void* ids,
                                   const void* wn, int n_pix, int C, int d1,
                                   int m, float alpha, void* out,

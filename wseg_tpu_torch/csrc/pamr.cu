@@ -8,7 +8,7 @@
 // T = 8 * D taps.  Edge replication equals clamping the coordinates,
 // since every offset is at most pad = max(dilations).
 //
-// 1. pamr_affinity_kernel<G> replaces wseg_tpu/ops/pamr_pallas.py::
+// 1. pamr_affinity_kernel replaces wseg_tpu/ops/pamr_pallas.py::
 //    pamr_affinity_pallas (_affinity_kernel).  The TPU kernel rolls an
 //    edge-padded copy of the guide through VMEM twice per tap (Mosaic
 //    rotates whole lanes).  Per output pixel (b, y, x) it takes sigma
@@ -27,35 +27,38 @@
 //    scheduler, each walking three dependent passes of 54-162 global
 //    loads with the clamped addresses recomputed in every pass.  This
 //    design:
-//    - a CTA owns a tile of `rows` x `cols` pixels of one image and
-//      stages the guide's window (the tile and its clamped +-max(d)
-//      halo, three planes) in shared memory by cp.async, every copy of
-//      a thread in flight at once, 16-byte copies where the window is
+//    - a CTA owns a tile of `cols` pixels of one image row and stages
+//      the guide's window (the tile and its clamped +-max(d) halo,
+//      three planes) in shared memory by cp.async, every copy of a
+//      thread in flight at once, 16-byte copies where the window is
 //      whole rows of an aligned guide; every tap is read from there;
-//    - G lanes (4 or 8, a template) share a pixel: lane g takes the
-//      neighbours j = g, g + G, ... of every dilation, clamps their row
-//      and column once per dilation and keeps the 3 channel values of
-//      its taps in registers, so the mean, the variance and the logits
-//      read shared memory once; the mean, variance, max and sum are
-//      combined by xor shuffles (commutative, so every lane of a group
-//      holds the same bits);
+//    - 4 lanes share a pixel: lane g takes neighbours g and g + 4 of
+//      every dilation, clamps their row and column once per dilation
+//      and keeps the 3 channel values of its taps in registers, so the
+//      mean, the variance and the logits read shared memory once; the
+//      mean, variance, max and sum are combined by xor shuffles
+//      (commutative, so every lane of a group holds the same bits);
 //    - the softmax values go to a shared tile (T planes at a pitch that
-//      spreads a warp's 32/G pixels and G taps over the 32 banks), then
+//      spreads a warp's 8 pixels and 4 taps over the 32 banks), then
 //      out[b, t, y, x] is written along x, 16-byte stores where the
-//      tile is whole rows of an aligned plane.
-//    The host plan (ops/pamr_cuda.py::affinity_plan) picks G, the tile
-//    and the threads from (B, H, W, D) and the SM count; the C entry
-//    only checks it.  At the flagship: G 8, one row a CTA, 384 CTAs of
-//    384 threads, 147,456 lanes (8x the first kernel's live threads),
-//    all resident at once.  It takes 7.9-8.2 us, 3.7x faster than the
-//    first kernel and still 7x its bound: the floor of this design is
-//    one CTA's chain (the window's round trip, the dependent sums,
-//    shuffles, divisions and exponentials, the barrier, the write-out)
-//    plus the launch, since every CTA runs in the one wave.  4 lanes a
-//    pixel take as long as 8 (8.1 against 8.2 us) and staging only the
-//    13 rows the taps reach was slower (9.4 us), so neither lanes nor
-//    staged bytes hold it.  (Times in this note: NVIDIA H100 80GB HBM3
-//    at a 700 W power limit, chip_smoke.py and bench_old_kernels.py.)
+//      tile is a whole row of an aligned plane.
+//    The host plan (ops/pamr_cuda.py::affinity_plan) picks the columns
+//    of a tile (the fewest column tiles whose pixels fit a CTA's 512
+//    threads and whose window fits shared memory) and the threads; the
+//    C entry only checks it.  At the flagship: 384 CTAs of 192 threads,
+//    73,728 lanes (4x the first kernel's live threads), all resident at
+//    once.  The floor of this design is one CTA's chain (the window's
+//    round trip, the dependent sums, shuffles, divisions and
+//    exponentials, the barrier, the write-out) plus the launch, since
+//    every CTA runs in the one wave: 8 lanes a pixel (8.2 us) and two
+//    rows a CTA (11.0 us) were no faster than this launch (8.1 us), and
+//    staging only the 13 rows the taps reach was slower (9.4 us).  A
+//    window that does not fit shared memory is refused: with one column
+//    a tile it holds (1 + 2 max(d))^2 pixels of three planes, so a
+//    largest dilation above about 68 on a plane of more than 137 rows
+//    and columns (the main path's dilations reach 24).  (Times in this note:
+//    NVIDIA H100 80GB HBM3 at a 700 W power limit, chip_smoke.py and the
+//    one-off comparison committed in 2f4cfb4.)
 //
 // 2. pamr_propagate_cluster_kernel<G, P> replaces pamr_pallas.py::
 //    pamr_propagate_pallas (_propagate_kernel): num_iter Jacobi steps
@@ -123,9 +126,8 @@ namespace {
 
 constexpr int kMaxDil = 8;              // dilations per call
 constexpr int kK = 3;                   // guide channels (RGB)
-// the affinity's limits; ops/pamr_cuda.py's AFFINITY_LIMITS holds the
-// same: lanes a pixel (bit G set for each instance of G), threads of a CTA
-constexpr int kAffGroups = (1 << 4) | (1 << 8);
+// the affinity's threads of a CTA; ops/pamr_cuda.py's AFFINITY_LIMITS
+// holds it with the lanes a pixel (kAffLanes)
 constexpr int kAffMaxThreads = 512;
 // the propagation's limits; ops/pamr_cuda.py's LIMITS holds the same
 // channels of a unit: bit G set for each instance of G
@@ -167,54 +169,57 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// pixels a warp of pamr_affinity_kernel<G> takes: 32 / G.  The tile's
-// pitch in shared memory is an odd multiple of that count, so a warp's
-// stores (32 / G consecutive pixels of G taps t = 8 i + g) fall in 32
-// distinct banks.
-__host__ __device__ inline int affinity_pitch(int px, int g) {
-  const int lanes = 32 / g;
-  return (((px + lanes - 1) / lanes) | 1) * lanes;
+// lanes that share a pixel of pamr_affinity_kernel, and the pixels a
+// warp takes
+constexpr int kAffLanes = 4;
+constexpr int kAffWarpPx = 32 / kAffLanes;
+
+// The tile's pitch in shared memory is an odd multiple of a warp's
+// pixels, so a warp's stores (8 consecutive pixels of 4 taps t = 8 i + g)
+// fall in 32 distinct banks.
+__host__ __device__ inline int affinity_pitch(int px) {
+  return (((px + kAffWarpPx - 1) / kAffWarpPx) | 1) * kAffWarpPx;
 }
 
-// floats of one guide plane's window in shared memory: the largest tile
-// with its clamped +-reach halo, rounded up to 4 floats
-long long affinity_window(int rows, int cols, int reach, int H, int W) {
-  const long long wr = rows + 2LL * reach < H ? rows + 2LL * reach : H;
+// floats of one guide plane's window in shared memory: the widest tile
+// (one row of `cols` pixels) with its clamped +-reach halo, rounded up
+// to 4 floats
+long long affinity_window(int cols, int reach, int H, int W) {
+  const long long wr = 1 + 2LL * reach < H ? 1 + 2LL * reach : H;
   const long long wc = cols + 2LL * reach < W ? cols + 2LL * reach : W;
   return (wr * wc + 3) / 4 * 4;
 }
 
 // dynamic shared memory of an affinity CTA: the three planes' windows
 // and the tile's T softmax planes
-long long affinity_smem(int g, int rows, int cols, int n_dil, int reach,
-                        int H, int W) {
-  return 4 * (kK * affinity_window(rows, cols, reach, H, W) +
-              8LL * n_dil * affinity_pitch(rows * cols, g));
+long long affinity_smem(int cols, int n_dil, int reach, int H, int W) {
+  return 4 * (kK * affinity_window(cols, reach, H, W) +
+              8LL * n_dil * affinity_pitch(cols));
 }
 
-// One CTA a tile of `rows` x `cols` pixels (blockIdx.x the column tile,
-// .y the row tile, .z the image); G lanes a pixel, lane g of a pixel's
-// group taking neighbours g, g + G, ... of every dilation.  `window`
-// floats a staged plane; `reach` the largest dilation (no larger than
-// max(H, W): a larger one clamps the same).
-template <int G>
+// One CTA a tile of `cols` pixels of one image row (blockIdx.x the
+// column tile, .y the row, .z the image); kAffLanes lanes a pixel, lane
+// g of a pixel's group taking neighbours g and g + 4 of every dilation.
+// `window` floats a staged plane; `reach` the largest dilation (no larger
+// than max(H, W): a larger one clamps the same).
 __global__ void __launch_bounds__(kAffMaxThreads)
 pamr_affinity_kernel(const float* __restrict__ im, float* __restrict__ aff,
-                     Dilations dil, int H, int W, int rows, int cols,
-                     int reach, int window) {
+                     Dilations dil, int H, int W, int cols, int reach,
+                     int window) {
   extern __shared__ __align__(16) float aff_smem[];
-  constexpr int kJ = 8 / G;    // neighbours a lane takes per dilation
-  constexpr int kPx = 32 / G;  // pixels a warp takes
+  constexpr int G = kAffLanes;
+  constexpr int kJ = 8 / G;  // neighbours a lane takes per dilation
+  constexpr int kPx = kAffWarpPx;
   constexpr unsigned kFull = 0xffffffffu;
   const int n = dil.n;
   const int T = 8 * n;
-  const int x0 = blockIdx.x * cols, y0 = blockIdx.y * rows;
+  const int x0 = blockIdx.x * cols, y = blockIdx.y;
   const int b = blockIdx.z;
-  const int tw = min(cols, W - x0), th = min(rows, H - y0);
-  const int wx0 = max(0, x0 - reach), wy0 = max(0, y0 - reach);
+  const int tw = min(cols, W - x0);
+  const int wx0 = max(0, x0 - reach), wy0 = max(0, y - reach);
   const int wc = min(W, x0 + tw + reach) - wx0;
-  const int wr = min(H, y0 + th + reach) - wy0;
-  const int pitch = affinity_pitch(rows * cols, G);
+  const int wr = min(H, y + 1 + reach) - wy0;
+  const int pitch = affinity_pitch(cols);
   float* win = aff_smem;                 // kK planes of `window` floats
   float* tile = aff_smem + kK * window;  // T planes of `pitch` floats
   const size_t hw = static_cast<size_t>(H) * W;
@@ -247,10 +252,8 @@ pamr_affinity_kernel(const float* __restrict__ im, float* __restrict__ aff,
   const int lane = threadIdx.x & 31;
   const int g = lane / kPx;
   const int slot = (threadIdx.x >> 5) * kPx + lane % kPx;  // tile pixel
-  const bool live = slot < th * tw;  // others compute pixel 0, store nothing
-  const int py = live ? slot / tw : 0;
-  const int px = live ? slot - py * tw : 0;
-  const int y = y0 + py, x = x0 + px;
+  const bool live = slot < tw;  // others compute pixel 0, store nothing
+  const int x = x0 + (live ? slot : 0);
   float c[kK];
 #pragma unroll
   for (int k = 0; k < kK; ++k) {
@@ -371,24 +374,22 @@ pamr_affinity_kernel(const float* __restrict__ im, float* __restrict__ aff,
   }
   __syncthreads();
 
-  // out[b, t, y, x] along x: whole rows of an aligned plane in 16-byte
+  // out[b, t, y, x] along x: a whole row of an aligned plane in 16-byte
   // stores
-  const int np = th * tw;
   float* dst = aff + static_cast<size_t>(b) * T * hw +
-               static_cast<size_t>(y0) * W + x0;
+               static_cast<size_t>(y) * W + x0;
   if (tw == W && (W & 3) == 0 &&
       (reinterpret_cast<uintptr_t>(aff) & 15) == 0) {
-    const int n4 = np / 4;
+    const int n4 = tw / 4;
     for (int i = threadIdx.x; i < T * n4; i += blockDim.x) {
       const int t = i / n4, r = i - t * n4;
       reinterpret_cast<float4*>(dst + t * hw)[r] =
           reinterpret_cast<const float4*>(tile + t * pitch)[r];
     }
   } else {
-    for (int i = threadIdx.x; i < T * np; i += blockDim.x) {
-      const int t = i / np, r = i - t * np;
-      const int ry = r / tw, rx = r - ry * tw;
-      dst[t * hw + static_cast<size_t>(ry) * W + rx] = tile[t * pitch + r];
+    for (int i = threadIdx.x; i < T * tw; i += blockDim.x) {
+      const int t = i / tw, r = i - t * tw;
+      dst[t * hw + r] = tile[t * pitch + r];
     }
   }
 }
@@ -768,23 +769,19 @@ cudaError_t propagate_config(int g, int p, int n, int threads, int smem,
   return e;
 }
 
-using AffinityKernel = void (*)(const float*, float*, Dilations, int, int,
-                                int, int, int, int);
-
-// the affinity instance of G lanes a pixel; its dynamic shared-memory
-// attribute is raised only where a launch needs more than it was given
-// (per device and instance)
-cudaError_t affinity_kernel(int g, int smem, AffinityKernel* kernel) {
+// raises the affinity kernel's dynamic shared-memory attribute where a
+// launch needs more than it was given (per device)
+cudaError_t affinity_smem_attribute(int smem) {
   constexpr int kDevices = 16;
-  static int given[kDevices][2];
-  *kernel = g == 4 ? pamr_affinity_kernel<4> : pamr_affinity_kernel<8>;
+  static int given[kDevices];
   if (smem <= 48 * 1024) return cudaSuccess;
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
-  int* have = dev < kDevices ? &given[dev][g == 8 ? 1 : 0] : nullptr;
+  int* have = dev < kDevices ? &given[dev] : nullptr;
   if (e == cudaSuccess && (!have || *have < smem)) {
-    e = cudaFuncSetAttribute(
-        *kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    e = cudaFuncSetAttribute(pamr_affinity_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
     if (e == cudaSuccess && have) *have = smem;
   }
   return e;
@@ -830,31 +827,28 @@ extern "C" int wseg_pamr_propagate_max_plane() {
   return limit / (2 * static_cast<int>(sizeof(float))) / 4 * 4;
 }
 
-// {lanes a pixel (bit G set for each instance of G), threads of a CTA}:
-// the limits ops/pamr_cuda.py's AFFINITY_LIMITS must equal; returns
-// their count
+// {lanes a pixel, threads of a CTA}: the limits ops/pamr_cuda.py's
+// AFFINITY_LIMITS must equal; returns their count
 extern "C" int wseg_pamr_affinity_limits(int* out) {
-  out[0] = kAffGroups;
+  out[0] = kAffLanes;
   out[1] = kAffMaxThreads;
   return 2;
 }
 
-// plan: {G lanes a pixel, rows and columns of a CTA's tile, threads,
-// shared memory bytes}, from ops/pamr_cuda.py::affinity_plan; checked,
-// not chosen, here
+// plan: {columns of a CTA's one-row tile, threads, shared memory bytes},
+// from ops/pamr_cuda.py::affinity_plan; checked, not chosen, here
 extern "C" int wseg_pamr_affinity(const void* im, void* aff,
                                   const int* dilations, int n_dil, int B,
                                   int H, int W, const int* plan,
                                   void* stream) {
   Dilations dil;
-  const int g = plan[0], rows = plan[1], cols = plan[2];
-  const int threads = plan[3], smem = plan[4];
+  const int cols = plan[0], threads = plan[1], smem = plan[2];
   if (!fill_dilations(dilations, n_dil, &dil) || B <= 0 || B > 65535 ||
-      H <= 0 || W <= 0 || static_cast<long long>(H) * W > 0x7fffffffLL ||
-      g < 1 || g > 30 || !((kAffGroups >> g) & 1) || rows < 1 ||
-      rows > H || (H + rows - 1) / rows > 65535 || cols < 1 || cols > W ||
-      threads < 32 || threads % 32 != 0 || threads > kAffMaxThreads ||
-      static_cast<long long>(rows) * cols * g > threads) {
+      H <= 0 || H > 65535 || W <= 0 ||
+      static_cast<long long>(H) * W > 0x7fffffffLL || cols < 1 ||
+      cols > W || threads < 32 || threads % 32 != 0 ||
+      threads > kAffMaxThreads ||
+      static_cast<long long>(cols) * kAffLanes > threads) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   // a dilation beyond max(H, W) clamps every tap as max(H, W) does
@@ -864,18 +858,17 @@ extern "C" int wseg_pamr_affinity(const void* im, void* aff,
     if (dil.d[i] > most) dil.d[i] = most;
     if (dil.d[i] > reach) reach = dil.d[i];
   }
-  if (affinity_smem(g, rows, cols, n_dil, reach, H, W) != smem ||
+  if (affinity_smem(cols, n_dil, reach, H, W) != smem ||
       smem > kSmemLimit) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  AffinityKernel kernel;
-  cudaError_t e = affinity_kernel(g, smem, &kernel);
+  cudaError_t e = affinity_smem_attribute(smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((W + cols - 1) / cols, (H + rows - 1) / rows, B);
-  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid((W + cols - 1) / cols, H, B);
+  pamr_affinity_kernel<<<grid, threads, smem,
+                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(im), static_cast<float*>(aff), dil, H, W,
-      rows, cols, reach,
-      static_cast<int>(affinity_window(rows, cols, reach, H, W)));
+      cols, reach, static_cast<int>(affinity_window(cols, reach, H, W)));
   return static_cast<int>(cudaGetLastError());
 }
 

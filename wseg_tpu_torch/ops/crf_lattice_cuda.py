@@ -291,8 +291,12 @@ def lattice_blur(lat: torch.Tensor, nbr: torch.Tensor) -> torch.Tensor:
 
 def lattice_slice(lat: torch.Tensor, ids: torch.Tensor, wn: torch.Tensor,
                   alpha: float) -> torch.Tensor:
-    """lat (m+1, C), ids (Np, d+1) int32, wn (Np, d+1) float32 ->
-    (Np, C) float32 pixel values."""
+    """lat (m+1, C), ids (Np, d+1) int32 in [0, m], wn (Np, d+1) float32
+    -> (Np, C) float32 pixel values.  Row m of ``lat`` is the zero slot
+    and must hold zeros, as every lattice of the exact CRF does (the
+    splat leaves it empty, the blur rewrites it): the kernel reads
+    nothing for a slot on it and adds 0, whatever the row holds, where
+    the plain version gathers it."""
     f32 = torch.float32
     where = _check("lattice_slice", lat=(lat, f32, 2),
                    ids=(ids, torch.int32, 2), wn=(wn, f32, 2))

@@ -16,8 +16,8 @@ kernel launches.
 
 Each kernel's launch comes from a pure Python host plan, which the C
 entry only checks (``csrc/pamr.cu`` says why each is shaped so):
-``affinity_plan`` gives the affinity a CTA per tile of pixels, with the
-guide's window in shared memory and G lanes a pixel;
+``affinity_plan`` gives the affinity a CTA per tile of an image row,
+with the guide's window in shared memory and 4 lanes a pixel;
 ``propagate_plan`` gives the propagation a thread-block cluster per
 (image, group of G channels), its CTAs splitting the plane's rows.
 
@@ -117,16 +117,9 @@ def pamr_propagate_cm_reference(aff: torch.Tensor, mask: torch.Tensor,
 # the affinity kernel's limits (csrc/pamr.cu); ``_library`` checks them
 # against the built kernel's.  ``affinity_plan`` alone picks a launch
 # within them, and the C entry only checks it.
-AFFINITY_GROUPS = (4, 8)  # lanes a pixel: the kernel's instances
+AFFINITY_LANES = 4  # lanes a pixel
 AFFINITY_MAX_THREADS = 512
-AFFINITY_LIMITS = (sum(1 << g for g in AFFINITY_GROUPS),
-                   AFFINITY_MAX_THREADS)
-# lanes an SM holds at once (2,048 threads): the plan takes the fewest
-# lanes a pixel that still give the card one full wave of lanes
-SM_LANES = 2048
-# CTAs an SM the plan keeps at least, so one CTA's staging overlaps
-# another's taps
-AFFINITY_CTAS_PER_SM = 2
+AFFINITY_LIMITS = (AFFINITY_LANES, AFFINITY_MAX_THREADS)
 
 
 def affinity_reach(dil: Sequence[int], h: int, w: int) -> int:
@@ -135,85 +128,75 @@ def affinity_reach(dil: Sequence[int], h: int, w: int) -> int:
     return min(max(dil), max(h, w))
 
 
-def affinity_pitch(px: int, g: int) -> int:
+def affinity_pitch(px: int) -> int:
     """Floats between two taps' planes of a CTA's softmax tile: an odd
-    multiple of a warp's 32 / g pixels at least ``px`` (conflict-free
-    stores; csrc/pamr.cu ``affinity_pitch``)."""
-    lanes = 32 // g
+    multiple of a warp's 32 / AFFINITY_LANES pixels at least ``px``
+    (conflict-free stores; csrc/pamr.cu ``affinity_pitch``)."""
+    lanes = 32 // AFFINITY_LANES
     return (-(-px // lanes) | 1) * lanes
 
 
-def affinity_smem(g: int, rows: int, cols: int, dil: Sequence[int], h: int,
-                  w: int) -> int:
+def affinity_smem(cols: int, dil: Sequence[int], h: int, w: int) -> int:
     """Dynamic shared memory of an affinity CTA: three guide planes of
-    the largest tile's window (the tile and its clamped +-reach halo,
-    rounded up to 4 floats) and its 8 * D softmax planes (csrc/pamr.cu
-    ``affinity_smem``)."""
+    the widest tile's window (one row of ``cols`` pixels and its clamped
+    +-reach halo, rounded up to 4 floats) and its 8 * D softmax planes
+    (csrc/pamr.cu ``affinity_smem``)."""
     reach = affinity_reach(dil, h, w)
-    window = min(h, rows + 2 * reach) * min(w, cols + 2 * reach)
+    window = min(h, 1 + 2 * reach) * min(w, cols + 2 * reach)
     return 4 * (3 * (-(-window // 4) * 4)
-                + 8 * len(dil) * affinity_pitch(rows * cols, g))
+                + 8 * len(dil) * affinity_pitch(cols))
 
 
 @dataclass(frozen=True)
 class AffinityPlan:
     """The affinity kernel's launch for a (b, 3, h, w) guide: a CTA per
-    tile of ``rows`` x ``cols`` pixels of one image, ``g`` lanes a pixel,
-    ``threads`` threads."""
+    tile of ``cols`` pixels of one image row, ``AFFINITY_LANES`` lanes a
+    pixel, ``threads`` threads."""
 
     b: int
     h: int
     w: int
     dil: Tuple[int, ...]
-    g: int
-    rows: int
     cols: int
     threads: int
 
     @property
     def grid(self) -> Tuple[int, int, int]:
-        """(column tiles, row tiles, images)."""
-        return -(-self.w // self.cols), -(-self.h // self.rows), self.b
+        """(column tiles, rows, images)."""
+        return -(-self.w // self.cols), self.h, self.b
 
     @property
     def ctas(self) -> int:
         return math.prod(self.grid)
 
-    def tiles(self) -> Iterator[Tuple[int, int, int, int]]:
-        """(y0, y1, x0, x1) of each tile of an image."""
-        for y0 in range(0, self.h, self.rows):
+    def tiles(self) -> Iterator[Tuple[int, int, int]]:
+        """(y, x0, x1) of each tile of an image."""
+        for y in range(self.h):
             for x0 in range(0, self.w, self.cols):
-                yield (y0, min(self.h, y0 + self.rows), x0,
-                       min(self.w, x0 + self.cols))
+                yield y, x0, min(self.w, x0 + self.cols)
 
     def smem_bytes(self) -> int:
-        return affinity_smem(self.g, self.rows, self.cols, self.dil, self.h,
-                             self.w)
+        return affinity_smem(self.cols, self.dil, self.h, self.w)
 
     def host_ints(self) -> Tuple[int, ...]:
-        """{G, rows, columns, threads, shared bytes}, the C entry's plan
-        in its order."""
-        return (self.g, self.rows, self.cols, self.threads,
-                self.smem_bytes())
+        """{columns, threads, shared bytes}, the C entry's plan in its
+        order."""
+        return (self.cols, self.threads, self.smem_bytes())
 
 
-def affinity_plan(b: int, h: int, w: int, dilations: Sequence[int],
-                  sms: int) -> AffinityPlan:
-    """The affinity's launch for a (b, 3, h, w) guide on a card of
-    ``sms`` SMs.  G: the fewest lanes a pixel (of ``AFFINITY_GROUPS``)
-    that give the card ``SM_LANES`` lanes an SM, else the most.  Columns:
-    the fewest column tiles whose tile fits a CTA's threads and, one row
-    high, shared memory.  Rows: the most that fit both while the grid
-    keeps ``AFFINITY_CTAS_PER_SM`` CTAs an SM.  Raises where no launch
-    fits."""
+def affinity_plan(b: int, h: int, w: int,
+                  dilations: Sequence[int]) -> AffinityPlan:
+    """The affinity's launch for a (b, 3, h, w) guide: a CTA per tile of
+    one row, the fewest column tiles whose pixels fit a CTA's threads and
+    whose window fits shared memory.  Raises where no launch fits: a
+    window of one column is (1 + 2 reach)^2 pixels of three planes, so a
+    largest dilation above about 68 on a plane of more than 137 rows and
+    columns."""
     dil = _dilations(dilations)
-    if b <= 0 or h <= 0 or w <= 0:
+    if not (0 < b <= 65535 and 0 < h <= 65535 and w > 0):
         raise ValueError(f"no affinity plan for ({b}, 3, {h}, {w})")
-    g = next((g for g in AFFINITY_GROUPS if b * h * w * g
-              >= sms * SM_LANES), AFFINITY_GROUPS[-1])
-    per_cta = AFFINITY_MAX_THREADS // g
-    n_cols = -(-w // per_cta)
-    while affinity_smem(g, 1, -(-w // n_cols), dil, h, w) > SMEM_LIMIT:
+    n_cols = -(-w // (AFFINITY_MAX_THREADS // AFFINITY_LANES))
+    while affinity_smem(-(-w // n_cols), dil, h, w) > SMEM_LIMIT:
         if -(-w // n_cols) == 1:
             raise ValueError(
                 f"the affinity's guide window for a {h}x{w} plane with "
@@ -221,14 +204,8 @@ def affinity_plan(b: int, h: int, w: int, dilations: Sequence[int],
                 f"{SMEM_LIMIT} B")
         n_cols += 1
     cols = -(-w // n_cols)
-    rows = 1
-    for r in range(2, min(h, per_cta // cols) + 1):
-        if (affinity_smem(g, r, cols, dil, h, w) > SMEM_LIMIT
-                or b * -(-h // r) * n_cols < AFFINITY_CTAS_PER_SM * sms):
-            break
-        rows = r
-    return AffinityPlan(b, h, w, dil, g, rows, cols,
-                        -(-(rows * cols * g) // 32) * 32)
+    return AffinityPlan(b, h, w, dil, cols,
+                        -(-(cols * AFFINITY_LANES) // 32) * 32)
 
 
 # the propagation kernel's limits (csrc/pamr.cu); ``_library`` checks
@@ -472,24 +449,19 @@ def _check_kernel_args(max_dil: int, dil: Tuple[int, ...],
 
 
 @functools.lru_cache(maxsize=256)
-def _affinity_launch(b: int, h: int, w: int, dil: Tuple[int, ...],
-                     index: int):
-    """(plan, the C entry's plan ints, its dilation ints) of an affinity
-    on card ``index``, cached by shape and dilations."""
-    plan = affinity_plan(b, h, w, dil,
-                         torch.cuda.get_device_properties(index)
-                         .multi_processor_count)
-    return (plan, (ctypes.c_int * 5)(*plan.host_ints()),
+def _affinity_launch(b: int, h: int, w: int, dil: Tuple[int, ...]):
+    """(plan, the C entry's plan ints, its dilation ints) of an affinity,
+    cached by shape and dilations."""
+    plan = affinity_plan(b, h, w, dil)
+    return (plan, (ctypes.c_int * 3)(*plan.host_ints()),
             (ctypes.c_int * len(dil))(*dil))
 
 
 def affinity_plan_for(im: torch.Tensor,
                       dilations: Sequence[int]) -> AffinityPlan:
-    """The plan ``pamr_affinity_cm`` launches for guide ``im`` on its
-    card."""
+    """The plan ``pamr_affinity_cm`` launches for guide ``im``."""
     b, _, h, w = im.shape
-    return _affinity_launch(b, h, w, _dilations(dilations),
-                            im.device.index)[0]
+    return _affinity_launch(b, h, w, _dilations(dilations))[0]
 
 
 def _launch_affinity(im: torch.Tensor, dil: Tuple[int, ...], plan_ints,
@@ -519,7 +491,8 @@ def _launch_affinity(im: torch.Tensor, dil: Tuple[int, ...], plan_ints,
 def pamr_affinity_cm(im: torch.Tensor,
                      dilations: Sequence[int]) -> torch.Tensor:
     """Guide (B, 3, H, W) float32 -> (B, 8 * D, H, W) float32 softmax
-    affinities."""
+    affinities.  On the card, raises ``ValueError`` where the guide's
+    window does not fit a CTA's shared memory (``affinity_plan``)."""
     dil = _dilations(dilations)
     _check(im, "guide")
     if im.device.type == "cpu":
@@ -533,7 +506,7 @@ def pamr_affinity_cm(im: torch.Tensor,
     if im.numel() == 0:
         return torch.empty((b, 8 * len(dil), h, w), dtype=torch.float32,
                            device=im.device)
-    _, plan_ints, dil_ints = _affinity_launch(b, h, w, dil, im.device.index)
+    _, plan_ints, dil_ints = _affinity_launch(b, h, w, dil)
     return _launch_affinity(im, dil, plan_ints, dil_ints)
 
 
