@@ -19,11 +19,15 @@ from the repository root.  Phases, each printing its own lines:
    ``MultiScaleServer`` with the fast-CRF device postprocess; checks
    the label maps, both CRF kernels' launch counts (12 each per
    postprocess call), finite scores, and the writer math on the card
-   against the same math on the CPU;
+   against the same math on the CPU; then the ResNet-50 SoftMaxAE
+   (``ae``) model serves the same images under ``voc_resnet50.yaml``'s
+   TEST settings (scales 1/0.75/1.25/1.5 + flip on the 768 canvas):
+   label maps, finite scores, the CRF kernels' launch counts, images/s;
 5. PAMR kernels vs plain: the affinity and propagation kernels against
    their plain versions at the flagship shapes (guide (8, 48, 48, 3),
-   mask (8, 48, 48, 21), dilations 1-24, 10 steps), and the propagation
-   at (8, 96, 96, 21) too: errors, call times, the profiler's kernel
+   mask (8, 48, 48, 21), dilations 1-24, 10 steps), the propagation
+   at (8, 96, 96, 21) too, and both at the ``ae`` configs' odd plane
+   (16, 81, 81, 21): errors, call times, the profiler's kernel
    times and bounds, both kernels' host plans and ptxas lines, and each
    one's host time a call (wrapper, C entry, ctypes);
    then the three lab variants (fold, dxfirst, mxu) against theirs at
@@ -37,7 +41,12 @@ from the repository root.  Phases, each printing its own lines:
    whose labels agree with the pseudo-GT of a sharpened head (see
    ``sharpen_head_and_label``), where the mask loss must be non-zero;
    and the refined masks of the kernel path against the plain path on
-   the same card;
+   the same card; then 2 warm-up and 4 timed steps of each SoftMaxAE
+   config (ResNet-50 and -101 at batch 16, VGG16 at batch 8, crop 321):
+   finite losses, trained tensors moved, frozen ones bit-equal, the live
+   BatchNorms' running statistics moved (float32, finite), one launch of
+   each PAMR kernel a step, the (B, 81, 81, 21) refined masks of the
+   kernels against the plain path; median step ms and host issue ms;
 7. exact-CRF kernels vs plain: the four lattice kernels (norm folding,
    the split splat, the all-axes blur, slice) against their plain
    versions on the Gaussian and bilateral lattices of a photo-like
@@ -57,8 +66,12 @@ from the repository root.  Phases, each printing its own lines:
 9. entry point: ``python -m wseg_tpu_torch.train`` (``main``) trains one
    short epoch + validation on a synthetic VOC directory and writes a
    checkpoint, which ``wseg_tpu_torch.infer_val`` loads and serves, in
-   the fast and in the exact CRF mode;
-10. the card line, the kernel JSON line, and last ``{"ok": true, ...}``.
+   the fast and in the exact CRF mode; then the same ``train`` ->
+   ``infer_val`` -> ``wseg_tpu_torch.eval_seg`` on ``voc_resnet50.yaml``,
+   whose mIoU line must be printed and finite;
+10. the card line, the kernel JSON line (launch counts summed over the
+    flagship's and the ``ae`` main paths), and last ``{"ok": true,
+    ...}``.  Each phase prints its wall seconds.
 
 Any failed check raises, so the script exits non-zero and prints no
 ``ok`` line.
@@ -91,6 +104,8 @@ GAUSS_CASES = (((8, 21, 192, 256), 3), ((8, 21, 384, 512), 6),
 PAMR_SHAPE = (8, 48, 48, 21)
 # the PAMR lab's second shape, at which the propagation is timed too
 PAMR_LAB_SHAPE = (8, 96, 96, 21)
+# the ae configs' PAMR shape: batch 16, the 321 crop at stride 4 (odd)
+AE_PAMR_SHAPE = (16, 81, 81, 21)
 PAMR_DIL = (1, 2, 4, 8, 12, 24)
 PAMR_ITER = 10
 PAMR_REL_TOL = 1e-5
@@ -192,7 +207,7 @@ def phase_env() -> str:
     print(f"device 0: {torch.cuda.get_device_name(0)}; count "
           f"{torch.cuda.device_count()}; nvidia-smi: {smi}", flush=True)
     avail = {m: importlib.util.find_spec(m) is not None
-             for m in ("yaml", "PIL", "cv2", "triton", "sklearn")}
+             for m in ("yaml", "PIL", "cv2", "scipy", "triton", "sklearn")}
     print(f"optional modules: {avail}", flush=True)
     return smi
 
@@ -444,14 +459,14 @@ def phase_slice(card: str) -> dict:
     from wseg_tpu_torch.flagship import (
         THRESHS,
         build_flagship_server,
-        load_flagship_cfg,
+        load_cfg,
         synthetic_images,
     )
     from wseg_tpu_torch.ops.crf_bilateral import bilateral_message_cm
     from wseg_tpu_torch.ops.crf_gauss import gauss_blur_cm
 
     kernels = (bilateral_message_cm, gauss_blur_cm)
-    src = load_flagship_cfg()
+    src = load_cfg("voc_resnet38.yaml")
     print(f"config: {src}; NET.DTYPE {cfg.NET.DTYPE}, scales "
           f"{cfg.TEST.SCALES}, flip {cfg.TEST.FLIP}, CRF "
           f"{cfg.TEST.CRF_MODE}/{cfg.TEST.CRF_DTYPE} full_stride "
@@ -619,7 +634,8 @@ def affinity_host_us(im) -> dict:
 
 def phase_pamr_kernels(card: str) -> list:
     """Both PAMR kernels against their plain versions at the flagship
-    shapes, and the propagation also at the lab's (8, 96, 96, 21):
+    shapes and at the ``ae`` configs' (16, 81, 81, 21), and the
+    propagation also at the lab's (8, 96, 96, 21):
     errors, call times, the profiler's kernel time, bounds, the
     propagation's host plan and ptxas lines.  Returns the flagship's
     (affinity entry, propagation entry) without launches."""
@@ -636,7 +652,8 @@ def phase_pamr_kernels(card: str) -> list:
     t = len(PAMR_DIL) * 8
     taps9 = [tap for d in PAMR_DIL for tap in pamr_taps((d,)) + [(0, 0)]]
     entries = []
-    for k, (b, h, w, c) in enumerate((PAMR_SHAPE, PAMR_LAB_SHAPE)):
+    for k, (b, h, w, c) in enumerate((PAMR_SHAPE, PAMR_LAB_SHAPE,
+                                      AE_PAMR_SHAPE)):
         shape = (b, h, w, c)
         im_cm, m_cm = pamr_inputs(b, h, w, c, seed=1 + k)
         aff = pamr_affinity_cm(im_cm, PAMR_DIL)
@@ -679,7 +696,7 @@ def phase_pamr_kernels(card: str) -> list:
                   (aff_ref.numel() + 2 * m_cm.numel()) * 4,
                   # edge replication: every tap reads a pixel
                   2 * b * c * PAMR_ITER * t * h * w)]
-        if k == 0:
+        if k != 1:
             cases.insert(0, (
                 "pamr_affinity_cm", "wseg_tpu/ops/pamr_pallas.py:215", aff,
                 aff_ref, lambda: pamr_affinity_cm_reference(im_cm, PAMR_DIL),
@@ -899,7 +916,7 @@ def phase_train(card: str) -> dict:
     )
     from wseg_tpu_torch.engine.trainer import build_train_model
     from wseg_tpu_torch.flagship import (
-        load_flagship_cfg,
+        load_cfg,
         synthetic_train_batch,
     )
     from wseg_tpu_torch.models.stage_net import _clean_only
@@ -911,7 +928,7 @@ def phase_train(card: str) -> dict:
     from wseg_tpu_torch.optim import FROZEN, make_optimizer
 
     reset_cfg()
-    src = load_flagship_cfg()
+    src = load_cfg("voc_resnet38.yaml")
     crop, bs = int(cfg.DATASET.CROP_SIZE), int(cfg.TRAIN.BATCH_SIZE)
     check(crop == 384 and bs == 8 and cfg.NET.DTYPE == "bfloat16"
           and bool(cfg.DATASET.DEVICE_JITTER),
@@ -1483,7 +1500,7 @@ def phase_exact_slice(card: str) -> dict:
     from wseg_tpu_torch.flagship import (
         THRESHS,
         build_flagship_server,
-        load_flagship_cfg,
+        load_cfg,
         synthetic_images,
     )
     from wseg_tpu_torch.ops import crf_lattice_cuda as k
@@ -1491,7 +1508,7 @@ def phase_exact_slice(card: str) -> dict:
     kernels = {f.__name__: f for f in (k.lattice_weights, k.lattice_splat,
                                        k.lattice_blur, k.lattice_slice)}
     reset_cfg()
-    load_flagship_cfg()
+    load_cfg("voc_resnet38.yaml")
     cfg.TEST.CRF_MODE = "exact"
     server = build_flagship_server("cuda", seed=0)
     pp = server.postprocess
@@ -1637,30 +1654,348 @@ def phase_entry(card: str) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+AE_CONFIGS = ("voc_resnet50.yaml", "voc_resnet101.yaml", "voc_vgg16.yaml")
+AE_WARMUP_STEPS, AE_TIMED_STEPS = 2, 4
+
+
+def live_bn_stats(model) -> dict:
+    """Copies of the running statistics of the model's live BatchNorms."""
+    from wseg_tpu_torch.models.backbones.common import BatchNorm
+
+    return {f"{n}.{k}": getattr(m, k).detach().clone()
+            for n, m in model.named_modules() if isinstance(m, BatchNorm)
+            for k in ("running_mean", "running_var")}
+
+
+def phase_ae_train(card: str) -> dict:
+    """Train steps of the three SoftMaxAE configs at full width (their
+    batch, crop 321, bfloat16 autocast, seeded weights with the
+    bottlenecks' conv3 zeroed); returns the PAMR launch counts of the
+    timed and warm-up steps."""
+    import numpy as np
+    import torch
+
+    from wseg_tpu_torch.config import cfg, reset_cfg
+    from wseg_tpu_torch.engine.train_loop import (
+        normalise_batch_image,
+        train_step,
+    )
+    from wseg_tpu_torch.engine.trainer import build_train_model
+    from wseg_tpu_torch.flagship import load_cfg, synthetic_train_batch
+    from wseg_tpu_torch.ops.pamr import pamr, pamr_reference
+    from wseg_tpu_torch.ops.pamr_cuda import (
+        pamr_affinity_cm,
+        pamr_propagate_cm,
+    )
+    from wseg_tpu_torch.optim import FROZEN, make_optimizer
+
+    launches = {"pamr_affinity_cm": 0, "pamr_propagate_cm": 0}
+    for name in AE_CONFIGS:
+        reset_cfg()
+        src = load_cfg(name)
+        crop, bs = int(cfg.DATASET.CROP_SIZE), int(cfg.TRAIN.BATCH_SIZE)
+        check(cfg.NET.MODEL == "ae" and crop == 321
+              and bs == (8 if cfg.NET.BACKBONE == "vgg16" else 16)
+              and cfg.NET.DTYPE == "bfloat16",
+              f"{name}: not the config's train settings")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        t0 = time.perf_counter()
+        model = build_train_model(torch.device("cuda"), seed=0)
+        opt, labels = make_optimizer(cfg.NET, model)
+        params = dict(model.named_parameters())
+        check(all(p.dtype == torch.float32 for p in params.values()),
+              "training parameters must be float32")
+        init = {n: p.detach().clone() for n, p in params.items()}
+        stats0 = live_bn_stats(model)
+        print(f"ae train model {cfg.NET.BACKBONE} ({src}): "
+              f"{sum(p.numel() for p in params.values())} float32 params, "
+              f"{len(stats0) // 2} live BatchNorms, autocast "
+              f"{model.amp_dtype}, crop {crop}, batch {bs}, SG_PSI "
+              f"{cfg.NET.SG_PSI}, built in {time.perf_counter() - t0:.2f} s "
+              f"({card})", flush=True)
+        rng = np.random.RandomState(0)
+        batches = [synthetic_train_batch(rng, bs, crop)
+                   for _ in range(AE_WARMUP_STEPS + AE_TIMED_STEPS)]
+        kw = dict(device_jitter=True, loss_name=str(cfg.NET.LOSS),
+                  mask_loss_bce=float(cfg.NET.MASK_LOSS_BCE))
+        walls, issues, losses = [], [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        pamr_affinity_cm.launches = 0
+        pamr_propagate_cm.launches = 0
+        for i, batch in enumerate(batches):
+            before = (pamr_affinity_cm.launches, pamr_propagate_cm.launches)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            metrics = train_step(model, opt, batch, 1.0, **kw)
+            t_issue = time.perf_counter()
+            torch.cuda.synchronize()
+            if i >= AE_WARMUP_STEPS:
+                walls.append((time.perf_counter() - t) * 1e3)
+                issues.append((t_issue - t) * 1e3)
+            delta = (pamr_affinity_cm.launches - before[0],
+                     pamr_propagate_cm.launches - before[1])
+            check(delta == (1, 1), f"{name} step {i}: PAMR launches {delta}")
+            losses.append({k: float(v) for k, v in metrics.items()})
+        launches["pamr_affinity_cm"] += pamr_affinity_cm.launches
+        launches["pamr_propagate_cm"] += pamr_propagate_cm.launches
+        check(all(np.isfinite(v) for m in losses for v in m.values()),
+              f"{name}: non-finite losses {losses}")
+        walls.sort()
+        issues.sort()
+        med = walls[len(walls) // 2]
+        print(f"ae train steps {cfg.NET.BACKBONE} (after {AE_WARMUP_STEPS} "
+              f"warm-up): median {med:.2f} ms (min {walls[0]:.2f}, max "
+              f"{walls[-1]:.2f}) over {AE_TIMED_STEPS} = "
+              f"{bs * 1e3 / med:.2f} images/s; host issue median "
+              f"{issues[len(issues) // 2]:.2f} ms; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+              f"losses first / last {losses[0]} / {losses[-1]} ({card})",
+              flush=True)
+        moved = frozen_same = n_train = n_frozen = 0
+        for n, p in params.items():
+            same = torch.equal(p.detach(), init[n])
+            if labels[n] == FROZEN:
+                n_frozen += 1
+                frozen_same += same
+            else:
+                n_train += 1
+                moved += not same
+        stats = live_bn_stats(model)
+        st_moved = sum(not torch.equal(v, stats0[k]) for k, v in stats.items())
+        check(all(v.dtype == torch.float32 and bool(torch.isfinite(v).all())
+                  for v in stats.values()),
+              f"{name}: running statistics not finite float32")
+        print(f"ae {cfg.NET.BACKBONE}: {moved} of {n_train} trained tensors "
+              f"moved, {frozen_same} of {n_frozen} frozen tensors bit-equal, "
+              f"{st_moved} of {len(stats)} running statistics moved "
+              f"(float32, finite)", flush=True)
+        check(frozen_same == n_frozen, f"{name}: a frozen parameter changed")
+        check(moved == n_train, f"{name}: a trained parameter did not move")
+        check(st_moved == len(stats), f"{name}: a running statistic stayed")
+
+        model.eval()
+        batch = batches[-1]
+        with torch.no_grad():
+            image, raw = normalise_batch_image(batch["image"],
+                                               batch["jitter"])
+            with torch.autocast("cuda", dtype=model.amp_dtype):
+                logits, _ = model._features(image)
+            masks = torch.softmax(logits.float(), dim=-1)
+            dec_k = pamr(raw, masks, model.pamr_kernel, model.pamr_iter)
+            dec_p = pamr_reference(raw, masks, model.pamr_kernel,
+                                   model.pamr_iter)
+        err = float((dec_k - dec_p).abs().max())
+        print(f"ae {cfg.NET.BACKBONE} masks_dec {tuple(dec_k.shape)} kernel "
+              f"path vs plain path on the card: max_abs_err {err:.3e} "
+              f"(tol 1e-5)", flush=True)
+        check(tuple(dec_k.shape) == (bs, 81, 81, 21),
+              f"{name}: masks_dec {tuple(dec_k.shape)}")
+        check(err <= 1e-5, f"{name} masks_dec kernel vs plain: {err}")
+        del model, opt, params, init, batches
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_ae_serve(card: str) -> dict:
+    """The ResNet-50 ``ae`` model (bfloat16, seeded weights) serves the 8
+    VOC-sized images under ``voc_resnet50.yaml``'s TEST settings with the
+    fast CRF; returns the CRF kernels' launch counts of the served run."""
+    import numpy as np
+    import torch
+
+    from wseg_tpu_torch.config import cfg, reset_cfg
+    from wseg_tpu_torch.flagship import (
+        THRESHS,
+        build_flagship_server,
+        load_cfg,
+        synthetic_images,
+    )
+    from wseg_tpu_torch.ops.crf_bilateral import bilateral_message_cm
+    from wseg_tpu_torch.ops.crf_gauss import gauss_blur_cm
+
+    kernels = (bilateral_message_cm, gauss_blur_cm)
+    reset_cfg()
+    src = load_cfg("voc_resnet50.yaml")
+    check(cfg.NET.MODEL == "ae" and list(cfg.TEST.PAD_SIZE) == [768, 768]
+          and list(cfg.TEST.SCALES) == [1, 0.75, 1.25, 1.5]
+          and cfg.TEST.CRF_MODE == "fast", "not voc_resnet50's TEST settings")
+    server = build_flagship_server("cuda", seed=0)
+    pp = server.postprocess
+    pp_calls = [0]
+    dispatch_group = pp.dispatch_group
+
+    def counted_dispatch(*args, **kw):
+        pp_calls[0] += 1
+        return dispatch_group(*args, **kw)
+
+    pp.dispatch_group = counted_dispatch
+    images = synthetic_images(VOC_SIZES)
+    sigs = {tuple(server.views.view_shapes(w, h)): (w, h)
+            for (w, h) in VOC_SIZES}
+    print(f"ae serving ({src}): {cfg.NET.BACKBONE}, "
+          f"{next(server.model.parameters()).dtype}, scales "
+          f"{list(cfg.TEST.SCALES)}, flip {cfg.TEST.FLIP}, pad "
+          f"{list(cfg.TEST.PAD_SIZE)}, BG_POW {cfg.TEST.BG_POW}, view "
+          f"shapes {sorted(sigs)[0]} ... ({card})", flush=True)
+    try:
+        t0 = time.perf_counter()
+        for size in sigs.values():
+            before = [f.launches for f in kernels]
+            server.warmup([size])
+            delta = [f.launches - n for f, n in zip(kernels, before)]
+            check(delta == [12, 12], f"ae warm-up group {size}: {delta}")
+        torch.cuda.synchronize()
+        print(f"ae serving warm-up, one group per size signature: "
+              f"{time.perf_counter() - t0:.2f} s; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
+              f"({card})", flush=True)
+        pp_calls[0] = 0
+        for f in kernels:
+            f.launches = 0
+        t0 = time.perf_counter()
+        futs = [server.submit(img, lab) for img, lab in images]
+        results = [f.result(timeout=600) for f in futs]
+        dt = time.perf_counter() - t0
+        launches = {f.__name__: f.launches for f in kernels}
+    finally:
+        server.close()
+    print(f"ae serving: {len(images)} images in {dt:.3f} s = "
+          f"{len(images) / dt:.3f} images/s, {pp_calls[0]} postprocess "
+          f"calls, launches {launches} ({card})", flush=True)
+    check(pp_calls[0] >= len(sigs) and all(
+        n == 12 * pp_calls[0] for n in launches.values()),
+        f"ae serving launches {launches} for {pp_calls[0]} calls")
+    for (img, lab), (res, got_lab) in zip(images, results):
+        check(np.array_equal(got_lab, lab), "labels changed")
+        for t in THRESHS:
+            for key in ("pred", "pred_crf"):
+                m = res[t][key]
+                check(m.dtype == np.uint8 and m.shape == img.shape[:2]
+                      and int(m.max()) <= 20,
+                      f"ae {key}@{t}: {m.dtype} {m.shape} max {m.max()}")
+    for k, (img, lab) in enumerate(images[:4]):
+        total, cls_all, _, _ = image_merged_sums(server, img)
+        check(bool(torch.isfinite(total).all()) and all(
+            bool(torch.isfinite(c).all()) for c in cls_all),
+            f"ae: non-finite scores for image {k}")
+    del server
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_ae_entry(card: str) -> None:
+    """``wseg_tpu_torch.train`` (one short epoch + validation),
+    ``infer_val`` and ``eval_seg`` on ``configs/voc_resnet50.yaml`` and a
+    synthetic VOC directory."""
+    import contextlib
+    import io
+    import math
+
+    import torch
+
+    from wseg_tpu_torch import eval_seg, infer_val, train
+    from wseg_tpu_torch.config import reset_cfg
+    from wseg_tpu_torch.flagship import REPO, write_synthetic_voc
+
+    tmp = tempfile.mkdtemp(prefix="wseg_smoke_ae_")
+    try:
+        root = write_synthetic_voc(os.path.join(tmp, "data"), n_train=16,
+                                   n_val=4)
+        common = ["--dataset", "pascal_voc",
+                  "--cfg", os.path.join(REPO, "configs", "voc_resnet50.yaml"),
+                  "--exp", "smoke_ae", "--run", "r0",
+                  "--snapshot-dir", os.path.join(tmp, "snap"),
+                  "--logdir", os.path.join(tmp, "logs"), "--workers", "2",
+                  "--device", "cuda"]
+        sets = ["--set", "DATASET.ROOT", root, "TEST.DATA_ROOT", root,
+                "TRAIN.NUM_EPOCHS", "0", "TRAIN.PRETRAIN", "0"]
+        reset_cfg()
+        t0 = time.perf_counter()
+        trainer = train.main(common + sets)
+        check(trainer.checkpoint.checkpoints, "the ae trainer saved nothing")
+        suffix = trainer.checkpoint.checkpoints[-1]
+        print(f"ae entry point: train.main, 1 epoch of 16 (batch 16) + "
+              f"validation of 4 synthetic 500x375 images in "
+              f"{time.perf_counter() - t0:.2f} s, checkpoint {suffix} "
+              f"({card})", flush=True)
+        del trainer
+        torch.cuda.empty_cache()
+
+        reset_cfg()
+        out = os.path.join(tmp, "masks")
+        t0 = time.perf_counter()
+        infer_val.main(common + ["--resume", suffix, "--infer-list",
+                                 os.path.join(root, "val_voc.txt"),
+                                 "--mask-output-dir", out] + sets)
+        n = {sub: len(os.listdir(os.path.join(out + "_0", sub)))
+             for sub in ("no_crf", "crf")}
+        check(n == {"no_crf": 4, "crf": 4}, f"ae infer_val wrote {n}")
+        print(f"ae entry point: infer_val loaded {suffix} and wrote {n} "
+              f"PNGs at threshold 0.0 in {time.perf_counter() - t0:.2f} s "
+              f"({card})", flush=True)
+
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            stats = eval_seg.main([
+                "--data", root, "--filelist",
+                os.path.join(root, "val_voc.txt"),
+                "--masks", os.path.join(out + "_0", "crf"),
+                "--log-scores", os.path.join(tmp, "scores.log")])
+        lines = [ln for ln in text.getvalue().splitlines()
+                 if ln.startswith(("# of images", "mIoU"))]
+        print(f"ae entry point: eval_seg: {' | '.join(lines)}", flush=True)
+        check(len(lines) == 3 and "# of images: 4" in lines[0]
+              and math.isfinite(stats["miou"]),
+              f"eval_seg printed {lines}, mIoU {stats['miou']}")
+    finally:
+        reset_cfg()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def timed(phase, card: str):
+    """Run ``phase(card)`` and print its wall seconds."""
+    t0 = time.perf_counter()
+    out = phase(card)
+    print(f"phase {phase.__name__}: {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    return out
+
+
 def main() -> int:
     card = phase_env()
-    phase_build(card)
-    kern = phase_kernel(card)
-    gauss = phase_gauss(card)
-    slice_launches = phase_slice(card)
+    timed(phase_build, card)
+    kern = timed(phase_kernel, card)
+    gauss = timed(phase_gauss, card)
+    slice_launches = timed(phase_slice, card)
+    ae_serve_launches = timed(phase_ae_serve, card)
     for entry in (kern, gauss):
-        entry["launches"] = slice_launches[entry["name"]]
-        check(entry["launches"] > 0, f"the slice never launched "
-              f"{entry['name']}")
-    lattice_kernels = phase_lattice_kernels(card)
-    exact_launches = phase_exact_slice(card)
+        name = entry["name"]
+        check(slice_launches[name] > 0 and ae_serve_launches[name] > 0,
+              f"a serving slice never launched {name}")
+        entry["launches"] = slice_launches[name] + ae_serve_launches[name]
+    lattice_kernels = timed(phase_lattice_kernels, card)
+    exact_launches = timed(phase_exact_slice, card)
     for entry in lattice_kernels:
         entry["launches"] = exact_launches[entry["name"]]
         check(entry["launches"] > 0, f"the exact slice never launched "
               f"{entry['name']}")
-    pamr_kernels = phase_pamr_kernels(card)
-    lab_kernels = phase_pamr_variants(card)
-    launches = phase_train(card)
+    pamr_kernels = timed(phase_pamr_kernels, card)
+    lab_kernels = timed(phase_pamr_variants, card)
+    launches = timed(phase_train, card)
+    ae_launches = timed(phase_ae_train, card)
     for entry in pamr_kernels:
-        entry["launches"] = launches[entry["name"]]
-        check(entry["launches"] > 0, f"the train slice never launched "
-              f"{entry['name']}")
-    phase_entry(card)
+        name = entry["name"]
+        check(launches[name] > 0 and ae_launches[name] > 0,
+              f"a train slice never launched {name}")
+        entry["launches"] = launches[name] + ae_launches[name]
+    print(f"main-path launches: fast CRF kernels {slice_launches} (flagship "
+          f"slice) + {ae_serve_launches} (ae serving); PAMR kernels "
+          f"{launches} (flagship steps) + {ae_launches} (ae steps)",
+          flush=True)
+    timed(phase_entry, card)
+    timed(phase_ae_entry, card)
     import torch
 
     print(card, flush=True)

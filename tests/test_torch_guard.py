@@ -1,5 +1,7 @@
 """The port stands alone: importing ``wseg_tpu_torch`` and every one of
-its submodules (51 with the Gaussian blur and the PAMR lab), and the root
+its submodules (57 with the SoftMaxAE modules -- ``models/backbones/
+{resnet,vgg16}``, ``models/heads/softmax_ae``, ``ops/sg`` -- and the
+host tools ``eval_seg`` and ``convert_sbd``), and the root
 ``chip_smoke.py``, pulls in neither jax, flax nor the JAX package."""
 
 import os
@@ -19,7 +21,11 @@ import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "wseg_tpu"))
 print(len(names), bad)
-sys.exit(1 if bad or len(names) < 51 else 0)
+new = {"wseg_tpu_torch.models.backbones.resnet",
+       "wseg_tpu_torch.models.backbones.vgg16",
+       "wseg_tpu_torch.models.heads.softmax_ae", "wseg_tpu_torch.ops.sg",
+       "wseg_tpu_torch.eval_seg", "wseg_tpu_torch.convert_sbd"}
+sys.exit(1 if bad or len(names) < 57 or not new <= set(names) else 0)
 """
 
 

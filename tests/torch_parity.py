@@ -70,3 +70,83 @@ def port_model_from_jax(variables, dtype: str = "float32"):
     model = get_model(net, num_classes=21)
     model.load_state_dict(state_dict_from_jax(variables), strict=True)
     return model
+
+
+def _random_leaf(rng, path, shape, flat, last_conv):
+    """One numpy-seeded leaf: He-normal kernels (the residual branches'
+    last convs scaled by 0.1), BN affine near 1 and statistics with
+    var > 0, small biases."""
+    leaf = path[-1]
+    if leaf == "kernel":
+        a = rng.randn(*shape) * np.sqrt(2.0 / np.prod(shape[:-1]))
+        if path[-2] == last_conv:
+            a = a * 0.1
+    elif leaf == "scale":
+        a = 1.0 + 0.1 * rng.randn(*shape)
+    elif leaf == "mean":
+        a = 0.1 * rng.randn(*shape)
+    elif leaf == "var":
+        a = np.maximum(np.abs(1.0 + 0.1 * rng.randn(*shape)), 0.5)
+    else:  # biases
+        a = 0.05 * rng.randn(*shape)
+    return a.astype(np.float32)
+
+
+def random_variables(shapes, seed: int = 0, last_conv: str = "conv3"):
+    """``params`` and ``batch_stats`` of a JAX variables shape tree (as
+    ``jax.eval_shape`` of ``init`` returns it), every leaf drawn from
+    ``seed`` by ``_random_leaf``."""
+    import flax.traverse_util as trav
+
+    rng = np.random.RandomState(seed)
+    out = {}
+    for col in ("params", "batch_stats"):
+        if col not in shapes:
+            continue
+        flat = trav.flatten_dict(shapes[col])
+        out[col] = trav.unflatten_dict({
+            path: _random_leaf(rng, path, v.shape, flat, last_conv)
+            for path, v in sorted(flat.items())})
+    return out
+
+
+def jax_ae_model_and_random_variables(backbone: str, seed: int = 0,
+                                      size: int = 65, sg_psi: float = 0.3):
+    """The JAX SoftMaxAE model (``NET.MODEL ae``, float32) on
+    ``backbone`` with every parameter and batch statistic drawn from
+    ``seed`` (bottlenecks' conv3 scaled by 0.1)."""
+    import jax
+    import jax.numpy as jnp
+
+    from wseg_tpu.config import cfg
+    from wseg_tpu.models import get_model
+
+    cfg.NET.MODEL = "ae"
+    cfg.NET.BACKBONE = backbone
+    cfg.NET.DTYPE = "float32"
+    cfg.NET.SG_PSI = sg_psi
+    model = get_model(cfg.NET, num_classes=21)
+    key = jax.random.PRNGKey(0)
+    shapes = jax.eval_shape(lambda: model.init(
+        {"params": key, "dropout": key, "sg": key},
+        jnp.zeros((1, size, size, 3), jnp.float32), train=False))
+    return model, random_variables(shapes, seed)
+
+
+def port_ae_model_from_jax(variables, backbone: str, train: bool = False,
+                           sg_psi: float = 0.3):
+    """The port's ``ae`` model on ``backbone`` carrying ``variables``'
+    weights and batch statistics (float32; ``train`` builds the trainer's
+    model, in ``.train()``)."""
+    from wseg_tpu_torch.config import _default_cfg
+    from wseg_tpu_torch.models import get_model
+    from wseg_tpu_torch.utils.convert import state_dict_from_jax
+
+    net = _default_cfg().NET
+    net.MODEL = "ae"
+    net.BACKBONE = backbone
+    net.DTYPE = "float32"
+    net.SG_PSI = sg_psi
+    model = get_model(net, num_classes=21, train=train)
+    model.load_state_dict(state_dict_from_jax(variables), strict=True)
+    return model

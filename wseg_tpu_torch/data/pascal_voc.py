@@ -13,6 +13,14 @@ from typing import List, Tuple
 
 import numpy as np
 
+CLASSES = [
+    "background", "aeroplane", "bicycle", "bird", "boat", "bottle",
+    "bus", "car", "cat", "chair", "cow", "diningtable", "dog", "horse",
+    "motorbike", "person", "potted-plant", "sheep", "sofa", "train",
+    "tv/monitor", "ambiguous",
+]
+CLASS_IDX = {name: (255 if name == "ambiguous" else i)
+             for i, name in enumerate(CLASSES)}
 NUM_CLASS = 21
 AMBIGUOUS = 255
 

@@ -6,7 +6,11 @@ compute under autocast), the 4-group SGD and the checkpoint ring; runs
 the train-epoch / validation-mAP / checkpoint-best cycle with a loss
 line every 10 steps.  Left out (absent or raising, see ROADMAP.md queue
 A): the device mesh (one device per process), the fixed-batch
-TensorBoard panels and scalars, and ``--profile-dir``.
+TensorBoard panels and scalars, and ``--profile-dir``.  The ``ae``
+decoder's live BatchNorms update their running statistics in the train
+epoch and normalise with them in validation (``.eval()``); they are
+buffers of the model's state_dict, so checkpoints and ``--resume``
+carry them.
 """
 
 from __future__ import annotations
@@ -25,8 +29,8 @@ from wseg_tpu_torch.engine.train_loop import (
 )
 from wseg_tpu_torch.models import get_model
 from wseg_tpu_torch.models.backbones.common import (
-    Dropout2d,
     seeded_init_,
+    set_generator,
     stabilize_scratch_init,
 )
 from wseg_tpu_torch.optim import make_optimizer
@@ -46,8 +50,9 @@ def build_train_model(device, seed: int = 64):
     """The trainer's model on ``device``: pretrained backbone from
     ``NET.PRE_WEIGHTS_PATH`` when that file exists, else seeded weights
     with the residual branches' last convs zeroed (SkipInit, as the JAX
-    trainer's ``stabilize_scratch_init``); dropout draws from a
-    generator on ``device`` seeded with ``seed``."""
+    trainer's ``stabilize_scratch_init``); dropout, channel dropout and
+    the stochastic gate draw from one generator on ``device`` seeded
+    with ``seed``."""
     model = get_model(cfg.NET, num_classes=21, train=True)
     seeded_init_(model, torch.Generator().manual_seed(seed))
     pre = str(cfg.NET.PRE_WEIGHTS_PATH)
@@ -58,10 +63,7 @@ def build_train_model(device, seed: int = 64):
               "stabilisation (zero residual-branch output convs)" % pre)
         stabilize_scratch_init(model, 0.0)
     model = model.to(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
-    for m in model.modules():
-        if isinstance(m, Dropout2d):
-            m.generator = gen
+    set_generator(model, torch.Generator(device=device).manual_seed(seed))
     return model
 
 

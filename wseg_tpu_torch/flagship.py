@@ -1,5 +1,8 @@
 """The flagship setup shared by ``chip_smoke.py``, ``profile_slice`` and
-``profile_train``: the configuration (``configs/voc_resnet38.yaml``),
+``profile_train``: the configuration (``configs/voc_resnet38.yaml``;
+and the ``ae`` configurations ``configs/voc_{resnet50,resnet101,
+vgg16}.yaml``, each with ``--set`` overrides for machines without
+pyyaml),
 a seeded random-weight WRN38 + CAM_CASA_WGAP_tf on the card behind a
 ``MultiScaleServer`` with the device postprocess, synthetic VOC-sized
 images, seeded synthetic training batches, a synthetic VOC directory
@@ -41,6 +44,53 @@ FLAGSHIP_SET = [
 ]
 
 
+
+def _ae_set(backbone: str, batch: int, epochs: int, weights: str, lr: str,
+            extra_test=()):
+    """``--set`` overrides equal to one of the SoftMaxAE configs."""
+    return [
+        "NUM_GPUS", "1",
+        "DATASET.CROP_SIZE", "321", "DATASET.SCALE_FROM", "0.9",
+        "DATASET.SCALE_TO", "1.0", "DATASET.ROOT", "./data",
+        "DATASET.NAME", "sbd", "DATASET.FILENAME", "train_augvoc",
+        "TRAIN.BATCH_SIZE", str(batch), "TRAIN.NUM_EPOCHS", str(epochs),
+        "TRAIN.NUM_WORKERS", "8", "TRAIN.PRETRAIN", "5",
+        "NET.BACKBONE", backbone, "NET.MODEL", "ae",
+        "NET.PRE_WEIGHTS_PATH", weights, "NET.LR", lr, "NET.OPT", "SGD",
+        "NET.LOSS", "SoftMargin", "NET.WEIGHT_DECAY", "0.0005",
+        "TEST.METHOD", "multiscale", "TEST.DATA_ROOT", "./data",
+        "TEST.FLIP", "True", "TEST.BATCH_SIZE", "8",
+        "TEST.PAD_SIZE", "[768, 768]", "TEST.SCALES", "[1, 0.75, 1.25, 1.5]",
+        "TEST.FP_CUT_SCORE", "0.3", *extra_test,
+        "TEST.USE_GT_LABELS", "True",
+    ]
+
+
+# configs/<name> -> its ``--set`` overrides (tests/test_torch_serving.py
+# and tests/test_torch_ae.py check each against its YAML)
+CONFIG_SETS = {
+    "voc_resnet38.yaml": FLAGSHIP_SET,
+    "voc_resnet50.yaml": _ae_set(
+        "resnet50", 16, 20, "./weights/resnet50-19c8e357.pth", "0.0005"),
+    "voc_resnet101.yaml": _ae_set(
+        "resnet101", 16, 20, "./weights/resnet101-5d3b4d8f.pth", "0.0005"),
+    "voc_vgg16.yaml": _ae_set("vgg16", 8, 32, "./weights/vgg16_20M.pth",
+                              "0.001", ("TEST.BG_POW", "1")),
+}
+
+
+def load_cfg(name: str) -> str:
+    """Merge ``configs/<name>`` into the port's cfg (or, without pyyaml,
+    its ``CONFIG_SETS`` list); returns where the settings came from."""
+    from wseg_tpu_torch.config import cfg_from_file, cfg_from_list
+
+    if importlib.util.find_spec("yaml") is not None:
+        cfg_from_file(os.path.join(REPO, "configs", name))
+        return f"configs/{name}"
+    cfg_from_list(CONFIG_SETS[name])
+    return f"--set overrides equal to configs/{name} (no pyyaml)"
+
+
 def card_line() -> str:
     """``name, power.limit`` as nvidia-smi reports them."""
     return subprocess.run(
@@ -49,23 +99,11 @@ def card_line() -> str:
         timeout=60, check=True).stdout.strip().splitlines()[0]
 
 
-def load_flagship_cfg() -> str:
-    """Merge the flagship YAML into the port's cfg (or, without pyyaml,
-    the equivalent ``--set`` list)."""
-    from wseg_tpu_torch.config import cfg_from_file, cfg_from_list
-
-    if importlib.util.find_spec("yaml") is not None:
-        cfg_from_file(FLAGSHIP_CFG)
-        return "configs/voc_resnet38.yaml"
-    cfg_from_list(FLAGSHIP_SET)
-    return "--set overrides equal to configs/voc_resnet38.yaml (no pyyaml)"
-
-
 def build_flagship_server(device="cuda", seed: int = 0):
-    """Seeded random-weight flagship model on ``device``, wrapped in a
-    ``MultiScaleServer`` with the device postprocess of
-    ``TEST.CRF_MODE`` (as ``infer_val`` builds it).  Reads the port's
-    global cfg."""
+    """Seeded random-weight model of the loaded config (the flagship's,
+    or an ``ae`` one's) on ``device``, wrapped in a ``MultiScaleServer``
+    with the device postprocess of ``TEST.CRF_MODE`` (as ``infer_val``
+    builds it).  Reads the port's global cfg."""
     from wseg_tpu_torch.config import cfg
     from wseg_tpu_torch.engine.infer import make_device_postprocess
     from wseg_tpu_torch.engine.serving import MultiScaleServer

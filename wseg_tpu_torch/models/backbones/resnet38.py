@@ -28,6 +28,8 @@ from wseg_tpu_torch.models.backbones.common import (
 class ResBlock(nn.Module):
     """Pre-activation 3x3/3x3 residual block."""
 
+    LAST_CONV = "conv_branch2b1"
+
     def __init__(self, in_ch: int, mid: int, out: int, stride: int = 1,
                  first_dilation: int | None = None, dilation: int = 1):
         super().__init__()
@@ -52,6 +54,8 @@ class ResBlock(nn.Module):
 
 class ResBlockBot(nn.Module):
     """Pre-activation 1x1/3x3/1x1 bottleneck with channel dropout."""
+
+    LAST_CONV = "conv_branch2b2"
 
     def __init__(self, in_ch: int, out: int, stride: int = 1,
                  dilation: int = 1, dropout: float = 0.0):

@@ -1,22 +1,29 @@
-"""StageNet: backbone + spec-driven CAM head.
+"""StageNet: backbone + spec-driven head.
 
-Mirror of ``wseg_tpu/models/stage_net.py`` for the flagship spec
-``CAM_CASA_WGAP_tf``: fc7 1x1 -> window self-attention -> channel and
-spatial attention -> fc8 + relu -> softmax with a learned background ->
-nGWP + focal scores.
+Mirror of ``wseg_tpu/models/stage_net.py`` for two specs:
+
+* the flagship ``CAM_CASA_WGAP_tf`` (on WRN38): fc7 1x1 -> window
+  self-attention -> channel and spatial attention -> fc8 + relu ->
+  softmax with a learned background -> nGWP + focal scores;
+* the paper's SoftMaxAE ``ae`` (on ResNet-50/101 and VGG16): the
+  ``SoftMaxAEDecoder`` at the backbone's conv3 resolution, a constant-one
+  background logit prepended, softmax -> nGWP + focal scores.
 
 Public layout is NHWC.  ``forward(image (B, H, W, 3))`` (test mode)
 returns a ``ModelOutput`` with ``cls`` (B, C-1) and ``masks``
 (B, H, W, C).  With ``labels`` (B, C-1) and the [0, 1] ``image_raw``
-(train path, ``_score_softmax`` of the JAX model) it also returns
-``cls_fg``, the cleaned masks at image size, ``masks_dec`` (PAMR of the
-detached, cleaned masks, then rescaled and cleaned) and ``mask_logits``
-(feature resolution, float32).  Dropout follows ``.train()``/``.eval()``.
+(train path) it also returns ``cls_fg``, the cleaned masks at image
+size, ``masks_dec`` (PAMR of the detached masks -- cleaned first for the
+flagship -- then rescaled and cleaned) and ``mask_logits`` (feature
+resolution, float32).  Dropout, the stochastic gate and the decoder's
+live BatchNorms follow ``.train()``/``.eval()``.
 
-The backbone's layers are registered on the model itself, as in the
-reference (whose model classes subclass the backbone), so state_dict
-keys read ``conv1a.weight``, ``b2.bn_branch2a.running_mean``, ...,
-``fc7.weight``, ``selfattn.qkv.weight``, ``caatention.fc1.weight``.
+The backbone's and the decoder's layers are registered on the model
+itself, as in the reference (whose model classes subclass the
+backbone), so state_dict keys read ``conv1a.weight``,
+``b2.bn_branch2a.running_mean``, ..., ``fc7.weight``,
+``selfattn.qkv.weight`` (flagship) or ``layer1.0.conv1.weight``,
+``aspp.aspp1.atrous_conv.weight``, ``last_conv.8.bias`` (ae).
 """
 
 from __future__ import annotations
@@ -35,18 +42,21 @@ from wseg_tpu_torch.models.heads.attention import (
     WindowAttention,
     pad_to_multiple,
 )
+from wseg_tpu_torch.models.heads.softmax_ae import SoftMaxAEDecoder
 from wseg_tpu_torch.ops.pamr import pamr
 from wseg_tpu_torch.ops.pooling import ngwp_focal_scores
 from wseg_tpu_torch.ops.resize import rescale_as, resize_bilinear
 
-_NOT_PORTED = ("not ported yet (ROADMAP.md queue A, 'Rest of the model "
-               "zoo')")
+_NOT_PORTED = ("not ported yet (ROADMAP.md queue A, A5(b)/(c), 'Rest of "
+               "the model zoo')")
+# the backbones each head kind is ported and tested on
+_BACKBONES = {"cam": ("resnet38",), "ae": ("resnet50", "resnet101", "vgg16")}
 
 
 @dataclasses.dataclass(frozen=True)
 class HeadSpec:
-    """Static architecture switches (the subset the flagship uses; field
-    names and defaults as ``wseg_tpu``'s HeadSpec)."""
+    """Static architecture switches (the subset the ported specs use;
+    field names and defaults as ``wseg_tpu``'s HeadSpec)."""
     name: str = ""
     kind: str = "cam"
     channel_attn: bool = False
@@ -86,6 +96,9 @@ def _rescale_and_clean(masks, size_hw, labels_fg):
 
 
 MODEL_SPECS = {
+    # the CVPR-2020 paper model (reference models/SoftMaxAE.py)
+    "ae": HeadSpec(name="ae", kind="ae", scoring="softmax", bg="const_one",
+                   refine="pamr"),
     "CAM_CASA_WGAP_tf": HeadSpec(
         name="CAM_CASA_WGAP_tf", fc7=True, self_attn="window",
         self_attn_ws=2, channel_attn=True, spatial_attn=True,
@@ -95,28 +108,34 @@ MODEL_SPECS = {
 
 
 class StageNet(nn.Module):
-    """Backbone + flagship head.  ``dtype`` is the dtype of the input
-    cast; for serving call ``.to(dtype)`` (``get_model`` does) so the
-    weights match it.  ``amp_dtype`` (training) keeps the parameters
-    float32 and runs backbone and head under ``torch.autocast`` in that
-    dtype, as Flax's ``dtype`` sets the compute type only."""
+    """Backbone + the flagship or the ``ae`` head.  ``dtype`` is the
+    dtype of the input cast; for serving call ``.to(dtype)``
+    (``get_model`` does) so the weights match it.  ``amp_dtype``
+    (training) keeps the parameters float32 and runs backbone and head
+    under ``torch.autocast`` in that dtype, as Flax's ``dtype`` sets the
+    compute type only."""
 
     def __init__(self, spec: HeadSpec, backbone: str = "resnet38",
                  num_classes: int = 21, focal_p: float = 3.0,
                  focal_lambda: float = 0.01, sa_dim: int = 1024,
+                 sg_psi: float = 0.3,
                  dtype: torch.dtype = torch.float32,
                  amp_dtype: Optional[torch.dtype] = None,
                  pamr_iter: int = 10,
                  pamr_kernel: Sequence[int] = (1, 2, 4, 8, 12, 24),
                  pamr_impl: str = "auto"):
         super().__init__()
-        supported = (spec.kind == "cam" and spec.scoring == "softmax"
-                     and spec.bg == "learned" and spec.mask_branch_relu
-                     and spec.fc7 and spec.self_attn == "window"
-                     and spec.channel_attn and spec.spatial_attn)
-        if not supported:
+        flagship = (spec.kind == "cam" and spec.scoring == "softmax"
+                    and spec.bg == "learned" and spec.mask_branch_relu
+                    and spec.fc7 and spec.self_attn == "window"
+                    and spec.channel_attn and spec.spatial_attn)
+        if not (flagship or spec.kind == "ae"):
             raise NotImplementedError(f"Head spec '{spec.name}' is "
                                       + _NOT_PORTED)
+        if backbone not in _BACKBONES[spec.kind]:
+            raise NotImplementedError(
+                f"Head spec '{spec.name}' on backbone '{backbone}' is "
+                + _NOT_PORTED)
         self.spec = spec
         self.focal_p = focal_p
         self.focal_lambda = focal_lambda
@@ -130,6 +149,12 @@ class StageNet(nn.Module):
             self.add_module(name, child)
         # not registered as a submodule: its layers are ours already
         self.__dict__["_backbone"] = bb
+        if spec.kind == "ae":
+            dec = SoftMaxAEDecoder(num_classes, bb.fan_out(), sg_psi=sg_psi)
+            for name, child in dec.named_children():
+                self.add_module(name, child)
+            self.__dict__["_decoder"] = dec
+            return
         dim = spec.sa_dim or sa_dim
         self.fc7 = nn.Conv2d(bb.fan_out(), dim, 1, bias=False)
         self.selfattn = WindowAttention(dim, 8, int(spec.self_attn_ws))
@@ -138,10 +163,15 @@ class StageNet(nn.Module):
         self.fc8 = nn.Conv2d(dim, num_classes, 1, bias=False)
 
     def _features(self, image: torch.Tensor):
-        """Backbone + head up to the fc8 logits (B, h, w, C) float32 and
-        the spatial-attention map (B, h * w)."""
+        """Backbone + head up to the logits (B, h, w, C) float32 (fc8's,
+        or the decoder's with the constant background) and the
+        spatial-attention map (B, h * w; None for ``ae``)."""
         x = image.to(self.dtype).permute(0, 3, 1, 2)
         d = self._backbone(x.contiguous(memory_format=torch.channels_last))
+        if self.spec.kind == "ae":
+            fg = self._decoder(d["conv3"], d["conv6"]).permute(0, 2, 3, 1)
+            fg = fg.float()
+            return torch.cat([torch.ones_like(fg[..., :1]), fg], dim=-1), None
         x = self.fc7(d["conv6"]).permute(0, 2, 3, 1)          # NHWC
 
         ws = int(self.spec.self_attn_ws)
@@ -212,6 +242,7 @@ def get_model(net_cfg, num_classes: int = 21,
                      num_classes=num_classes,
                      focal_p=float(net_cfg.FOCAL_P),
                      focal_lambda=float(net_cfg.FOCAL_LAMBDA),
+                     sg_psi=float(net_cfg.SG_PSI),
                      dtype=torch.float32 if train else dtype,
                      amp_dtype=dtype if train and dtype != torch.float32
                      else None,

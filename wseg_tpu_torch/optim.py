@@ -2,17 +2,21 @@
 
 Mirror of ``wseg_tpu/parallel/optim.py``: parameters split into
 {pretrained weight, pretrained bias, head weight, head bias} groups at
-LR multipliers (1, 2, 10, 20), weight decay on the weight groups only,
+LR multipliers (1, 2, 10, 20) -- (1, 1, 10, 10) for ResNet-50/101 --
+weight decay on the weight groups only,
 momentum 0.9 without Nesterov or dampening.  optax's
 ``add_decayed_weights -> trace -> scale(-lr)`` is exactly
 ``torch.optim.SGD``'s update (decay added to the gradient, buffer
 m <- mu * m + g starting at g, p <- p - lr * m).
 
-Frozen parameters (every ``FrozenBatchNorm`` and the stem ``conv1a``,
-``b2``, ``b2_1``, ``b2_2``) get ``requires_grad=False`` and stay out of
-the optimizer.  Backbone and head are told apart by the ``_backbone``
-module's parameters (``StageNet`` registers the backbone's children on
-itself).
+Frozen parameters (every ``FrozenBatchNorm`` and the backbone's stem:
+``conv1a``, ``b2``, ``b2_1``, ``b2_2`` for WRN38, ``conv1``/``bn1`` for
+ResNet, ``conv1_1``/``conv1_2`` for VGG16) get ``requires_grad=False``
+and stay out of the optimizer.  Backbone and head are told apart by the
+``_backbone`` module's parameters (``StageNet`` registers the
+backbone's children on itself); the ``ae`` decoder's ``AffineNorm`` and
+live ``BatchNorm`` weights and biases are head parameters, as
+``label_params`` labels them in JAX.
 """
 
 from __future__ import annotations
@@ -32,11 +36,19 @@ NEW_W = "new_w"
 NEW_B = "new_b"
 GROUPS = (PRE_W, PRE_B, NEW_W, NEW_B)
 
-_STEM_PREFIXES = {"resnet38": ("conv1a", "b2", "b2_1", "b2_2")}
+_STEM_PREFIXES = {
+    "resnet38": ("conv1a", "b2", "b2_1", "b2_2"),
+    "resnet50": ("conv1", "bn1"),
+    "resnet101": ("conv1", "bn1"),
+    "vgg16": ("conv1_1", "conv1_2"),
+}
 
 
-# LR multipliers of GROUPS for WRN38, the one backbone ported
-LR_MULTIPLIERS = (1.0, 2.0, 10.0, 20.0)
+def lr_multipliers(backbone: str):
+    """LR multipliers of GROUPS for ``backbone``."""
+    if backbone in ("resnet50", "resnet101"):
+        return (1.0, 1.0, 10.0, 10.0)
+    return (1.0, 2.0, 10.0, 20.0)
 
 
 def label_params(model: nn.Module, backbone: str) -> Dict[str, str]:
@@ -71,7 +83,7 @@ def make_optimizer(net_cfg, model: nn.Module):
     labels = label_params(model, backbone)
     base_lr = float(net_cfg.LR)
     wd = float(net_cfg.WEIGHT_DECAY)
-    mults = dict(zip(GROUPS, LR_MULTIPLIERS))
+    mults = dict(zip(GROUPS, lr_multipliers(backbone)))
     params = dict(model.named_parameters())
     groups = []
     for name, label in labels.items():

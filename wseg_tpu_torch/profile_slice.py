@@ -35,7 +35,7 @@ import torch
 from wseg_tpu_torch.flagship import (
     build_flagship_server,
     card_line,
-    load_flagship_cfg,
+    load_cfg,
     synthetic_images,
 )
 
@@ -158,7 +158,7 @@ def main(argv=None):
         os.makedirs(args.out, exist_ok=True)
     from wseg_tpu_torch.config import cfg
 
-    src = load_flagship_cfg()
+    src = load_cfg("voc_resnet38.yaml")
     cfg.TEST.CRF_MODE = args.crf_mode
     server = build_flagship_server("cuda")
     bs = int(cfg.TEST.BATCH_SIZE)

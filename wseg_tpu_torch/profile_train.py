@@ -39,7 +39,7 @@ import torch
 
 from wseg_tpu_torch.flagship import (
     card_line,
-    load_flagship_cfg,
+    load_cfg,
     synthetic_train_batch,
 )
 
@@ -147,7 +147,7 @@ def main(argv=None):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    src = load_flagship_cfg()
+    src = load_cfg("voc_resnet38.yaml")
     crop, bs = int(cfg.DATASET.CROP_SIZE), int(cfg.TRAIN.BATCH_SIZE)
     model = build_train_model(torch.device("cuda"), seed=0)
     opt, _ = make_optimizer(cfg.NET, model)

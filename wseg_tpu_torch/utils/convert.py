@@ -3,7 +3,8 @@
 The port's module names are the reference torch state_dict's, so
 
 * ``state_dict_from_jax`` turns ``wseg_tpu`` variables (a nested dict
-  of numpy arrays) into a port state_dict;
+  of numpy arrays: ``params`` and, for the ``ae`` decoder's live
+  BatchNorms, ``batch_stats``) into a port state_dict;
 * ``port_name`` maps one parameter path of the JAX tree to its port
   name (``labels_from_jax`` uses it to carry the JAX optimizer's
   ``label_params`` groups over);
@@ -11,23 +12,61 @@ The port's module names are the reference torch state_dict's, so
   ``.pth``: ``wseg_tpu.utils.torch_convert.load_reference_checkpoint``
   reads it unchanged, and ``load_checkpoint`` reads either kind here;
   ``load_pretrained_backbone`` copies the backbone tensors of a
-  reference ``.pth`` (an ImageNet WRN38) by name.
+  reference ``.pth`` (an ImageNet WRN38, torchvision's ResNet-50/101,
+  the flat-named VGG16) by name.
 
-Layouts: conv kernels HWIO -> OIHW; Dense (in, out) -> (out, in); the
+Names: the JAX backbone's ``layer{i}_{j}`` / ``downsample_conv`` /
+``downsample_bn`` are torchvision's ``layer{i}.{j}`` /
+``downsample.0`` / ``downsample.1``; the ``ae`` decoder's modules map
+as ``wseg_tpu/utils/torch_convert.py``'s ``_AE_HEAD_MAP``.  Layouts:
+conv kernels HWIO -> OIHW; Dense (in, out) -> (out, in); the
 channel-attention fc1/fc2 Dense -> (out, in, 1, 1) 1x1 conv weights;
-FrozenBatchNorm scale/bias/mean/var -> weight/bias/running_mean/
-running_var.
+BatchNorm scale/bias/mean/var -> weight/bias/running_mean/running_var.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Mapping
 
+import re
+
 import numpy as np
 import torch
 
-_BN_LEAF = {"scale": "weight", "bias": "bias", "mean": "running_mean",
-            "var": "running_var"}
+_LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias",
+         "mean": "running_mean", "var": "running_var"}
+_DOWNSAMPLE = {"downsample_conv": "downsample.0",
+               "downsample_bn": "downsample.1"}
+# JAX module path of the ae decoder -> reference state_dict prefix
+_AE_HEAD = {
+    ("decoder", "aspp", "aspp1_conv"): "aspp.aspp1.atrous_conv",
+    ("decoder", "aspp", "aspp2_conv"): "aspp.aspp2.atrous_conv",
+    ("decoder", "aspp", "aspp3_conv"): "aspp.aspp3.atrous_conv",
+    ("decoder", "aspp", "aspp4_conv"): "aspp.aspp4.atrous_conv",
+    ("decoder", "aspp", "aspp1_bn"): "aspp.aspp1.bn",
+    ("decoder", "aspp", "aspp2_bn"): "aspp.aspp2.bn",
+    ("decoder", "aspp", "aspp3_bn"): "aspp.aspp3.bn",
+    ("decoder", "aspp", "aspp4_bn"): "aspp.aspp4.bn",
+    ("decoder", "aspp", "gap_conv"): "aspp.global_avg_pool.1",
+    ("decoder", "aspp", "gap_bn"): "aspp.global_avg_pool.2",
+    ("decoder", "aspp", "conv1"): "aspp.conv1",
+    ("decoder", "aspp", "bn1"): "aspp.bn1",
+    ("decoder", "fc8_skip_conv"): "fc8_skip.0",
+    ("decoder", "fc8_skip_bn"): "fc8_skip.1",
+    ("decoder", "fc8_x_conv"): "fc8_x.0",
+    ("decoder", "fc8_x_bn"): "fc8_x.1",
+    ("decoder", "shallow_mask", "fc_deep_conv"): "shallow_mask.fc_deep.0",
+    ("decoder", "shallow_mask", "fc_deep_bn"): "shallow_mask.fc_deep.1",
+    ("decoder", "shallow_mask", "fc_skip_conv"): "shallow_mask.fc_skip.0",
+    ("decoder", "shallow_mask", "fc_skip_bn"): "shallow_mask.fc_skip.1",
+    ("decoder", "shallow_mask", "fc_cls_conv"): "shallow_mask.fc_cls.0",
+    ("decoder", "shallow_mask", "fc_cls_bn"): "shallow_mask.fc_cls.1",
+    ("decoder", "last_conv1"): "last_conv.0",
+    ("decoder", "last_bn1"): "last_conv.1",
+    ("decoder", "last_conv2"): "last_conv.4",
+    ("decoder", "last_bn2"): "last_conv.5",
+    ("decoder", "last_conv3"): "last_conv.8",
+}
 # Dense layers that the reference implements as 1x1 convs
 _DENSE_AS_CONV1X1 = ("caatention",)
 
@@ -43,31 +82,36 @@ def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, np.ndarray]:
 
 
 def port_name(path) -> str:
-    """Port state_dict name of one JAX parameter path, e.g.
-    ("backbone", "b3", "bn_branch2a", "mean") ->
-    b3.bn_branch2a.running_mean."""
-    mods, leaf = list(path[:-1]), path[-1]
-    if mods and mods[0] == "backbone":
-        mods = mods[1:]
-    is_bn = bool(mods) and (mods[-1].startswith("bn")
-                            or leaf in ("mean", "var"))
-    if leaf == "kernel":
-        name = "weight"
-    elif is_bn:
-        name = _BN_LEAF[leaf]
-    elif leaf == "bias":
-        name = "bias"
-    else:
+    """Port state_dict name of one JAX parameter or batch-statistics
+    path, e.g. ("backbone", "b3", "bn_branch2a", "mean") ->
+    b3.bn_branch2a.running_mean, ("backbone", "layer2_0",
+    "downsample_bn", "scale") -> layer2.0.downsample.1.weight,
+    ("decoder", "last_bn1", "var") -> last_conv.1.running_var."""
+    mods, leaf = tuple(path[:-1]), path[-1]
+    if leaf not in _LEAF:
         raise ValueError(f"no port slot for parameter {'/'.join(path)}")
-    return ".".join(mods + [name])
+    if mods[:1] == ("backbone",):
+        mods = mods[1:]
+    if mods in _AE_HEAD:
+        prefix = _AE_HEAD[mods]
+    else:
+        prefix = ".".join(
+            _DOWNSAMPLE.get(m, re.sub(r"^(layer\d+)_(\d+)$", r"\1.\2", m))
+            for m in mods)
+    return prefix + "." + _LEAF[leaf]
 
 
 def state_dict_from_jax(variables_np: Mapping) -> Dict[str, torch.Tensor]:
-    """``wseg_tpu`` variables (``{"params": ...}`` or the params tree
-    itself) -> port state_dict of float32 CPU tensors."""
+    """``wseg_tpu`` variables (``{"params": ..., ["batch_stats": ...]}``
+    or the params tree itself) -> port state_dict of float32 CPU
+    tensors; ``batch_stats`` fill the live BatchNorms' running
+    statistics, and an ``AffineNorm`` (a scale with statistics in
+    neither collection) gets its identity statistics."""
     params = variables_np.get("params", variables_np)
+    leaves = _flatten(params)
+    leaves.update(_flatten(variables_np.get("batch_stats", {})))
     sd = {}
-    for path, v in _flatten(params).items():
+    for path, v in leaves.items():
         if path[-1] == "kernel":
             if v.ndim == 4:
                 v = np.transpose(v, (3, 2, 0, 1))
@@ -79,6 +123,11 @@ def state_dict_from_jax(variables_np: Mapping) -> Dict[str, torch.Tensor]:
             else:
                 raise ValueError(f"unexpected kernel rank at {path}")
         sd[port_name(path)] = torch.from_numpy(np.array(v, np.float32))
+    for path, v in leaves.items():
+        prefix = port_name(path)[:-len(".weight")]
+        if path[-1] == "scale" and prefix + ".running_mean" not in sd:
+            sd[prefix + ".running_mean"] = torch.zeros(v.shape)
+            sd[prefix + ".running_var"] = torch.ones(v.shape)
     return sd
 
 
@@ -116,7 +165,10 @@ def load_checkpoint(model: torch.nn.Module, path: str) -> None:
 def load_pretrained_backbone(model: torch.nn.Module, path: str) -> int:
     """Copy the tensors of a reference ``.pth`` whose names and shapes
     match the backbone's into ``model`` (the reference loads its
-    ImageNet weights with strict=False); returns how many were copied."""
+    ImageNet weights with strict=False); returns how many were copied.
+    The backbones carry the checkpoints' own names (WRN38's, torchvision
+    ResNet's, the flat VGG16 ones), so the rest -- a classifier's
+    ``fc.*``, BN batch counters -- is skipped."""
     sd = read_state_dict(path)
     own = model.state_dict()
     backbone = set(model._backbone.state_dict())
