@@ -73,7 +73,8 @@ def test_ae_journey_train_infer_eval_on_the_cpu(tmp_path, capsys):
     the ``ae`` ResNet-50 config; the port's eval_seg prints the same table
     and mIoU as the root eval_seg.py on the same PNGs, and writes the same
     score log.  The trained checkpoint carries the decoder's running
-    statistics, moved from their init."""
+    statistics, moved from their init, and ``--resume`` reads them
+    back."""
     from wseg_tpu_torch import eval_seg, infer_val, train
     from wseg_tpu_torch.config import reset_cfg
     from wseg_tpu_torch.utils.checkpoints import model_file
@@ -89,6 +90,19 @@ def test_ae_journey_train_infer_eval_on_the_cpu(tmp_path, capsys):
     assert not torch.equal(saved["fc8_skip.1.running_var"],
                            torch.ones(48))
     assert torch.equal(saved["aspp.bn1.running_var"], torch.ones(256))
+    # --resume reads the running statistics back into the trainer's model
+    from wseg_tpu_torch.config import cfg_from_file, cfg_from_list
+    from wseg_tpu_torch.engine.trainer import DecTrainer
+    from wseg_tpu_torch.opts import get_arguments
+
+    reset_cfg()
+    args = get_arguments(_argv(tmp_path, "--resume", suffix) + _sets(root))
+    cfg_from_file(args.cfg_file)
+    cfg_from_list(args.set_cfgs)
+    resumed = DecTrainer(args).model.state_dict()
+    for name in ("fc8_skip.1.running_var", "last_conv.5.running_mean",
+                 "shallow_mask.fc_skip.1.running_var"):
+        assert torch.equal(resumed[name], saved[name]), name
 
     reset_cfg()
     infer_val.main(_argv(tmp_path, "--resume", suffix, "--infer-list",
