@@ -23,6 +23,10 @@ from the repository root.  Phases, each printing its own lines:
    (``ae``) model serves the same images under ``voc_resnet50.yaml``'s
    TEST settings (scales 1/0.75/1.25/1.5 + flip on the 768 canvas):
    label maps, finite scores, the CRF kernels' launch counts, images/s;
+   then the zoo's classic-CAM ``bsl`` (ResNet-50, ``voc_resnet50.yaml``)
+   and multi-level ``CAM_MF`` (WRN38, ``voc_resnet38.yaml``) the same
+   way, each with the fast CRF on one image's merged map, kernels on the
+   card against the plain versions on the CPU (float32, max |dQ|);
 5. PAMR kernels vs plain: the affinity and propagation kernels against
    their plain versions at the flagship shapes (guide (8, 48, 48, 3),
    mask (8, 48, 48, 21), dilations 1-24, 10 steps), the propagation
@@ -47,6 +51,16 @@ from the repository root.  Phases, each printing its own lines:
    BatchNorms' running statistics moved (float32, finite), one launch of
    each PAMR kernel a step, the (B, 81, 81, 21) refined masks of the
    kernels against the plain path; median step ms and host issue ms;
+   then the model zoo (``ZOO_TRAIN``): each ported head on the backbone
+   ``tests/test_reference_parity.py`` pairs it with at that backbone's
+   config, plus ``CAM_CASA_WGAP_v6`` on ResNet-101, ``v5`` on VGG16 and
+   ``ae`` on WRN38, 2 warm-up and 2 timed steps each (the attention loss
+   at weight 20 where the head has one; ``v4``'s (B, C-1) labels
+   refused, as ROADMAP C2 records): step and host issue ms, peak memory,
+   losses, trained tensors moved; for the PAMR heads the refined masks
+   of the kernels against the plain path, and both PAMR kernels against
+   their plain versions and timed at each new plane ((16, 21, 21, 21),
+   (8, 21, 41, 41), (8, 21, 96, 96));
 7. exact-CRF kernels vs plain: the four lattice kernels (norm folding,
    the split splat, the all-axes blur, slice) against their plain
    versions on the Gaussian and bilateral lattices of a photo-like
@@ -68,10 +82,11 @@ from the repository root.  Phases, each printing its own lines:
    checkpoint, which ``wseg_tpu_torch.infer_val`` loads and serves, in
    the fast and in the exact CRF mode; then the same ``train`` ->
    ``infer_val`` -> ``wseg_tpu_torch.eval_seg`` on ``voc_resnet50.yaml``,
-   whose mIoU line must be printed and finite;
+   whose mIoU line must be printed and finite, and on
+   ``voc_resnet38.yaml`` with ``NET.MODEL CAM_CASA_WGAP_v6``;
 10. the card line, the kernel JSON line (launch counts summed over the
-    flagship's and the ``ae`` main paths), and last ``{"ok": true,
-    ...}``.  Each phase prints its wall seconds.
+    flagship's, the ``ae`` and the zoo's main paths), and last ``{"ok":
+    true, ...}``.  Each phase prints its wall seconds.
 
 Any failed check raises, so the script exits non-zero and prints no
 ``ok`` line.
@@ -1798,10 +1813,232 @@ def phase_ae_train(card: str) -> dict:
     return launches
 
 
-def phase_ae_serve(card: str) -> dict:
-    """The ResNet-50 ``ae`` model (bfloat16, seeded weights) serves the 8
-    VOC-sized images under ``voc_resnet50.yaml``'s TEST settings with the
-    fast CRF; returns the CRF kernels' launch counts of the served run."""
+# the model zoo (ROADMAP A5(b)): each spec trained on the backbone that
+# tests/test_reference_parity.py pairs it with, at that backbone's
+# shipped config; then CAM_CASA_WGAP_v6 on ResNet-101, v5 on VGG16 and
+# ae on WRN38
+ZOO_TRAIN = [(name, "voc_resnet50.yaml") for name in (
+    "bsl", "CAM_SA", "CAM_SA_WGAP", "CAM_WGAP_v3", "CAM_CASA_WGAP_tf_v2")] + [
+    (name, "voc_resnet38.yaml") for name in (
+        "CAM_CASA", "CAM_CASA_WGAP", "CAM_MF", "CAM_MF_v2",
+        "CAM_CASA_WGAP_v2", "CAM_CASA_WGAP_v3", "CAM_CASA_WGAP_v4",
+        "CAM_CASA_WGAP_v5", "CAM_CASA_WGAP_v6", "CAM_CASA_WGAP_PCM")] + [
+    ("CAM_CASA_WGAP_v6", "voc_resnet101.yaml"),
+    ("CAM_CASA_WGAP_v5", "voc_vgg16.yaml"), ("ae", "voc_resnet38.yaml")]
+ZOO_WARMUP_STEPS, ZOO_TIMED_STEPS = 2, 2
+# the classic-CAM and multi-level models served through the fast CRF
+ZOO_SERVE = (("bsl", "voc_resnet50.yaml"), ("CAM_MF", "voc_resnet38.yaml"))
+# the fast CRF's Q, float32 kernels on the card against the plain
+# versions on the CPU, 10 mean-field iterations
+CRF_Q_TOL = 1e-4
+
+
+def pamr_plane_report(raw, masks, card: str) -> None:
+    """Both PAMR kernels at one train step's plane against their plain
+    versions (rel ``PAMR_REL_TOL``): the guide ``raw`` (B, H, W, 3)
+    resized to the masks' (B, h, w, C) plane, dilations 1-24, 10 steps;
+    errors, CUDA-event medians, the profiler's kernel time and the
+    bound (as ``phase_pamr_kernels`` counts it)."""
+    from wseg_tpu_torch.ops.pamr import _guide
+    from wseg_tpu_torch.ops.pamr_cuda import (
+        pamr_affinity_cm,
+        pamr_affinity_cm_reference,
+        pamr_propagate_cm,
+        pamr_propagate_cm_reference,
+        pamr_taps,
+    )
+
+    b, h, w, c = masks.shape
+    im_cm = _guide(raw, masks).permute(0, 3, 1, 2).contiguous()
+    m_cm = masks.float().permute(0, 3, 1, 2).contiguous()
+    t = len(PAMR_DIL) * 8
+    taps9 = [tap for d in PAMR_DIL for tap in pamr_taps((d,)) + [(0, 0)]]
+    aff_ref = pamr_affinity_cm_reference(im_cm, PAMR_DIL)
+    cases = (
+        ("pamr_affinity_cm", pamr_affinity_cm(im_cm, PAMR_DIL), aff_ref,
+         lambda: pamr_affinity_cm_reference(im_cm, PAMR_DIL),
+         lambda: pamr_affinity_cm(im_cm, PAMR_DIL),
+         pamr_affinity_cm.kernel_name, (im_cm.numel() + aff_ref.numel()) * 4,
+         b * h * w * (3 * 4 * len(taps9) + 3 * 4 * t + 3 * t)),
+        ("pamr_propagate_cm",
+         pamr_propagate_cm(aff_ref, m_cm, PAMR_DIL, PAMR_ITER),
+         pamr_propagate_cm_reference(aff_ref, m_cm, PAMR_DIL, PAMR_ITER),
+         lambda: pamr_propagate_cm_reference(aff_ref, m_cm, PAMR_DIL,
+                                             PAMR_ITER),
+         lambda: pamr_propagate_cm(aff_ref, m_cm, PAMR_DIL, PAMR_ITER),
+         pamr_propagate_cm.kernel_name,
+         (aff_ref.numel() + 2 * m_cm.numel()) * 4,
+         2 * b * c * PAMR_ITER * t * h * w))
+    for name, got, want, plain, kernel, kname, nbytes, flops in cases:
+        max_abs = float((got - want).abs().max())
+        rel = max_abs / float(want.abs().max())
+        check(rel <= PAMR_REL_TOL,
+              f"{name} disagrees with plain at {(b, c, h, w)}: rel {rel}")
+        p1 = cuda_median_ms(plain, reps=5)
+        k1 = cuda_median_ms(kernel, reps=20)
+        k2 = cuda_median_ms(kernel, reps=20)
+        p2 = cuda_median_ms(plain, reps=5)
+        dev = device_ms(kernel, reps=10, match=kname)
+        bnd = bound(nbytes, flops)
+        print(f"kernel {name} at the zoo plane {(b, c, h, w)}: max_abs_err "
+              f"{max_abs:.3e}, rel {rel:.3e} (tol {PAMR_REL_TOL:g}); "
+              f"median {k1:.4f} / {k2:.4f} ms per call (CUDA events), "
+              f"{dev * 1e3:.2f} us of kernel (profiler, "
+              f"{bnd['bound_ms'] / dev:.1%} of the bound); plain median "
+              f"{p1:.4f} / {p2:.4f} ms; bound {bnd['bound_ms'] * 1e3:.2f} us "
+              f"({bnd['bound_by']}, {nbytes / 1e6:.1f} MB, "
+              f"{flops / 1e6:.1f} MFLOP) ({card})", flush=True)
+
+
+def phase_zoo_train(card: str) -> dict:
+    """Train steps of every ``ZOO_TRAIN`` model at full width (its
+    config's batch and crop, bfloat16 autocast, seeded weights with the
+    residual branches' last convs zeroed, the attention loss at weight
+    20 where the head has one); for the PAMR heads the refined masks of
+    the kernels against the plain path on the last step's batch, and
+    both kernels against their plain versions once per new plane.
+    Returns the PAMR launch counts of all steps."""
+    import numpy as np
+    import torch
+
+    from wseg_tpu_torch.config import cfg, reset_cfg
+    from wseg_tpu_torch.engine.train_loop import (
+        normalise_batch_image,
+        train_step,
+    )
+    from wseg_tpu_torch.engine.trainer import build_train_model
+    from wseg_tpu_torch.flagship import load_cfg, synthetic_train_batch
+    from wseg_tpu_torch.models.stage_net import _clean_only
+    from wseg_tpu_torch.ops.pamr import pamr, pamr_reference
+    from wseg_tpu_torch.ops.pamr_cuda import (
+        pamr_affinity_cm,
+        pamr_propagate_cm,
+    )
+    from wseg_tpu_torch.optim import FROZEN, make_optimizer
+
+    launches = {"pamr_affinity_cm": 0, "pamr_propagate_cm": 0}
+    planes = {PAMR_SHAPE[:3]}          # timed by phase_pamr_kernels
+    for name, cfg_name in ZOO_TRAIN:
+        reset_cfg()
+        load_cfg(cfg_name)
+        cfg.NET.MODEL = name
+        tag = f"zoo {name}/{cfg.NET.BACKBONE}"
+        crop, bs = int(cfg.DATASET.CROP_SIZE), int(cfg.TRAIN.BATCH_SIZE)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        t0 = time.perf_counter()
+        model = build_train_model(torch.device("cuda"), seed=0)
+        spec = model.spec
+        opt, labels = make_optimizer(cfg.NET, model)
+        params = dict(model.named_parameters())
+        init = {n: p.detach().clone() for n, p in params.items()}
+        rng = np.random.RandomState(0)
+        batches = [synthetic_train_batch(rng, bs, crop)
+                   for _ in range(ZOO_WARMUP_STEPS + ZOO_TIMED_STEPS)]
+        kw = dict(device_jitter=True, loss_name=str(cfg.NET.LOSS),
+                  mask_loss_bce=float(cfg.NET.MASK_LOSS_BCE),
+                  attn_loss_weight=20.0 if spec.loss_at else 0.0)
+        note = ""
+        if spec.labels_with_bg:
+            # the loader's (B, C-1) labels fail as in wseg_tpu (ROADMAP
+            # C2); the steps take (B, C) labels, background first
+            try:
+                train_step(model, opt, batches[0], 1.0, **kw)
+                refused = ""
+            except ValueError as e:
+                refused = str(e)
+            check("C2" in refused, f"{tag}: (B, C-1) labels not refused")
+            for b in batches:
+                b["labels"] = torch.cat([torch.ones_like(
+                    b["labels"][:, :1]), b["labels"]], dim=1)
+            note = "; (B, C-1) labels refused (C2), steps on (B, C)"
+        print(f"{tag} train model ({cfg_name}, NET.MODEL {name}): "
+              f"{sum(p.numel() for p in params.values())} float32 params, "
+              f"autocast {model.amp_dtype}, crop {crop}, batch {bs}, "
+              f"attention loss weight {kw['attn_loss_weight']:g}, built in "
+              f"{time.perf_counter() - t0:.2f} s{note} ({card})", flush=True)
+        per_step = (1, 1) if spec.refine == "pamr" else (0, 0)
+        walls, issues, losses = [], [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        pamr_affinity_cm.launches = 0
+        pamr_propagate_cm.launches = 0
+        for i, batch in enumerate(batches):
+            before = (pamr_affinity_cm.launches, pamr_propagate_cm.launches)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            metrics = train_step(model, opt, batch, 1.0, **kw)
+            t_issue = time.perf_counter()
+            torch.cuda.synchronize()
+            if i >= ZOO_WARMUP_STEPS:
+                walls.append((time.perf_counter() - t) * 1e3)
+                issues.append((t_issue - t) * 1e3)
+            delta = (pamr_affinity_cm.launches - before[0],
+                     pamr_propagate_cm.launches - before[1])
+            check(delta == per_step, f"{tag} step {i}: PAMR launches {delta}")
+            losses.append({k: round(float(v), 5) for k, v in metrics.items()})
+        launches["pamr_affinity_cm"] += pamr_affinity_cm.launches
+        launches["pamr_propagate_cm"] += pamr_propagate_cm.launches
+        check(all(np.isfinite(v) for m in losses for v in m.values()),
+              f"{tag}: non-finite losses {losses}")
+        check(("loss_at" in losses[0]) == spec.loss_at
+              and ("loss_mask" in losses[0]) == bool(spec.refine),
+              f"{tag}: losses {sorted(losses[0])}")
+        moved = sum(not torch.equal(p.detach(), init[n])
+                    for n, p in params.items() if labels[n] != FROZEN)
+        n_train = sum(lab != FROZEN for lab in labels.values())
+        frozen_same = all(torch.equal(p.detach(), init[n])
+                          for n, p in params.items() if labels[n] == FROZEN)
+        walls.sort()
+        issues.sort()
+        print(f"{tag} train steps (after {ZOO_WARMUP_STEPS} warm-up): "
+              f"{', '.join(f'{w:.2f}' for w in walls)} ms "
+              f"= {bs * 1e3 / walls[0]:.2f} images/s at the best; host "
+              f"issue {', '.join(f'{w:.2f}' for w in issues)} ms; peak "
+              f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
+              f"GiB; {moved} of {n_train} trained tensors moved; losses "
+              f"first / last {losses[0]} / {losses[-1]} ({card})",
+              flush=True)
+        check(frozen_same, f"{tag}: a frozen parameter changed")
+        check(moved == n_train, f"{tag}: a trained parameter did not move")
+        if spec.refine == "pamr":
+            model.eval()
+            batch = batches[-1]
+            with torch.no_grad():
+                image, raw = normalise_batch_image(batch["image"],
+                                                   batch["jitter"])
+                with torch.autocast("cuda", dtype=model.amp_dtype):
+                    logits, _ = model._features(image)
+                masks = torch.softmax(logits.float(), dim=-1)
+                if spec.clean_before_refine:
+                    masks = _clean_only(masks, batch["labels"].float())
+                dec_k = pamr(raw, masks, model.pamr_kernel, model.pamr_iter)
+                dec_p = pamr_reference(raw, masks, model.pamr_kernel,
+                                       model.pamr_iter)
+            err = float((dec_k - dec_p).abs().max())
+            plane = tuple(masks.shape[:3])
+            print(f"{tag} PAMR plane {tuple(masks.shape)}: masks_dec of the "
+                  f"kernels vs the plain path max_abs_err {err:.3e} "
+                  f"(tol 1e-5)", flush=True)
+            check(err <= 1e-5, f"{tag} masks_dec kernel vs plain: {err}")
+            if plane not in planes:
+                planes.add(plane)
+                pamr_plane_report(raw, masks, card)
+        del model, opt, params, init, batches
+        torch.cuda.empty_cache()
+    return launches
+
+
+def serve_slice(tag: str, cfg_name: str, card: str, model_name: str = "",
+                crf_check: bool = False) -> dict:
+    """A seeded model (bfloat16) of ``configs/<cfg_name>`` -- ``NET.MODEL``
+    set to ``model_name`` where given -- serves the 8 VOC-sized images
+    under the config's TEST settings with the fast CRF; checks the label
+    maps, finite scores and 12 launches of each CRF kernel per
+    postprocess call; with ``crf_check`` also the fast CRF on one image's
+    merged map with the kernels against the plain versions (float32,
+    card against CPU); returns the CRF kernels' launch counts of the
+    served run."""
     import numpy as np
     import torch
 
@@ -1817,10 +2054,10 @@ def phase_ae_serve(card: str) -> dict:
 
     kernels = (bilateral_message_cm, gauss_blur_cm)
     reset_cfg()
-    src = load_cfg("voc_resnet50.yaml")
-    check(cfg.NET.MODEL == "ae" and list(cfg.TEST.PAD_SIZE) == [768, 768]
-          and list(cfg.TEST.SCALES) == [1, 0.75, 1.25, 1.5]
-          and cfg.TEST.CRF_MODE == "fast", "not voc_resnet50's TEST settings")
+    src = load_cfg(cfg_name)
+    if model_name:
+        cfg.NET.MODEL = model_name
+    check(cfg.TEST.CRF_MODE == "fast", f"{cfg_name}: not the fast CRF")
     server = build_flagship_server("cuda", seed=0)
     pp = server.postprocess
     pp_calls = [0]
@@ -1834,7 +2071,7 @@ def phase_ae_serve(card: str) -> dict:
     images = synthetic_images(VOC_SIZES)
     sigs = {tuple(server.views.view_shapes(w, h)): (w, h)
             for (w, h) in VOC_SIZES}
-    print(f"ae serving ({src}): {cfg.NET.BACKBONE}, "
+    print(f"{tag} serving ({src}): {cfg.NET.MODEL}/{cfg.NET.BACKBONE}, "
           f"{next(server.model.parameters()).dtype}, scales "
           f"{list(cfg.TEST.SCALES)}, flip {cfg.TEST.FLIP}, pad "
           f"{list(cfg.TEST.PAD_SIZE)}, BG_POW {cfg.TEST.BG_POW}, view "
@@ -1845,9 +2082,9 @@ def phase_ae_serve(card: str) -> dict:
             before = [f.launches for f in kernels]
             server.warmup([size])
             delta = [f.launches - n for f, n in zip(kernels, before)]
-            check(delta == [12, 12], f"ae warm-up group {size}: {delta}")
+            check(delta == [12, 12], f"{tag} warm-up group {size}: {delta}")
         torch.cuda.synchronize()
-        print(f"ae serving warm-up, one group per size signature: "
+        print(f"{tag} serving warm-up, one group per size signature: "
               f"{time.perf_counter() - t0:.2f} s; peak memory "
               f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
               f"({card})", flush=True)
@@ -1861,12 +2098,12 @@ def phase_ae_serve(card: str) -> dict:
         launches = {f.__name__: f.launches for f in kernels}
     finally:
         server.close()
-    print(f"ae serving: {len(images)} images in {dt:.3f} s = "
+    print(f"{tag} serving: {len(images)} images in {dt:.3f} s = "
           f"{len(images) / dt:.3f} images/s, {pp_calls[0]} postprocess "
           f"calls, launches {launches} ({card})", flush=True)
     check(pp_calls[0] >= len(sigs) and all(
         n == 12 * pp_calls[0] for n in launches.values()),
-        f"ae serving launches {launches} for {pp_calls[0]} calls")
+        f"{tag} serving launches {launches} for {pp_calls[0]} calls")
     for (img, lab), (res, got_lab) in zip(images, results):
         check(np.array_equal(got_lab, lab), "labels changed")
         for t in THRESHS:
@@ -1874,21 +2111,101 @@ def phase_ae_serve(card: str) -> dict:
                 m = res[t][key]
                 check(m.dtype == np.uint8 and m.shape == img.shape[:2]
                       and int(m.max()) <= 20,
-                      f"ae {key}@{t}: {m.dtype} {m.shape} max {m.max()}")
+                      f"{tag} {key}@{t}: {m.dtype} {m.shape} max {m.max()}")
     for k, (img, lab) in enumerate(images[:4]):
-        total, cls_all, _, _ = image_merged_sums(server, img)
+        total, cls_all, dst, u8 = image_merged_sums(server, img)
         check(bool(torch.isfinite(total).all()) and all(
             bool(torch.isfinite(c).all()) for c in cls_all),
-            f"ae: non-finite scores for image {k}")
+            f"{tag}: non-finite scores for image {k}")
+        if crf_check and k == 0:
+            crf_on_merged_map(tag, server, total, lab, dst, u8, card)
     del server
     torch.cuda.empty_cache()
     return launches
 
 
-def phase_ae_entry(card: str) -> None:
+def crf_on_merged_map(tag, server, total, lab, dst, u8, card) -> None:
+    """The fast CRF (float32, the config's strides) on one image's
+    cleaned merged map: the card's run (bilateral-message and blur
+    kernels) against the CPU's (their plain versions), max |dQ| <=
+    ``CRF_Q_TOL``, and the launches of the card's run."""
+    import torch
+
+    from wseg_tpu_torch.engine.infer import _postprocess
+    from wseg_tpu_torch.ops.crf import crf_inference_torch
+    from wseg_tpu_torch.ops.crf_bilateral import bilateral_message_cm
+    from wseg_tpu_torch.ops.crf_gauss import gauss_blur_cm
+
+    kw = dict(server.postprocess._kw, n_views=server.views.num_views,
+              crf_threshs=(), ret_merged=True)
+    labels = torch.from_numpy(lab[None]).to(total.device)
+    _, merged = _postprocess(total, labels, dst, u8, **kw)
+    h, w = merged.shape[1:3]
+    ri = torch.arange(h, device=merged.device)[None, :, None]
+    ci = torch.arange(w, device=merged.device)[None, None, :]
+    win = dst.long()
+    valid = ((ri >= win[:, 0, None, None])
+             & (ri < (win[:, 0] + win[:, 2])[:, None, None])
+             & (ci >= win[:, 1, None, None])
+             & (ci < (win[:, 1] + win[:, 3])[:, None, None]))
+    crf_kw = dict(t=CRF_ITERS, dtype=torch.float32,
+                  bilateral_stride=int(kw["crf_stride"]),
+                  tap_spacing_div=float(kw["crf_tap_div"]),
+                  full_stride=int(kw["crf_full_stride"]),
+                  refine_iters=int(kw["crf_refine_iters"]))
+    before = (bilateral_message_cm.launches, gauss_blur_cm.launches)
+    with torch.inference_mode():
+        q_card = crf_inference_torch(u8.float(), merged, valid_mask=valid
+                                     .float()[..., None], **crf_kw)
+        torch.cuda.synchronize()
+        n = (bilateral_message_cm.launches - before[0],
+             gauss_blur_cm.launches - before[1])
+        q_cpu = crf_inference_torch(u8.float().cpu(), merged.cpu(),
+                                    valid_mask=valid.float()[..., None]
+                                    .cpu(), **crf_kw)
+    err = float((q_card.cpu() - q_cpu).abs().max())
+    agree = float((q_card.argmax(-1).cpu() == q_cpu.argmax(-1)).float()
+                  .mean())
+    print(f"{tag} fast CRF on image 0's merged map {tuple(merged.shape)} "
+          f"(float32): kernels (bilateral, blur launches {n}) vs plain "
+          f"on the CPU max |dQ| {err:.3e} (tol {CRF_Q_TOL:g}), argmax "
+          f"agreement {agree:.5f} ({card})", flush=True)
+    check(n[0] > 0 and n[1] > 0, f"{tag}: the CRF launched {n}")
+    check(err <= CRF_Q_TOL, f"{tag}: CRF kernels vs plain |dQ| {err}")
+
+
+def phase_ae_serve(card: str) -> dict:
+    """The ResNet-50 ``ae`` model serves the 8 images under
+    ``voc_resnet50.yaml``'s TEST settings (scales 1/0.75/1.25/1.5 +
+    flip on the 768 canvas)."""
+    from wseg_tpu_torch.config import cfg
+
+    launches = serve_slice("ae", "voc_resnet50.yaml", card)
+    check(cfg.NET.MODEL == "ae" and list(cfg.TEST.PAD_SIZE) == [768, 768]
+          and list(cfg.TEST.SCALES) == [1, 0.75, 1.25, 1.5],
+          "not voc_resnet50's TEST settings")
+    return launches
+
+
+def phase_zoo_serve(card: str) -> dict:
+    """The classic-CAM ``bsl`` on ResNet-50 (``voc_resnet50.yaml``) and
+    the multi-level ``CAM_MF`` on WRN38 (``voc_resnet38.yaml``) serve the
+    8 images through the fast CRF, each CRF also held against its plain
+    version on one image's merged map; returns the summed launches."""
+    total = {}
+    for name, cfg_name in ZOO_SERVE:
+        got = serve_slice(name, cfg_name, card, model_name=name,
+                          crf_check=True)
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def entry_journey(tag: str, cfg_name: str, card: str,
+                  extra_sets=()) -> None:
     """``wseg_tpu_torch.train`` (one short epoch + validation),
-    ``infer_val`` and ``eval_seg`` on ``configs/voc_resnet50.yaml`` and a
-    synthetic VOC directory."""
+    ``infer_val`` and ``eval_seg`` on ``configs/<cfg_name>`` (with
+    ``--set extra_sets``) and a synthetic VOC directory."""
     import contextlib
     import io
     import math
@@ -1899,25 +2216,27 @@ def phase_ae_entry(card: str) -> None:
     from wseg_tpu_torch.config import reset_cfg
     from wseg_tpu_torch.flagship import REPO, write_synthetic_voc
 
-    tmp = tempfile.mkdtemp(prefix="wseg_smoke_ae_")
+    tmp = tempfile.mkdtemp(prefix="wseg_smoke_entry_")
     try:
         root = write_synthetic_voc(os.path.join(tmp, "data"), n_train=16,
                                    n_val=4)
         common = ["--dataset", "pascal_voc",
-                  "--cfg", os.path.join(REPO, "configs", "voc_resnet50.yaml"),
-                  "--exp", "smoke_ae", "--run", "r0",
+                  "--cfg", os.path.join(REPO, "configs", cfg_name),
+                  "--exp", "smoke_" + tag, "--run", "r0",
                   "--snapshot-dir", os.path.join(tmp, "snap"),
                   "--logdir", os.path.join(tmp, "logs"), "--workers", "2",
                   "--device", "cuda"]
         sets = ["--set", "DATASET.ROOT", root, "TEST.DATA_ROOT", root,
-                "TRAIN.NUM_EPOCHS", "0", "TRAIN.PRETRAIN", "0"]
+                "TRAIN.NUM_EPOCHS", "0", "TRAIN.PRETRAIN", "0",
+                *extra_sets]
         reset_cfg()
         t0 = time.perf_counter()
         trainer = train.main(common + sets)
-        check(trainer.checkpoint.checkpoints, "the ae trainer saved nothing")
+        check(trainer.checkpoint.checkpoints,
+              f"the {tag} trainer saved nothing")
         suffix = trainer.checkpoint.checkpoints[-1]
-        print(f"ae entry point: train.main, 1 epoch of 16 (batch 16) + "
-              f"validation of 4 synthetic 500x375 images in "
+        print(f"{tag} entry point: train.main ({cfg_name}), 1 epoch of 16 "
+              f"+ validation of 4 synthetic 500x375 images in "
               f"{time.perf_counter() - t0:.2f} s, checkpoint {suffix} "
               f"({card})", flush=True)
         del trainer
@@ -1931,8 +2250,8 @@ def phase_ae_entry(card: str) -> None:
                                  "--mask-output-dir", out] + sets)
         n = {sub: len(os.listdir(os.path.join(out + "_0", sub)))
              for sub in ("no_crf", "crf")}
-        check(n == {"no_crf": 4, "crf": 4}, f"ae infer_val wrote {n}")
-        print(f"ae entry point: infer_val loaded {suffix} and wrote {n} "
+        check(n == {"no_crf": 4, "crf": 4}, f"{tag} infer_val wrote {n}")
+        print(f"{tag} entry point: infer_val loaded {suffix} and wrote {n} "
               f"PNGs at threshold 0.0 in {time.perf_counter() - t0:.2f} s "
               f"({card})", flush=True)
 
@@ -1945,13 +2264,24 @@ def phase_ae_entry(card: str) -> None:
                 "--log-scores", os.path.join(tmp, "scores.log")])
         lines = [ln for ln in text.getvalue().splitlines()
                  if ln.startswith(("# of images", "mIoU"))]
-        print(f"ae entry point: eval_seg: {' | '.join(lines)}", flush=True)
+        print(f"{tag} entry point: eval_seg: {' | '.join(lines)}",
+              flush=True)
         check(len(lines) == 3 and "# of images: 4" in lines[0]
               and math.isfinite(stats["miou"]),
               f"eval_seg printed {lines}, mIoU {stats['miou']}")
     finally:
         reset_cfg()
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_ae_entry(card: str) -> None:
+    entry_journey("ae", "voc_resnet50.yaml", card)
+
+
+def phase_zoo_entry(card: str) -> None:
+    """``CAM_CASA_WGAP_v6`` on ``voc_resnet38.yaml``."""
+    entry_journey("CAM_CASA_WGAP_v6", "voc_resnet38.yaml", card,
+                  ("NET.MODEL", "CAM_CASA_WGAP_v6"))
 
 
 def timed(phase, card: str):
@@ -1970,11 +2300,14 @@ def main() -> int:
     gauss = timed(phase_gauss, card)
     slice_launches = timed(phase_slice, card)
     ae_serve_launches = timed(phase_ae_serve, card)
+    zoo_serve_launches = timed(phase_zoo_serve, card)
     for entry in (kern, gauss):
         name = entry["name"]
-        check(slice_launches[name] > 0 and ae_serve_launches[name] > 0,
+        check(slice_launches[name] > 0 and ae_serve_launches[name] > 0
+              and zoo_serve_launches[name] > 0,
               f"a serving slice never launched {name}")
-        entry["launches"] = slice_launches[name] + ae_serve_launches[name]
+        entry["launches"] = (slice_launches[name] + ae_serve_launches[name]
+                             + zoo_serve_launches[name])
     lattice_kernels = timed(phase_lattice_kernels, card)
     exact_launches = timed(phase_exact_slice, card)
     for entry in lattice_kernels:
@@ -1985,17 +2318,22 @@ def main() -> int:
     lab_kernels = timed(phase_pamr_variants, card)
     launches = timed(phase_train, card)
     ae_launches = timed(phase_ae_train, card)
+    zoo_launches = timed(phase_zoo_train, card)
     for entry in pamr_kernels:
         name = entry["name"]
-        check(launches[name] > 0 and ae_launches[name] > 0,
+        check(launches[name] > 0 and ae_launches[name] > 0
+              and zoo_launches[name] > 0,
               f"a train slice never launched {name}")
-        entry["launches"] = launches[name] + ae_launches[name]
+        entry["launches"] = (launches[name] + ae_launches[name]
+                             + zoo_launches[name])
     print(f"main-path launches: fast CRF kernels {slice_launches} (flagship "
-          f"slice) + {ae_serve_launches} (ae serving); PAMR kernels "
-          f"{launches} (flagship steps) + {ae_launches} (ae steps)",
-          flush=True)
+          f"slice) + {ae_serve_launches} (ae serving) + "
+          f"{zoo_serve_launches} (zoo serving); PAMR kernels {launches} "
+          f"(flagship steps) + {ae_launches} (ae steps) + {zoo_launches} "
+          f"(zoo steps)", flush=True)
     timed(phase_entry, card)
     timed(phase_ae_entry, card)
+    timed(phase_zoo_entry, card)
     import torch
 
     print(card, flush=True)

@@ -745,10 +745,11 @@ def test_get_model_builds_ae_and_raises_elsewhere():
         m = get_model(cfg.NET)
         assert isinstance(m, StageNet) and not m.training
         assert m.sg.psi == 0.25
-    for model, bb in (("ae", "resnet38"), ("bsl", "resnet50"),
-                      ("CAM_CASA_WGAP_tf_v5", "resnet38")):
+    for model, bb in (("CAM_CASA_WGAP_tf_v4", "resnet50"),
+                      ("CAM_CASA_WGAP_tf_v5", "resnet38"),
+                      ("CAM_CASA_WGAP_tf_v9", "resnet38")):
         cfg.NET.MODEL, cfg.NET.BACKBONE = model, bb
-        with pytest.raises(NotImplementedError, match=r"A5\(b\)/\(c\)"):
+        with pytest.raises(NotImplementedError, match=r"A5\(c\)"):
             get_model(cfg.NET)
 
 

@@ -59,8 +59,8 @@ def test_bfloat16_model_runs_in_bfloat16():
     assert float((a.masks - b.masks).abs().max()) < 0.1
 
 
-@pytest.mark.parametrize("key,value", [("MODEL", "CAM_CASA_WGAP_tf_v2"),
-                                       ("BACKBONE", "resnet50"),
+@pytest.mark.parametrize("key,value", [("MODEL", "CAM_CASA_WGAP_tf_v7"),
+                                       ("MODEL", "CAM_CASA_WGAP_tf_v10"),
                                        ("DTYPE", "int8")])
 def test_unported_configurations_raise(key, value):
     from wseg_tpu_torch.config import cfg

@@ -73,10 +73,14 @@ def port_model_from_jax(variables, dtype: str = "float32"):
 
 
 def _random_leaf(rng, path, shape, flat, last_conv):
-    """One numpy-seeded leaf: He-normal kernels (the residual branches'
-    last convs scaled by 0.1), BN affine near 1 and statistics with
-    var > 0, small biases."""
+    """One numpy-seeded leaf: He-normal kernels (each residual branch's
+    last conv scaled by 0.1: ``last_conv`` names it, or is a tuple of
+    names of which a block's first present one is its last conv), BN
+    affine near 1 and statistics with var > 0, small biases."""
     leaf = path[-1]
+    if not isinstance(last_conv, str):
+        last_conv = next((n for n in last_conv
+                          if path[:-2] + (n, "kernel") in flat), None)
     if leaf == "kernel":
         a = rng.randn(*shape) * np.sqrt(2.0 / np.prod(shape[:-1]))
         if path[-2] == last_conv:
@@ -138,15 +142,73 @@ def port_ae_model_from_jax(variables, backbone: str, train: bool = False,
     """The port's ``ae`` model on ``backbone`` carrying ``variables``'
     weights and batch statistics (float32; ``train`` builds the trainer's
     model, in ``.train()``)."""
+    return port_zoo_model_from_jax(variables, "ae", backbone, train=train,
+                                   sg_psi=sg_psi)
+
+
+# the last conv of each residual branch, per backbone (scaled by 0.1)
+LAST_CONVS = {"resnet38": ("conv_branch2b2", "conv_branch2b1"),
+              "resnet50": "conv3", "resnet101": "conv3", "vgg16": ()}
+
+
+def labels_dim(name: str) -> int:
+    """Label width of a registry key: C, or C - 1 for every key but the
+    ``labels_with_bg`` one."""
+    return 21 if name == "CAM_CASA_WGAP_v4" else 20
+
+
+def jax_zoo_model_and_random_variables(name: str, backbone: str,
+                                       seed: int = 0, size: int = 64,
+                                       sg_psi: float = 0.3):
+    """The JAX StageNet of registry key ``name`` on ``backbone``
+    (float32, the default BG_SCORE, focal and PAMR settings, the plain
+    ``lax`` PAMR) with every parameter and batch statistic drawn from
+    ``seed``.  The shapes come from a train-path init (labels given), so
+    PCM's refinement convs exist."""
+    import jax
+    import jax.numpy as jnp
+
+    from wseg_tpu.config import _default_cfg as jax_default_cfg
+    from wseg_tpu.models import get_model
+
+    net = jax_default_cfg().NET
+    net.MODEL, net.BACKBONE, net.DTYPE = name, backbone, "float32"
+    net.SG_PSI, net.PAMR_IMPL = sg_psi, "lax"
+    model = get_model(net, num_classes=21)
+    key = jax.random.PRNGKey(0)
+    img = jnp.zeros((1, size, size, 3), jnp.float32)
+    shapes = jax.eval_shape(lambda: model.init(
+        {"params": key, "dropout": key, "sg": key}, img, img,
+        jnp.zeros((1, labels_dim(name)), jnp.float32), train=False))
+    return model, random_variables(shapes, seed, LAST_CONVS[backbone])
+
+
+def port_zoo_model_from_jax(variables, name: str, backbone: str,
+                            train: bool = False, sg_psi: float = 0.3):
+    """The port's model of registry key ``name`` on ``backbone`` carrying
+    ``variables``' weights and batch statistics (float32, loaded with
+    ``strict=True``; ``train`` builds the trainer's model, in
+    ``.train()``)."""
     from wseg_tpu_torch.config import _default_cfg
     from wseg_tpu_torch.models import get_model
     from wseg_tpu_torch.utils.convert import state_dict_from_jax
 
     net = _default_cfg().NET
-    net.MODEL = "ae"
-    net.BACKBONE = backbone
-    net.DTYPE = "float32"
+    net.MODEL, net.BACKBONE, net.DTYPE = name, backbone, "float32"
     net.SG_PSI = sg_psi
     model = get_model(net, num_classes=21, train=train)
     model.load_state_dict(state_dict_from_jax(variables), strict=True)
     return model
+
+
+def no_port_dropout(model) -> int:
+    """Set every dropout and channel dropout of the port's ``model`` to
+    p = 0; returns how many there are."""
+    from wseg_tpu_torch.models.backbones.common import Dropout, Dropout2d
+
+    n = 0
+    for m in model.modules():
+        if isinstance(m, (Dropout, Dropout2d)):
+            m.p = 0.0
+            n += 1
+    return n

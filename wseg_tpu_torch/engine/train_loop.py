@@ -105,6 +105,13 @@ def train_step(model, optimizer, batch: Dict[str, torch.Tensor],
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
     with record_function("train.optim"):
+        # a trainable tensor the loss does not reach (PCM's f8_3, f8_4
+        # and f9 feed only the detached pseudo-GT) takes a zero gradient,
+        # so weight decay and momentum still move it, as optax does
+        for g in optimizer.param_groups:
+            for p in g["params"]:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
         if grad_clip > 0.0:
             torch.nn.utils.clip_grad_norm_(
                 [p for g in optimizer.param_groups for p in g["params"]],

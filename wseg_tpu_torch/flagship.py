@@ -100,8 +100,9 @@ def card_line() -> str:
 
 
 def build_flagship_server(device="cuda", seed: int = 0):
-    """Seeded random-weight model of the loaded config (the flagship's,
-    or an ``ae`` one's) on ``device``, wrapped in a ``MultiScaleServer``
+    """Seeded random-weight model of the loaded config (its
+    ``NET.MODEL`` on its backbone) on ``device``, wrapped in a
+    ``MultiScaleServer``
     with the device postprocess of ``TEST.CRF_MODE`` (as ``infer_val``
     builds it).  Reads the port's global cfg."""
     from wseg_tpu_torch.config import cfg

@@ -53,6 +53,9 @@ class ResNet(nn.Module):
     """Bottleneck ResNet with ``layers`` blocks per stage; ``forward``
     takes NCHW and returns the tap dict."""
 
+    # tap name -> channels
+    TAPS = {"conv3": 256, "conv6": 2048}
+
     def __init__(self, layers: Sequence[int]):
         super().__init__()
         self.conv1 = conv(3, 64, 7, 2)
@@ -66,9 +69,6 @@ class ResNet(nn.Module):
                                          stride if j == 0 else 1))
                 in_ch = planes * Bottleneck.expansion
             setattr(self, f"layer{i + 1}", nn.Sequential(*blocks))
-
-    def fan_out(self) -> int:
-        return 2048
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         x = F.relu(self.bn1(self.conv1(x)))

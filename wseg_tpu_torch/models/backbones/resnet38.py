@@ -85,6 +85,10 @@ class ResBlockBot(nn.Module):
 class ResNet38(nn.Module):
     """WRN-38 trunk; ``forward`` takes NCHW and returns a tap dict."""
 
+    # tap name -> channels
+    TAPS = {"conv3": 256, "conv3_pre": 256, "conv4": 512, "conv5": 1024,
+            "conv6": 4096}
+
     def __init__(self):
         super().__init__()
         self.conv1a = conv(3, 64, 3)
@@ -103,9 +107,6 @@ class ResNet38(nn.Module):
         self.b6 = ResBlockBot(1024, 2048, 1, 4, dropout=0.3)
         self.b7 = ResBlockBot(2048, 4096, 1, 4, dropout=0.5)
         self.bn7 = FrozenBatchNorm(4096)
-
-    def fan_out(self) -> int:
-        return 4096
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         x = self.conv1a(x)

@@ -31,6 +31,9 @@ _STAGES = (((("conv1_1", 64), ("conv1_2", 64)), 1, 2),
 class VGG16(nn.Module):
     """VGG16 trunk; ``forward`` takes NCHW and returns the tap dict."""
 
+    # tap name -> channels
+    TAPS = {"conv3": 256, "conv6": 1024}
+
     def __init__(self, fc6_dilation: int = 1):
         super().__init__()
         in_ch = 3
@@ -41,9 +44,6 @@ class VGG16(nn.Module):
         self.fc6 = conv(512, 1024, 3, 1, fc6_dilation, bias=True)
         self.dropout = Dropout(0.5)
         self.fc7 = conv(1024, 1024, 1, bias=True)
-
-    def fan_out(self) -> int:
-        return 1024
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         conv3 = None

@@ -1,10 +1,13 @@
-"""Attention modules of the CAM_CASA_WGAP_tf head (NHWC at the surface).
+"""Attention modules of the CAM heads (NHWC at the surface).
 
-Mirror of ``wseg_tpu/models/heads/attention.py`` for the flagship:
-CBAM-style ``ChannelAttention`` / ``SpatialAttention`` and the windowed
-multi-head self-attention (no talking heads, no cross query).  The
-parameter layout follows the reference torch modules, so state_dicts
-carry the reference names and shapes.
+Mirror of ``wseg_tpu/models/heads/attention.py``: CBAM-style
+``ChannelAttention`` / ``SpatialAttention``, the windowed multi-head
+self-attention (no talking heads, no cross query) and ``GlobalSRA``,
+global attention over spatially reduced keys and values.  The parameter
+layout follows the reference torch modules, so state_dicts carry the
+reference names and shapes.  Attention logits, softmax and the
+attention-weighted sum run in float32, under autocast too, as the JAX
+version's ``preferred_element_type=float32`` products do.
 """
 
 from __future__ import annotations
@@ -12,6 +15,18 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in float32 whatever the autocast state."""
+    with torch.autocast(a.device.type, enabled=False):
+        return torch.matmul(a.float(), b.float())
+
+
+def _heads(t: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """(..., N, C) -> (..., heads, N, C / heads)."""
+    *lead, n, c = t.shape
+    return t.reshape(*lead, n, num_heads, c // num_heads).transpose(-2, -3)
 
 
 def pad_to_multiple(x: torch.Tensor, mult_h: int, mult_w: int):
@@ -72,9 +87,7 @@ class SpatialAttention(nn.Module):
 class WindowAttention(nn.Module):
     """MHSA within non-overlapping ws x ws windows.
 
-    Input/output NHWC with H, W divisible by ``ws``.  Attention logits,
-    softmax and the attention-weighted sum run in float32, as the JAX
-    version's ``preferred_element_type=float32`` products do.
+    Input/output NHWC with H, W divisible by ``ws``.
     """
 
     def __init__(self, dim: int, num_heads: int = 8, ws: int = 2,
@@ -101,11 +114,49 @@ class WindowAttention(nn.Module):
         qkv = self.qkv(t).reshape(b, hg * wg, ws * ws, 3, nh, hd)
         q, k, v = qkv.permute(3, 0, 1, 4, 2, 5).unbind(0)   # (B,G,h,N,hd)
 
-        attn = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+        attn = matmul_f32(q, k.transpose(-1, -2)) * scale
         attn = torch.softmax(attn, dim=-1).to(v.dtype)
-        out = torch.matmul(attn.float(), v.float())         # (B,G,h,N,hd)
+        out = matmul_f32(attn, v)                           # (B,G,h,N,hd)
         out = out.transpose(2, 3).reshape(b, hg * wg, ws * ws, self.dim)
         out = self.proj(out.to(x.dtype))
 
         out = out.reshape(b, hg, wg, ws, ws, self.dim).transpose(2, 3)
+        return out.reshape(b, h, w, self.dim)
+
+
+class GlobalSRA(nn.Module):
+    """Global MHSA whose keys and values come from the input reduced by
+    a strided ``sr`` conv (with bias) and a LayerNorm at ``sr_ratio >
+    1`` (PVT's spatial reduction).  The LayerNorm's epsilon is Flax's
+    1e-6, as in ``wseg_tpu``.  Input/output NHWC."""
+
+    def __init__(self, dim: int, num_heads: int = 8, sr_ratio: int = 1,
+                 qkv_bias: bool = True):
+        super().__init__()
+        self.dim = dim
+        self.num_heads = num_heads
+        self.sr_ratio = sr_ratio
+        self.q = nn.Linear(dim, dim, bias=qkv_bias)
+        self.kv = nn.Linear(dim, 2 * dim, bias=qkv_bias)
+        self.proj = nn.Linear(dim, dim)
+        if sr_ratio > 1:
+            self.sr = nn.Conv2d(dim, dim, sr_ratio, stride=sr_ratio)
+            self.norm = nn.LayerNorm(dim, eps=1e-6)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, h, w, c = x.shape
+        nh = self.num_heads
+        scale = (self.dim // nh) ** -0.5
+        q = self.q(x.reshape(b, h * w, c))
+        if self.sr_ratio > 1:
+            xr = self.sr(x.permute(0, 3, 1, 2)).flatten(2).transpose(1, 2)
+            xr = self.norm(xr)
+        else:
+            xr = x.reshape(b, h * w, c)
+        k, v = self.kv(xr).chunk(2, dim=-1)
+        q, k, v = _heads(q, nh), _heads(k, nh), _heads(v, nh)
+        attn = matmul_f32(q, k.transpose(-1, -2)) * scale
+        attn = torch.softmax(attn, dim=-1).to(v.dtype)
+        out = matmul_f32(attn, v).transpose(1, 2).reshape(b, h * w, self.dim)
+        out = self.proj(out.to(x.dtype))
         return out.reshape(b, h, w, self.dim)

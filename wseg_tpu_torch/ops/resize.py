@@ -4,7 +4,8 @@ Same sampling as ``wseg_tpu/ops/resize.py`` (and ``F.interpolate(...,
 mode='bilinear')`` on NCHW): ``align_corners=True`` inside the model,
 ``align_corners=False`` (half-pixel, edge-clamped) for the multi-scale
 merge.  The 1-D matrices are numpy constants per shape, cached on the
-device they are used on.
+device they are used on.  ``adaptive_max_pool`` is
+``torch.adaptive_max_pool2d`` on NHWC tensors.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 @functools.lru_cache(maxsize=256)
@@ -51,7 +53,8 @@ def _interp_matrix_on(n_in: int, n_out: int, align_corners: bool,
 def resize_bilinear(x: torch.Tensor, size, align_corners: bool = True):
     """Bilinear-resize NHWC (or HWC / HW) ``x`` to spatial ``size=(H, W)``.
 
-    Interior math runs in float32; the result is cast back to x's dtype.
+    Interior math runs in float32, under autocast too; the result is
+    cast back to x's dtype.
     """
     h_out, w_out = int(size[0]), int(size[1])
     ndim = x.dim()
@@ -63,12 +66,13 @@ def resize_bilinear(x: torch.Tensor, size, align_corners: bool = True):
         raise ValueError(f"expected NHWC, got shape {tuple(x.shape)}")
     _, h_in, w_in, _ = x.shape
     out = x.float()
-    if h_in != h_out:
-        A_h = _interp_matrix_on(h_in, h_out, align_corners, x.device)
-        out = torch.einsum("oh,bhwc->bowc", A_h, out)
-    if w_in != w_out:
-        A_w = _interp_matrix_on(w_in, w_out, align_corners, x.device)
-        out = torch.einsum("ow,bhwc->bhoc", A_w, out)
+    with torch.autocast(x.device.type, enabled=False):
+        if h_in != h_out:
+            A_h = _interp_matrix_on(h_in, h_out, align_corners, x.device)
+            out = torch.einsum("oh,bhwc->bowc", A_h, out)
+        if w_in != w_out:
+            A_w = _interp_matrix_on(w_in, w_out, align_corners, x.device)
+            out = torch.einsum("ow,bhwc->bhoc", A_w, out)
     out = out.to(x.dtype)
     if ndim == 2:
         return out[0, :, :, 0]
@@ -80,3 +84,12 @@ def resize_bilinear(x: torch.Tensor, size, align_corners: bool = True):
 def rescale_as(x: torch.Tensor, y: torch.Tensor, align_corners: bool = True):
     """Resize NHWC ``x`` to the spatial size of NHWC ``y``."""
     return resize_bilinear(x, (y.shape[1], y.shape[2]), align_corners)
+
+
+def adaptive_max_pool(x: torch.Tensor, size) -> torch.Tensor:
+    """Max over the cells [floor(i * n / m), ceil((i + 1) * n / m)) of
+    NHWC ``x`` to spatial ``size=(H, W)``, as ``wseg_tpu``'s
+    ``adaptive_max_pool``."""
+    y = F.adaptive_max_pool2d(x.permute(0, 3, 1, 2),
+                              (int(size[0]), int(size[1])))
+    return y.permute(0, 2, 3, 1)

@@ -18,10 +18,15 @@ The port's module names are the reference torch state_dict's, so
 Names: the JAX backbone's ``layer{i}_{j}`` / ``downsample_conv`` /
 ``downsample_bn`` are torchvision's ``layer{i}.{j}`` /
 ``downsample.0`` / ``downsample.1``; the ``ae`` decoder's modules map
-as ``wseg_tpu/utils/torch_convert.py``'s ``_AE_HEAD_MAP``.  Layouts:
-conv kernels HWIO -> OIHW; Dense (in, out) -> (out, in); the
-channel-attention fc1/fc2 Dense -> (out, in, 1, 1) 1x1 conv weights;
-BatchNorm scale/bias/mean/var -> weight/bias/running_mean/running_var.
+as ``wseg_tpu/utils/torch_convert.py``'s ``_AE_HEAD_MAP``; CAM_MF's
+per-level ``fc8_conv6`` ... ``fc8_conv3`` are the reference's ``fc8_6``
+... ``fc8_3``; every other head module (``fc7``, ``fc8``,
+``selfattn.{qkv,q,kv,sr,norm,proj}``, ``caatention``, ``attention``,
+``f8_3``, ``f8_4``, ``f9``) keeps its name, as ``get_head_map``
+expects.  Layouts: conv kernels HWIO -> OIHW; Dense (in, out) -> (out,
+in); the channel-attention fc1/fc2 Dense -> (out, in, 1, 1) 1x1 conv
+weights; BatchNorm and LayerNorm scale/bias -> weight/bias, BatchNorm
+mean/var -> running_mean/running_var.
 """
 
 from __future__ import annotations
@@ -67,6 +72,8 @@ _AE_HEAD = {
     ("decoder", "last_bn2"): "last_conv.5",
     ("decoder", "last_conv3"): "last_conv.8",
 }
+# CAM_MF's level heads (reference models/CAM_MF.py:38-41)
+_MF_HEAD = {(f"fc8_conv{i}",): f"fc8_{i}" for i in (3, 4, 5, 6)}
 # Dense layers that the reference implements as 1x1 convs
 _DENSE_AS_CONV1X1 = ("caatention",)
 
@@ -94,6 +101,8 @@ def port_name(path) -> str:
         mods = mods[1:]
     if mods in _AE_HEAD:
         prefix = _AE_HEAD[mods]
+    elif mods in _MF_HEAD:
+        prefix = _MF_HEAD[mods]
     else:
         prefix = ".".join(
             _DOWNSAMPLE.get(m, re.sub(r"^(layer\d+)_(\d+)$", r"\1.\2", m))
@@ -105,8 +114,8 @@ def state_dict_from_jax(variables_np: Mapping) -> Dict[str, torch.Tensor]:
     """``wseg_tpu`` variables (``{"params": ..., ["batch_stats": ...]}``
     or the params tree itself) -> port state_dict of float32 CPU
     tensors; ``batch_stats`` fill the live BatchNorms' running
-    statistics, and an ``AffineNorm`` (a scale with statistics in
-    neither collection) gets its identity statistics."""
+    statistics, and an ``AffineNorm`` (a decoder scale with statistics
+    in neither collection) gets its identity statistics."""
     params = variables_np.get("params", variables_np)
     leaves = _flatten(params)
     leaves.update(_flatten(variables_np.get("batch_stats", {})))
@@ -125,7 +134,8 @@ def state_dict_from_jax(variables_np: Mapping) -> Dict[str, torch.Tensor]:
         sd[port_name(path)] = torch.from_numpy(np.array(v, np.float32))
     for path, v in leaves.items():
         prefix = port_name(path)[:-len(".weight")]
-        if path[-1] == "scale" and prefix + ".running_mean" not in sd:
+        if (path[-1] == "scale" and path[0] == "decoder"
+                and prefix + ".running_mean" not in sd):
             sd[prefix + ".running_mean"] = torch.zeros(v.shape)
             sd[prefix + ".running_var"] = torch.ones(v.shape)
     return sd
