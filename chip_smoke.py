@@ -169,10 +169,13 @@ def cuda_median_ms(fn, reps: int, warmup: int = 2) -> float:
     return times[len(times) // 2]
 
 
-def device_ms(fn, reps: int, match: str = "") -> float:
+def device_ms(fn, reps: int, match: str = "", per_call: int = 0) -> float:
     """Kernel time on the card per call of ``fn``: the profiler's device
     time of every kernel (or those whose name holds ``match``) over
-    ``reps`` calls, divided by ``reps`` (no host gaps counted)."""
+    ``reps`` calls, divided by ``reps`` (no host gaps counted).  With
+    ``per_call`` (the matching launches of one call), the mean time of
+    the launches the profiler recorded times ``per_call``: a window can
+    drop some of a run's kernel records."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -186,11 +189,14 @@ def device_ms(fn, reps: int, match: str = "") -> float:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        us = sum(_dev_us(e, self_only=True) for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA and match in e.key
-                 and not getattr(e, "is_user_annotation", False))
+        evts = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and match in e.key
+                and not getattr(e, "is_user_annotation", False)]
+        us = sum(_dev_us(e, self_only=True) for e in evts)
         if us > 0:
             break
+    if per_call:
+        return us / 1e3 / sum(e.count for e in evts) * per_call
     return us / 1e3 / reps
 
 
@@ -1878,7 +1884,7 @@ def pamr_plane_report(raw, masks, card: str) -> None:
         k1 = cuda_median_ms(kernel, reps=20)
         k2 = cuda_median_ms(kernel, reps=20)
         p2 = cuda_median_ms(plain, reps=5)
-        dev = device_ms(kernel, reps=10, match=kname)
+        dev = device_ms(kernel, reps=10, match=kname, per_call=1)
         bnd = bound(nbytes, flops)
         print(f"kernel {name} at the zoo plane {(b, c, h, w)}: max_abs_err "
               f"{max_abs:.3e}, rel {rel:.3e} (tol {PAMR_REL_TOL:g}); "
