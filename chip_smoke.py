@@ -60,7 +60,15 @@ from the repository root.  Phases, each printing its own lines:
    losses, trained tensors moved; for the PAMR heads the refined masks
    of the kernels against the plain path, and both PAMR kernels against
    their plain versions and timed at each new plane ((16, 21, 21, 21),
-   (8, 21, 41, 41), (8, 21, 96, 96));
+   (8, 21, 41, 41), (8, 21, 96, 96)); then the flagship's SEAM steps
+   (``engine/seam.py``: a second forward at 0.5x scale and the ER loss),
+   2 warm-up and 6 timed with the mask and ER losses on, one with
+   ``er_on`` 0 and one on a sharpened head where the mask loss counts:
+   finite losses, ``loss_er`` > 0, two launches of each PAMR kernel a
+   step, median step and host issue ms, the refined masks of both
+   scales from the kernels against the plain path, and both kernels
+   against their plain versions and timed at the half-scale plane
+   (8, 21, 24, 24);
 7. exact-CRF kernels vs plain: the four lattice kernels (norm folding,
    the split splat, the all-axes blur, slice) against their plain
    versions on the Gaussian and bilateral lattices of a photo-like
@@ -83,9 +91,14 @@ from the repository root.  Phases, each printing its own lines:
    the fast and in the exact CRF mode; then the same ``train`` ->
    ``infer_val`` -> ``wseg_tpu_torch.eval_seg`` on ``voc_resnet50.yaml``,
    whose mIoU line must be printed and finite, and on
-   ``voc_resnet38.yaml`` with ``NET.MODEL CAM_CASA_WGAP_v6``;
+   ``voc_resnet38.yaml`` with ``NET.MODEL CAM_CASA_WGAP_v6``; then
+   ``wseg_tpu_torch.train_SEAM`` (validation, then one epoch) writes a
+   checkpoint, from which ``wseg_tpu_torch.infer_cam`` (GradCAM) writes
+   the 4 validation images' PNGs, the float32 GradCAM and FullGrad maps
+   of the card are held to the CPU's, and ``wseg_tpu_torch.cam`` writes
+   its three JPEGs;
 10. the card line, the kernel JSON line (launch counts summed over the
-    flagship's, the ``ae`` and the zoo's main paths), and last ``{"ok":
+    flagship's, the ``ae``, the zoo's and the SEAM main paths), and last ``{"ok":
     true, ...}``.  Each phase prints its wall seconds.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -1839,12 +1852,13 @@ ZOO_SERVE = (("bsl", "voc_resnet50.yaml"), ("CAM_MF", "voc_resnet38.yaml"))
 CRF_Q_TOL = 1e-4
 
 
-def pamr_plane_report(raw, masks, card: str) -> None:
+def pamr_plane_report(raw, masks, card: str,
+                      where: str = "the zoo plane") -> None:
     """Both PAMR kernels at one train step's plane against their plain
     versions (rel ``PAMR_REL_TOL``): the guide ``raw`` (B, H, W, 3)
     resized to the masks' (B, h, w, C) plane, dilations 1-24, 10 steps;
     errors, CUDA-event medians, the profiler's kernel time and the
-    bound (as ``phase_pamr_kernels`` counts it)."""
+    bound (as ``phase_pamr_kernels`` counts it), printed as ``where``."""
     from wseg_tpu_torch.ops.pamr import _guide
     from wseg_tpu_torch.ops.pamr_cuda import (
         pamr_affinity_cm,
@@ -1886,7 +1900,7 @@ def pamr_plane_report(raw, masks, card: str) -> None:
         p2 = cuda_median_ms(plain, reps=5)
         dev = device_ms(kernel, reps=10, match=kname, per_call=1)
         bnd = bound(nbytes, flops)
-        print(f"kernel {name} at the zoo plane {(b, c, h, w)}: max_abs_err "
+        print(f"kernel {name} at {where} {(b, c, h, w)}: max_abs_err "
               f"{max_abs:.3e}, rel {rel:.3e} (tol {PAMR_REL_TOL:g}); "
               f"median {k1:.4f} / {k2:.4f} ms per call (CUDA events), "
               f"{dev * 1e3:.2f} us of kernel (profiler, "
@@ -2290,10 +2304,284 @@ def phase_zoo_entry(card: str) -> None:
                   ("NET.MODEL", "CAM_CASA_WGAP_v6"))
 
 
-def timed(phase, card: str):
-    """Run ``phase(card)`` and print its wall seconds."""
+SEAM_WARMUP_STEPS, SEAM_TIMED_STEPS = 2, 6
+# card (float32, TF32 off) against CPU maps of the Grad-CAM engines on
+# the flagship model: GradCAM differentiates the head only; FullGrad the
+# whole WRN38, whose ReLU inputs within float32 noise of 0 flip between
+# the two devices' sums and move the backbone's bias-site gradients
+CAM_IMAGE = (256, 320)
+GRADCAM_TOL, FULLGRAD_TOL = 1e-3, 2e-2
+
+
+def phase_seam_train(card: str) -> dict:
+    """Full-width SEAM steps (``engine/seam.seam_train_step``) of the
+    flagship trainer's model: ``SEAM_WARMUP_STEPS + SEAM_TIMED_STEPS``
+    steps with the mask and ER losses on, then one with ``er_on`` 0;
+    two launches of each PAMR kernel a step (the full and the half-scale
+    forward), finite losses and ``loss_er`` > 0; then, on the last ER
+    step's batch, the refined masks of both scales from the kernels
+    against the plain path, and both kernels against their plain
+    versions at the half-scale plane; last, one step on a sharpened head
+    (``sharpen_head_and_label``) whose mask loss must count.  Returns the
+    PAMR launch counts of the first ``SEAM_WARMUP_STEPS +
+    SEAM_TIMED_STEPS + 1`` steps."""
+    import numpy as np
+    import torch
+
+    from wseg_tpu_torch.config import cfg, reset_cfg
+    from wseg_tpu_torch.engine.seam import seam_train_step
+    from wseg_tpu_torch.engine.train_loop import normalise_batch_image
+    from wseg_tpu_torch.engine.trainer import build_train_model
+    from wseg_tpu_torch.flagship import load_cfg, synthetic_train_batch
+    from wseg_tpu_torch.models.stage_net import _clean_only
+    from wseg_tpu_torch.ops.pamr import pamr, pamr_reference
+    from wseg_tpu_torch.ops.pamr_cuda import (
+        pamr_affinity_cm,
+        pamr_propagate_cm,
+    )
+    from wseg_tpu_torch.ops.resize import resize_bilinear
+    from wseg_tpu_torch.optim import make_optimizer
+
+    reset_cfg()
+    src = load_cfg("voc_resnet38.yaml")
+    crop, bs = int(cfg.DATASET.CROP_SIZE), int(cfg.TRAIN.BATCH_SIZE)
+    check(crop == 384 and bs == 8 and cfg.NET.DTYPE == "bfloat16",
+          f"not the flagship train config: crop {crop}, batch {bs}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = build_train_model(torch.device("cuda"), seed=0)
+    opt, _ = make_optimizer(cfg.NET, model)
+    rng = np.random.RandomState(5)
+    n = SEAM_WARMUP_STEPS + SEAM_TIMED_STEPS
+    batches = [synthetic_train_batch(rng, bs, crop) for _ in range(n + 1)]
+    kw = dict(device_jitter=True, loss_name=str(cfg.NET.LOSS),
+              mask_loss_bce=float(cfg.NET.MASK_LOSS_BCE))
+    wall, issue, losses = [], [], []
+    torch.cuda.synchronize()
+    pamr_affinity_cm.launches = 0
+    pamr_propagate_cm.launches = 0
+    for i, batch in enumerate(batches):
+        er_on = 0.0 if i == n else 1.0
+        before = (pamr_affinity_cm.launches, pamr_propagate_cm.launches)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        metrics = seam_train_step(model, opt, batch, 1.0, er_on, **kw)
+        t_issue = time.perf_counter()
+        torch.cuda.synchronize()
+        if SEAM_WARMUP_STEPS <= i < n:
+            wall.append((time.perf_counter() - t) * 1e3)
+            issue.append((t_issue - t) * 1e3)
+        delta = (pamr_affinity_cm.launches - before[0],
+                 pamr_propagate_cm.launches - before[1])
+        check(delta == (2, 2), f"SEAM step {i}: PAMR launches {delta}, "
+              "expected two of each kernel")
+        losses.append({k: float(v) for k, v in metrics.items()})
+    launches = {"pamr_affinity_cm": pamr_affinity_cm.launches,
+                "pamr_propagate_cm": pamr_propagate_cm.launches}
+    check(launches == {"pamr_affinity_cm": 2 * (n + 1),
+                       "pamr_propagate_cm": 2 * (n + 1)},
+          f"SEAM steps' PAMR launches {launches}")
+    check(all(np.isfinite(v) for m in losses for v in m.values()),
+          f"non-finite SEAM losses: {losses}")
+    check(all(m["loss_er"] > 0 for m in losses),
+          f"loss_er not > 0: {[m['loss_er'] for m in losses]}")
+    wall.sort()
+    issue.sort()
+    print(f"SEAM train steps ({src}, batch {bs}, crop {crop} and its 0.5x "
+          f"{crop // 2}, mask and ER losses on; after {SEAM_WARMUP_STEPS} "
+          f"warm-up): median {wall[len(wall) // 2]:.2f} ms (min "
+          f"{wall[0]:.2f}, max {wall[-1]:.2f}) over {SEAM_TIMED_STEPS}, "
+          f"host issue median {issue[len(issue) // 2]:.2f} ms; PAMR "
+          f"launches {launches} ({card})", flush=True)
+    print(f"SEAM losses, first step / last ER step / the er_on 0 step: "
+          f"{losses[0]} / {losses[n - 1]} / {losses[n]}", flush=True)
+
+    # the refined masks of both forwards on the last ER step's batch:
+    # kernel path vs plain path, then the kernels alone at the half plane
+    model.eval()
+    batch = batches[n - 1]
+    with torch.no_grad():
+        image, raw = normalise_batch_image(batch["image"], batch["jitter"])
+        for scale in (1.0, 0.5):
+            size = (int(crop * scale), int(crop * scale))
+            img_s = resize_bilinear(image, size, align_corners=True)
+            raw_s = resize_bilinear(raw, size, align_corners=True)
+            with torch.autocast("cuda", dtype=model.amp_dtype):
+                logits, _ = model._features(img_s)
+            masks = _clean_only(torch.softmax(logits.float(), dim=-1),
+                                batch["labels"])
+            dec_k = pamr(raw_s, masks, model.pamr_kernel, model.pamr_iter)
+            dec_p = pamr_reference(raw_s, masks, model.pamr_kernel,
+                                   model.pamr_iter)
+            err = float((dec_k - dec_p).abs().max())
+            print(f"SEAM masks_dec at {scale}x {tuple(masks.shape)} kernel "
+                  f"path vs plain path on the card: max_abs_err {err:.3e} "
+                  f"(tol 1e-5)", flush=True)
+            check(err <= 1e-5, f"SEAM masks_dec at {scale}x: {err}")
+        check(tuple(masks.shape) == (bs, crop // 16, crop // 16, 21),
+              f"half-scale plane {tuple(masks.shape)}")
+        pamr_plane_report(raw_s, masks, card, "the SEAM half-scale plane")
+    model.train()
+
+    batch = synthetic_train_batch(rng, bs, crop)
+    batch["labels"], n_counted = sharpen_head_and_label(model, batch)
+    before = (pamr_affinity_cm.launches, pamr_propagate_cm.launches)
+    metrics = {k: float(v) for k, v in seam_train_step(
+        model, opt, batch, 1.0, 1.0, **kw).items()}
+    delta = (pamr_affinity_cm.launches - before[0],
+             pamr_propagate_cm.launches - before[1])
+    print(f"SEAM mask-loss step: {n_counted} of {bs} images hold background "
+          f"+ their labels in the pseudo-GT; losses {metrics}", flush=True)
+    check(delta == (2, 2), f"SEAM mask-loss step: PAMR launches {delta}")
+    check(n_counted > 0 and metrics["loss_mask"] > 0
+          and metrics["loss_er"] > 0
+          and all(np.isfinite(v) for v in metrics.values()),
+          f"the refined masks did not reach the SEAM loss: {metrics}")
+    del model, opt, batches
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_seam_entry(card: str):
+    """``wseg_tpu_torch.train_SEAM.main``: validation first, then one
+    epoch of 16 synthetic 500x375 images, on the flagship config; the
+    checkpoint it saves.  Returns (temporary directory, VOC root, the
+    entry points' common flags and ``--set`` list, snapshot directory,
+    checkpoint suffix) for ``phase_cam_entry``, which removes the
+    directory."""
+    import torch
+
+    from wseg_tpu_torch import train_SEAM
+    from wseg_tpu_torch.config import reset_cfg
+    from wseg_tpu_torch.flagship import FLAGSHIP_CFG, write_synthetic_voc
+    from wseg_tpu_torch.utils.checkpoints import model_file
+
+    tmp = tempfile.mkdtemp(prefix="wseg_smoke_seam_")
+    try:
+        root = write_synthetic_voc(os.path.join(tmp, "data"), n_train=16,
+                                   n_val=4)
+        common = ["--dataset", "pascal_voc", "--cfg", FLAGSHIP_CFG,
+                  "--exp", "smoke_seam", "--run", "r0",
+                  "--snapshot-dir", os.path.join(tmp, "snap"),
+                  "--logdir", os.path.join(tmp, "logs"), "--workers", "2",
+                  "--device", "cuda"]
+        sets = ["--set", "DATASET.ROOT", root, "TEST.DATA_ROOT", root,
+                "TRAIN.NUM_EPOCHS", "0", "TRAIN.PRETRAIN", "0"]
+        reset_cfg()
+        t0 = time.perf_counter()
+        trainer = train_SEAM.main(common + sets)
+        dt = time.perf_counter() - t0
+        check(trainer.checkpoint.checkpoints, "train_SEAM saved nothing")
+        suffix = trainer.checkpoint.checkpoints[-1]
+        check(os.path.isfile(model_file(trainer.args.snapshot_dir, suffix)),
+              f"no checkpoint file for {suffix}")
+        print(f"entry point: train_SEAM.main, validation of 4 then 1 SEAM "
+              f"epoch of 16 synthetic 500x375 images in {dt:.2f} s, "
+              f"checkpoint {suffix} ({card})", flush=True)
+        snap = trainer.args.snapshot_dir
+        del trainer
+        torch.cuda.empty_cache()
+        return tmp, root, common, sets, snap, suffix
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+
+
+def phase_cam_entry(card: str, seam) -> None:
+    """On ``phase_seam_entry``'s checkpoint: ``infer_cam.main`` with
+    GradCAM on its 4 validation images (the PNG counts); one GradCAM and
+    one FullGrad map of the float32 model on the card against the same on
+    the CPU; ``cam.main`` on one image (three JPEGs)."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from wseg_tpu_torch import cam, infer_cam
+    from wseg_tpu_torch.config import cfg, reset_cfg
+    from wseg_tpu_torch.data.pascal_voc import MEAN, STD
+    from wseg_tpu_torch.flagship import load_cfg
+    from wseg_tpu_torch.gradcam import FullGrad, GradCAM
+    from wseg_tpu_torch.infer_val import _find_snapshot
+    from wseg_tpu_torch.models import get_model
+    from wseg_tpu_torch.utils.convert import load_checkpoint
+
+    tmp, root, common, sets, snap, suffix = seam
+    cwd = os.getcwd()
+    try:
+        reset_cfg()
+        out = os.path.join(tmp, "cam_masks")
+        t0 = time.perf_counter()
+        infer_cam.main(common + [
+            "--resume", suffix, "--method", "gradcam", "--infer-list",
+            os.path.join(root, "val_voc.txt"), "--mask-output-dir", out]
+            + sets)
+        n = {sub: len(os.listdir(os.path.join(out, sub)))
+             for sub in ("no_crf", "vis")}
+        check(n == {"no_crf": 4, "vis": 4}, f"infer_cam wrote {n}")
+        print(f"entry point: infer_cam --method gradcam loaded {suffix} and "
+              f"wrote {n} PNGs in {time.perf_counter() - t0:.2f} s ({card})",
+              flush=True)
+
+        # float32 maps of the checkpoint, card against CPU
+        reset_cfg()
+        load_cfg("voc_resnet38.yaml")
+        cfg.NET.DTYPE = "float32"
+        path = _find_snapshot(suffix, snap)
+        check(path, f"no snapshot {suffix} under {snap}")
+        with Image.open(os.path.join(root, "JPEGImages",
+                                     "syn0016.jpg")) as im:
+            arr = np.asarray(im.convert("RGB"), np.float32)[
+                :CAM_IMAGE[0], :CAM_IMAGE[1]] / 255.0
+        x = ((arr - np.asarray(MEAN, np.float32))
+             / np.asarray(STD, np.float32))[None]
+        maps = {}
+        for dev in ("cuda", "cpu"):
+            model = get_model(cfg.NET, num_classes=21)
+            load_checkpoint(model, path)
+            model = model.to(dev)
+            t0 = time.perf_counter()
+            maps[dev] = {"gradcam": GradCAM(model)(x, 0),
+                         "fullgrad": FullGrad(model)(x, 0)}
+            print(f"GradCAM + FullGrad maps on {dev} (float32, "
+                  f"{CAM_IMAGE[0]}x{CAM_IMAGE[1]}): "
+                  f"{time.perf_counter() - t0:.2f} s", flush=True)
+            del model
+        torch.cuda.empty_cache()
+        for name, tol in (("gradcam", GRADCAM_TOL),
+                          ("fullgrad", FULLGRAD_TOL)):
+            a, b = maps["cuda"][name], maps["cpu"][name]
+            err = float(np.abs(a - b).max())
+            print(f"{name} map, card vs CPU (float32): max_abs_err "
+                  f"{err:.3e}, mean {float(np.abs(a - b).mean()):.3e} (tol "
+                  f"{tol:g}); card map in [{a.min():.3f}, {a.max():.3f}] "
+                  f"({card})", flush=True)
+            check(a.shape == (1,) + CAM_IMAGE and np.isfinite(a).all()
+                  and err <= tol, f"{name} card vs CPU: {err}")
+
+        reset_cfg()
+        work = os.path.join(tmp, "cam_demo")
+        os.makedirs(work)
+        os.chdir(work)
+        t0 = time.perf_counter()
+        target = cam.main(common + [
+            "--resume", suffix, "--image-path",
+            os.path.join(root, "JPEGImages", "syn0016.jpg")] + sets)
+        files = sorted(os.listdir(work))
+        check(files == ["gradcam_cam.jpg", "gradcam_cam_gb.jpg",
+                        "gradcam_gb.jpg"], f"cam wrote {files}")
+        print(f"entry point: cam (target {target}, the argmax) wrote "
+              f"{files} in {time.perf_counter() - t0:.2f} s ({card})",
+              flush=True)
+    finally:
+        os.chdir(cwd)
+        reset_cfg()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def timed(phase, card: str, *args):
+    """Run ``phase(card, *args)`` and print its wall seconds."""
     t0 = time.perf_counter()
-    out = phase(card)
+    out = phase(card, *args)
     print(f"phase {phase.__name__}: {time.perf_counter() - t0:.2f} s",
           flush=True)
     return out
@@ -2325,21 +2613,23 @@ def main() -> int:
     launches = timed(phase_train, card)
     ae_launches = timed(phase_ae_train, card)
     zoo_launches = timed(phase_zoo_train, card)
+    seam_launches = timed(phase_seam_train, card)
     for entry in pamr_kernels:
         name = entry["name"]
         check(launches[name] > 0 and ae_launches[name] > 0
-              and zoo_launches[name] > 0,
+              and zoo_launches[name] > 0 and seam_launches[name] > 0,
               f"a train slice never launched {name}")
         entry["launches"] = (launches[name] + ae_launches[name]
-                             + zoo_launches[name])
+                             + zoo_launches[name] + seam_launches[name])
     print(f"main-path launches: fast CRF kernels {slice_launches} (flagship "
           f"slice) + {ae_serve_launches} (ae serving) + "
           f"{zoo_serve_launches} (zoo serving); PAMR kernels {launches} "
           f"(flagship steps) + {ae_launches} (ae steps) + {zoo_launches} "
-          f"(zoo steps)", flush=True)
+          f"(zoo steps) + {seam_launches} (SEAM steps)", flush=True)
     timed(phase_entry, card)
     timed(phase_ae_entry, card)
     timed(phase_zoo_entry, card)
+    timed(phase_cam_entry, card, timed(phase_seam_entry, card))
     import torch
 
     print(card, flush=True)

@@ -1,8 +1,11 @@
 """The port stands alone: importing ``wseg_tpu_torch`` and every one of
-its submodules (57 with the SoftMaxAE modules -- ``models/backbones/
-{resnet,vgg16}``, ``models/heads/softmax_ae``, ``ops/sg`` -- and the
-host tools ``eval_seg`` and ``convert_sbd``), and the root
-``chip_smoke.py``, pulls in neither jax, flax nor the JAX package."""
+its submodules (66 with the SoftMaxAE modules -- ``models/backbones/
+{resnet,vgg16}``, ``models/heads/softmax_ae``, ``ops/sg`` --, the host
+tools ``eval_seg`` and ``convert_sbd``, and the SEAM trainer and the
+Grad-CAM suite -- ``engine/seam``, ``train_SEAM``, ``ops/activations``,
+``gradcam/{cam_methods,fullgrad}``, ``infer_cam``, ``cam``), and the
+root ``chip_smoke.py``, pulls in neither jax, flax nor the JAX
+package."""
 
 import os
 import subprocess
@@ -24,8 +27,13 @@ print(len(names), bad)
 new = {"wseg_tpu_torch.models.backbones.resnet",
        "wseg_tpu_torch.models.backbones.vgg16",
        "wseg_tpu_torch.models.heads.softmax_ae", "wseg_tpu_torch.ops.sg",
-       "wseg_tpu_torch.eval_seg", "wseg_tpu_torch.convert_sbd"}
-sys.exit(1 if bad or len(names) < 57 or not new <= set(names) else 0)
+       "wseg_tpu_torch.eval_seg", "wseg_tpu_torch.convert_sbd",
+       "wseg_tpu_torch.engine.seam", "wseg_tpu_torch.train_SEAM",
+       "wseg_tpu_torch.ops.activations", "wseg_tpu_torch.gradcam",
+       "wseg_tpu_torch.gradcam.cam_methods",
+       "wseg_tpu_torch.gradcam.fullgrad", "wseg_tpu_torch.infer_cam",
+       "wseg_tpu_torch.cam"}
+sys.exit(1 if bad or len(names) < 66 or not new <= set(names) else 0)
 """
 
 

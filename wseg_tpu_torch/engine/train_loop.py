@@ -101,6 +101,14 @@ def train_step(model, optimizer, batch: Dict[str, torch.Tensor],
     with record_function("train.loss"):
         loss, metrics = _losses(out, labels, criterion, attn_loss_weight,
                                 mask_loss_bce, float(mask_loss_on))
+    backward_and_step(optimizer, loss, grad_clip)
+    return {k: v.detach() for k, v in metrics.items()}
+
+
+def backward_and_step(optimizer, loss: torch.Tensor,
+                      grad_clip: float = 0.0) -> None:
+    """Backward of ``loss`` and one ``optimizer`` step, in the
+    ``train.backward`` and ``train.optim`` ranges."""
     with record_function("train.backward"):
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
@@ -117,7 +125,6 @@ def train_step(model, optimizer, batch: Dict[str, torch.Tensor],
                 [p for g in optimizer.param_groups for p in g["params"]],
                 grad_clip)
         optimizer.step()
-    return {k: v.detach() for k, v in metrics.items()}
 
 
 @torch.no_grad()

@@ -127,19 +127,23 @@ class DecTrainer:
         pending.clear()
         return row
 
+    def _train_step(self, batch, epoch: int):
+        """One step on device ``batch``: the mask loss off while ``epoch
+        < TRAIN.PRETRAIN``."""
+        mask_on = 0.0 if epoch < int(cfg.TRAIN.PRETRAIN) else 1.0
+        return train_step(self.model, self.optimizer, batch, mask_on,
+                          device_jitter=self.device_jitter,
+                          grad_clip=self.grad_clip, **self.loss_kw)
+
     def train_epoch(self, epoch: int):
         self.model.train()
         stat = StatManager()
         timer = Timer("New Epoch: ")
-        mask_on = 0.0 if epoch < int(cfg.TRAIN.PRETRAIN) else 1.0
         bs = int(cfg.TRAIN.BATCH_SIZE)
         pending = []
         for i, batch in enumerate(self.trainloader):
-            db = self._device_batch(batch, train=True)
-            pending.append(train_step(
-                self.model, self.optimizer, db, mask_on,
-                device_jitter=self.device_jitter,
-                grad_clip=self.grad_clip, **self.loss_kw))
+            pending.append(self._train_step(
+                self._device_batch(batch, train=True), epoch))
             if i % 10 == 0:
                 last = self._flush(pending, stat)
                 msg = "Epoch[{}] Loss [{:04d}]: ".format(epoch, i)

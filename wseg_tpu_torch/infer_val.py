@@ -45,6 +45,34 @@ def _find_snapshot(resume: str, snapshot_dir: str) -> str:
     return ""
 
 
+def load_serving_model(args, device):
+    """``cfg.NET``'s serving model on ``device`` carrying ``--resume``'s
+    weights (a ``.pth`` path or a suffix under ``--snapshot-dir``), or
+    seeded random weights when there is none."""
+    from wseg_tpu_torch.models import get_model
+    from wseg_tpu_torch.models.backbones.common import (
+        seeded_init_,
+        stabilize_scratch_init,
+    )
+    from wseg_tpu_torch.utils.convert import load_checkpoint
+
+    # float32 products stay float32 (the view resampling and merge
+    # matmuls round to uint8 / argmax downstream; the CAM engines'
+    # gradients are held to the JAX package's)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = get_model(cfg.NET, num_classes=int(cfg.TEST.NUM_CLASSES))
+    snapshot = _find_snapshot(args.resume or "", args.snapshot_dir)
+    if snapshot:
+        load_checkpoint(model, snapshot)
+        print("Loaded snapshot", snapshot)
+    else:
+        print("WARNING: snapshot not found, using random init")
+        seeded_init_(model, torch.Generator().manual_seed(args.random_seed))
+        stabilize_scratch_init(model, 0.1)
+    return model.to(device)
+
+
 def main(argv):
     args = get_arguments(argv)
     cfg_from_file(args.cfg_file)
@@ -55,30 +83,9 @@ def main(argv):
     from wseg_tpu_torch.engine.infer import make_device_postprocess
     from wseg_tpu_torch.engine.serving import MultiScaleServer
     from wseg_tpu_torch.engine.writers import ResultWriter
-    from wseg_tpu_torch.models import get_model
-    from wseg_tpu_torch.models.backbones.common import (
-        seeded_init_,
-        stabilize_scratch_init,
-    )
-    from wseg_tpu_torch.utils.convert import load_checkpoint
-
-    # float32 products stay float32 (the view resampling and merge
-    # matmuls round to uint8 / argmax downstream)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    device = get_device(args)
 
     nc = int(cfg.TEST.NUM_CLASSES)
-    model = get_model(cfg.NET, num_classes=nc)
-    snapshot = _find_snapshot(args.resume or "", args.snapshot_dir)
-    if snapshot:
-        load_checkpoint(model, snapshot)
-        print("Loaded snapshot", snapshot)
-    else:
-        print("WARNING: snapshot not found, using random init")
-        seeded_init_(model, torch.Generator().manual_seed(args.random_seed))
-        stabilize_scratch_init(model, 0.1)
-    model = model.to(device)
+    model = load_serving_model(args, get_device(args))
 
     if not (str(cfg.TEST.METHOD) == "multiscale"
             and bool(cfg.TEST.DEVICE_MERGE)

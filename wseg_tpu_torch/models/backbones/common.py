@@ -20,6 +20,7 @@ name.  Layout NCHW.
 from __future__ import annotations
 
 import math
+from contextlib import contextmanager
 
 import torch
 import torch.nn.functional as F
@@ -80,9 +81,14 @@ class BatchNorm(nn.Module):
     0.9, Flax's convention; ``nn.BatchNorm2d`` would take the unbiased
     one).  ``.eval()``: normalises with the running averages.  The
     running statistics keep their buffers' dtype (float32 in training)
-    whatever the activations' dtype.
+    whatever the activations' dtype.  Inside ``frozen_running_stats``
+    a ``.train()`` forward normalises with the batch statistics and
+    leaves the running ones as they are (the SEAM step's second
+    forward, whose statistics Flax discards).
     ``affine=False`` has no weight and bias.
     """
+
+    update_running = True
 
     def __init__(self, features: int, eps: float = 1e-5,
                  momentum: float = 0.9, affine: bool = True):
@@ -101,16 +107,33 @@ class BatchNorm(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
-        with torch.no_grad():
-            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
-                                       correction=0)
-            m = self.momentum
-            self.running_mean.mul_(m).add_(mean.to(self.running_mean.dtype),
-                                           alpha=1.0 - m)
-            self.running_var.mul_(m).add_(var.to(self.running_var.dtype),
-                                          alpha=1.0 - m)
+        if self.update_running:
+            self._update_running(x)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                             self.eps)
+
+    @torch.no_grad()
+    def _update_running(self, x: torch.Tensor) -> None:
+        var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), correction=0)
+        m = self.momentum
+        self.running_mean.mul_(m).add_(mean.to(self.running_mean.dtype),
+                                       alpha=1.0 - m)
+        self.running_var.mul_(m).add_(var.to(self.running_var.dtype),
+                                      alpha=1.0 - m)
+
+
+@contextmanager
+def frozen_running_stats(model: nn.Module):
+    """Within this, ``model``'s live ``BatchNorm``s keep their running
+    statistics (a ``.train()`` forward still normalises with the batch's)."""
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    for m in bns:
+        m.update_running = False
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.update_running = True
 
 
 class Dropout(nn.Dropout):

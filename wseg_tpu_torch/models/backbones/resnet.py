@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from wseg_tpu_torch.models.backbones.common import FrozenBatchNorm, conv
+from wseg_tpu_torch.ops.activations import relu
 
 
 class Bottleneck(nn.Module):
@@ -42,11 +43,11 @@ class Bottleneck(nn.Module):
                                             FrozenBatchNorm(out))
 
     def forward(self, x):
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = F.relu(self.bn2(self.conv2(y)))
+        y = relu(self.bn1(self.conv1(x)))
+        y = relu(self.bn2(self.conv2(y)))
         y = self.bn3(self.conv3(y))
         identity = x if self.downsample is None else self.downsample(x)
-        return F.relu(y + identity)
+        return relu(y + identity)
 
 
 class ResNet(nn.Module):
@@ -71,7 +72,7 @@ class ResNet(nn.Module):
             setattr(self, f"layer{i + 1}", nn.Sequential(*blocks))
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        x = F.relu(self.bn1(self.conv1(x)))
+        x = relu(self.bn1(self.conv1(x)))
         x = F.max_pool2d(x, 3, 2, 1)
         conv3 = self.layer1(x)
         x = self.layer3(self.layer2(conv3))

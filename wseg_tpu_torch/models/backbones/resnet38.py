@@ -15,7 +15,6 @@ from __future__ import annotations
 from typing import Dict
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from wseg_tpu_torch.models.backbones.common import (
@@ -23,6 +22,7 @@ from wseg_tpu_torch.models.backbones.common import (
     FrozenBatchNorm,
     conv,
 )
+from wseg_tpu_torch.ops.activations import relu
 
 
 class ResBlock(nn.Module):
@@ -43,11 +43,11 @@ class ResBlock(nn.Module):
         self.conv_branch2b1 = conv(mid, out, 3, 1, dilation)
 
     def forward(self, x):
-        b = F.relu(self.bn_branch2a(x))
+        b = relu(self.bn_branch2a(x))
         x_bn_relu = b
         shortcut = x if self.same_shape else self.conv_branch1(b)
         b = self.conv_branch2a(b)
-        b = F.relu(self.bn_branch2b1(b))
+        b = relu(self.bn_branch2b1(b))
         b = self.conv_branch2b1(b)
         return shortcut + b, x_bn_relu
 
@@ -71,13 +71,13 @@ class ResBlockBot(nn.Module):
         self.conv_branch2b2 = conv(out // 2, out, 1)
 
     def forward(self, x):
-        b = F.relu(self.bn_branch2a(x))
+        b = relu(self.bn_branch2a(x))
         x_bn_relu = b
         shortcut = self.conv_branch1(b)
         b = self.conv_branch2a(b)
-        b = self.dropout_2b1(F.relu(self.bn_branch2b1(b)))
+        b = self.dropout_2b1(relu(self.bn_branch2b1(b)))
         b = self.conv_branch2b1(b)
-        b = self.dropout_2b2(F.relu(self.bn_branch2b2(b)))
+        b = self.dropout_2b2(relu(self.bn_branch2b2(b)))
         b = self.conv_branch2b2(b)
         return shortcut + b, x_bn_relu
 
@@ -125,6 +125,6 @@ class ResNet38(nn.Module):
         x, _ = self.b5_2(x)
         x, conv5 = self.b6(x)
         x, _ = self.b7(x)
-        conv6 = F.relu(self.bn7(x))
+        conv6 = relu(self.bn7(x))
         return {"conv3": conv3, "conv3_pre": conv3_pre, "conv4": conv4,
                 "conv5": conv5, "conv6": conv6}

@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from wseg_tpu_torch.models.backbones.common import Dropout, conv
+from wseg_tpu_torch.ops.activations import relu
 
 # (name, out channels, dilation) per stage; a 3x3 max pool of the given
 # stride follows every stage but the last
@@ -49,10 +50,10 @@ class VGG16(nn.Module):
         conv3 = None
         for convs, _, pool in _STAGES:
             for name, _ in convs:
-                x = F.relu(getattr(self, name)(x))
+                x = relu(getattr(self, name)(x))
             if name == "conv3_3":
                 conv3 = x
             if pool is not None:
                 x = F.max_pool2d(x, 3, pool, 1)
-        x = self.dropout(F.relu(self.fc6(x)))
-        return {"conv3": conv3, "conv6": F.relu(self.fc7(x))}
+        x = self.dropout(relu(self.fc6(x)))
+        return {"conv3": conv3, "conv6": relu(self.fc7(x))}

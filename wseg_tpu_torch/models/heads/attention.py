@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from wseg_tpu_torch.ops.activations import relu
 
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` in float32 whatever the autocast state."""
@@ -57,7 +58,7 @@ class ChannelAttention(nn.Module):
         w2 = self.fc2.weight.flatten(1)
 
         def mlp(v):
-            return F.linear(F.relu(F.linear(v, w1)), w2)
+            return F.linear(relu(F.linear(v, w1)), w2)
 
         avg = torch.mean(x, dim=(1, 2))
         mx = torch.amax(x, dim=(1, 2))

@@ -15,10 +15,10 @@ from __future__ import annotations
 from typing import Dict
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from wseg_tpu_torch.models.backbones.common import conv
+from wseg_tpu_torch.ops.activations import relu
 from wseg_tpu_torch.ops.resize import resize_bilinear
 
 LEVELS = ("conv3", "conv4", "conv5", "conv6")
@@ -52,7 +52,7 @@ class FPN(nn.Module):
         fused = None
         target = outs[0].shape[1:3]
         for k, o in zip(self.levels, outs):
-            o = F.relu(self._conv(getattr(self, f"smooth_{k}"), o))
+            o = relu(self._conv(getattr(self, f"smooth_{k}"), o))
             if o.shape[1:3] != target:
                 o = resize_bilinear(o, target, align_corners=False)
             fused = o if fused is None else fused + o

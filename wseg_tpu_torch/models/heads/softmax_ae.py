@@ -15,7 +15,6 @@ they and the gate draw from their ``generator``.  Layout NCHW.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from wseg_tpu_torch.models.backbones.common import (
@@ -24,6 +23,7 @@ from wseg_tpu_torch.models.backbones.common import (
     Dropout,
     conv,
 )
+from wseg_tpu_torch.ops.activations import ReLU, relu
 from wseg_tpu_torch.ops.resize import resize_bilinear
 from wseg_tpu_torch.ops.sg import StochasticGate
 
@@ -36,7 +36,7 @@ class _ASPPBranch(nn.Module):
         self.bn = AffineNorm(256)
 
     def forward(self, x):
-        return F.relu(self.bn(self.atrous_conv(x)))
+        return relu(self.bn(self.atrous_conv(x)))
 
 
 class ASPP(nn.Module):
@@ -49,7 +49,7 @@ class ASPP(nn.Module):
             setattr(self, f"aspp{i + 1}", _ASPPBranch(in_ch, d))
         self.global_avg_pool = nn.Sequential(
             nn.AdaptiveAvgPool2d(1), conv(in_ch, 256, 1), AffineNorm(256),
-            nn.ReLU())
+            ReLU())
         self.conv1 = conv(5 * 256, 256, 1)
         self.bn1 = AffineNorm(256)
         self.dropout = Dropout(0.5)
@@ -57,7 +57,7 @@ class ASPP(nn.Module):
     def forward(self, x):
         outs = [getattr(self, f"aspp{i}")(x) for i in range(1, 5)]
         outs.append(self.global_avg_pool(x).expand_as(outs[0]))
-        y = F.relu(self.bn1(self.conv1(torch.cat(outs, dim=1))))
+        y = relu(self.bn1(self.conv1(torch.cat(outs, dim=1))))
         return self.dropout(y)
 
 
@@ -68,17 +68,17 @@ class GCI(nn.Module):
     def __init__(self, shallow_ch: int = 256, deep_ch: int = 256):
         super().__init__()
         self.fc_deep = nn.Sequential(conv(deep_ch, 512, 1), BatchNorm(512),
-                                     nn.ReLU())
+                                     ReLU())
         self.fc_skip = nn.Sequential(conv(shallow_ch, 256, 1),
                                      BatchNorm(256, affine=False))
         self.fc_cls = nn.Sequential(conv(256, 256, 1), BatchNorm(256),
-                                    nn.ReLU())
+                                    ReLU())
 
     def forward(self, x_shallow, y_deep):
         attrs = self.fc_deep(y_deep).amax(dim=(2, 3))         # (B, 512)
         gamma, beta = attrs[:, :256, None, None], attrs[:, 256:, None, None]
         x = self.fc_skip(x_shallow)
-        x = F.relu(x * (gamma + 1.0) + beta)
+        x = relu(x * (gamma + 1.0) + beta)
         return self.fc_cls(x)
 
 
@@ -91,14 +91,14 @@ class SoftMaxAEDecoder(nn.Module):
         super().__init__()
         self.aspp = ASPP(deep_ch)
         self.fc8_skip = nn.Sequential(conv(shallow_ch, 48, 1), BatchNorm(48),
-                                      nn.ReLU())
+                                      ReLU())
         self.fc8_x = nn.Sequential(conv(256 + 48, 256, 3), BatchNorm(256),
-                                   nn.ReLU())
+                                   ReLU())
         self.shallow_mask = GCI(shallow_ch, 256)
         self.sg = StochasticGate(sg_psi)
         self.last_conv = nn.Sequential(
-            conv(256, 256, 3), BatchNorm(256), nn.ReLU(), Dropout(0.5),
-            conv(256, 256, 3), BatchNorm(256), nn.ReLU(), Dropout(0.1),
+            conv(256, 256, 3), BatchNorm(256), ReLU(), Dropout(0.5),
+            conv(256, 256, 3), BatchNorm(256), ReLU(), Dropout(0.1),
             nn.Conv2d(256, num_classes - 1, 1))
 
     def forward(self, conv3: torch.Tensor, conv6: torch.Tensor):

@@ -25,7 +25,11 @@ cleaned masks at image size, ``masks_dec`` (the refined masks, rescaled
 and cleaned; None without refinement), ``mask_logits`` (feature
 resolution, float32) and ``attn_map`` for the heads with the attention
 loss.  Dropout, the stochastic gate and the decoder's live BatchNorms
-follow ``.train()``/``.eval()``.
+follow ``.train()``/``.eval()``.  ``backbone_taps(image)`` returns the
+backbone's taps (NHWC) and ``forward(..., taps=...)`` takes entries in
+their place, for gradients with respect to a tap (the Grad-CAM
+engines); the model ReLUs that ``wseg_tpu`` routes through its guided
+``relu`` go through ``ops/activations.relu`` here.
 
 The backbone's and the head's layers are registered on the model
 itself, as in the reference (whose model classes subclass the
@@ -37,10 +41,9 @@ backbone), so state_dict keys are the reference's: ``conv1a.weight``,
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Sequence
+from typing import Any, Dict, Optional, Sequence
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from wseg_tpu_torch.models.backbones import get_backbone
@@ -54,6 +57,7 @@ from wseg_tpu_torch.models.heads.attention import (
     pad_to_multiple,
 )
 from wseg_tpu_torch.models.heads.softmax_ae import SoftMaxAEDecoder
+from wseg_tpu_torch.ops.activations import relu
 from wseg_tpu_torch.ops.pamr import pamr
 from wseg_tpu_torch.ops.pooling import (
     focal_penalty,
@@ -250,6 +254,12 @@ class StageNet(nn.Module):
         if spec.multilevel == "concat":
             dim += taps[spec.conv3_tap] + taps["conv4"]
         if spec.fc7:
+            if "fc7" in self._modules:
+                raise ValueError(
+                    f"NET.MODEL '{spec.name}' has a head layer 'fc7' and "
+                    f"backbone '{backbone}' has a layer of that name; the "
+                    "port keeps the reference's flat state_dict names, "
+                    "where the two cannot both exist (ROADMAP.md C3)")
             self.fc7 = nn.Conv2d(dim, spec.sa_dim or sa_dim, 1, bias=False)
             dim = spec.sa_dim or sa_dim
         if spec.self_attn == "window":
@@ -321,7 +331,7 @@ class StageNet(nn.Module):
             x = self.dropout2d(x)
         x = self.fc8(x)
         if spec.mask_branch_relu:
-            x = F.relu(x)
+            x = relu(x)
         x = _nhwc(x).float()
         if spec.bg == "const_one":
             x = torch.cat([torch.ones_like(x[..., :1]), x], dim=-1)
@@ -343,15 +353,31 @@ class StageNet(nn.Module):
         return (labels[:, 1:] if self.spec.labels_with_bg
                 else labels).float()
 
+    def backbone_taps(self, image: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The backbone's taps of NHWC ``image`` as NHWC tensors (the
+        Grad-CAM engines' activations; ``wseg_tpu``'s ``backbone_taps``)."""
+        with self._autocast(image.device.type):
+            return {k: _nhwc(v) for k, v in self._taps(image).items()}
+
     def forward(self, image: torch.Tensor,
                 image_raw: Optional[torch.Tensor] = None,
-                labels: Optional[torch.Tensor] = None) -> ModelOutput:
+                labels: Optional[torch.Tensor] = None, *,
+                taps: Optional[Dict[str, torch.Tensor]] = None
+                ) -> ModelOutput:
         """Forward of ImageNet-normalised NHWC ``image``; test mode when
         ``labels`` is None, else the train path (``image_raw`` is the
-        [0, 1] RGB guide of PAMR)."""
+        [0, 1] RGB guide of PAMR).  ``taps`` (NHWC, as ``backbone_taps``
+        returns them) replace those entries of the backbone's tap dict,
+        so a gradient can be taken with respect to one; the backbone is
+        not run when they hold every tap the head reads."""
         spec = self.spec
-        with self._autocast(image.device.type):
-            d = self._taps(image)
+        if taps is not None and required_taps(spec) <= set(taps):
+            d = {}
+        else:
+            with self._autocast(image.device.type):
+                d = self._taps(image)
+        if taps is not None:
+            d.update({k: v.permute(0, 3, 1, 2) for k, v in taps.items()})
         if spec.multilevel == "sum":
             return self._forward_mf(d, image, labels)
         if spec.scoring == "cam":
@@ -397,7 +423,7 @@ class StageNet(nn.Module):
             cls = self.fc8(pooled).flatten(1).float()
             logits = _conv_nhwc(self.fc8, x)
         size_hw = (image.shape[1], image.shape[2])
-        masks = F.relu(resize_bilinear(logits, size_hw).float())
+        masks = relu(resize_bilinear(logits, size_hw).float())
         return self._cam_output(cls, self._cam_masks(masks),
                                 logits.float(), attn_map, labels)
 
@@ -417,7 +443,7 @@ class StageNet(nn.Module):
         levels = []
         for k, lg in enumerate(lgs):
             m = resize_bilinear(lg, size_hw).float()
-            levels.append(F.relu(m) if k == 0 else m + F.relu(m))
+            levels.append(relu(m) if k == 0 else m + relu(m))
         masks = sum(levels) / len(levels)
         return self._cam_output(cls, self._cam_masks(masks),
                                 lgs[0].float(), None, labels)
@@ -467,17 +493,17 @@ class StageNet(nn.Module):
         CAM propagated by a float32 cosine affinity (B, hw, hw) of
         features from the image and the detached conv4/conv5 taps."""
         h, w = logits.shape[1], logits.shape[2]
-        cam_d = F.relu(logits.detach())
+        cam_d = relu(logits.detach())
         cam_max = torch.amax(cam_d, dim=(1, 2), keepdim=True) + 1e-5
-        cam_norm = F.relu(cam_d - 1e-5) / cam_max
+        cam_norm = relu(cam_d - 1e-5) / cam_max
         fg = cam_norm[..., 1:]
         fg_max = torch.amax(fg, dim=-1, keepdim=True)
         cam_norm = torch.cat([1.0 - fg_max, torch.where(
             fg < fg_max, torch.zeros_like(fg), fg)], dim=-1)
 
         with self._autocast(image.device.type):
-            f83 = F.relu(self.f8_3(d["conv4"].detach()))
-            f84 = F.relu(self.f8_4(d["conv5"].detach()))
+            f83 = relu(self.f8_3(d["conv4"].detach()))
+            f84 = relu(self.f8_4(d["conv5"].detach()))
         f83 = resize_bilinear(_nhwc(f83), (h, w))
         f84 = resize_bilinear(_nhwc(f84), (h, w))
         xs = resize_bilinear(image, (h, w)).to(f83.dtype)
@@ -488,7 +514,7 @@ class StageNet(nn.Module):
             fv = f.reshape(b, h * w, -1).float()
             fv = fv / (torch.linalg.vector_norm(fv, dim=-1, keepdim=True)
                        + 1e-5)
-            aff = F.relu(torch.bmm(fv, fv.transpose(1, 2)))
+            aff = relu(torch.bmm(fv, fv.transpose(1, 2)))
             aff = aff / (aff.sum(dim=1, keepdim=True) + 1e-5)
             out = torch.bmm(aff.transpose(1, 2),
                             cam_norm.reshape(b, h * w, -1))
