@@ -78,6 +78,19 @@ from the repository root.  Phases, each printing its own lines:
    sizes; the slice's L2 floor (each warp tile's distinct row sectors,
    the tables and out once) at the L2 rate of a copy; the one-call filter
    against the same steps called one by one;
+   then multicrop serving: the flagship model serves the 8 images
+   through ``MultiCropServer`` at the covering geometry (PAD 640x640,
+   crops 448x448 on a 2x2 grid with flip, 8 views an image), fast then
+   exact CRF: label maps, finite scores, launch counts, images/s, peak
+   memory, the postprocess's peak bytes per slot against the server's
+   budget; the fast CRF's planes read from its launches, both fast-CRF
+   kernels timed and held at them, the lattice kernels on the 640x640
+   canvas, and the fast and exact CRF of image 0 against their plain
+   versions; then the host-view paths: 4 VOC-sized images submitted
+   with 640x480 and 520x390 ones (over the 512x512 device canvas, sent
+   to host views), the 4 with ``DEVICE_VIEWS`` off, device against host
+   views' merged scores, and ``InferenceEngine.run_image`` (host merge,
+   device merge, multicrop) against the server on one image;
 8. exact serving slice: the flagship model serves the 8 images with
    ``TEST.CRF_MODE exact`` (host lattice build + one host call of the
    splat, blur and slice kernels per filter); checks the label maps and
@@ -88,7 +101,9 @@ from the repository root.  Phases, each printing its own lines:
 9. entry point: ``python -m wseg_tpu_torch.train`` (``main``) trains one
    short epoch + validation on a synthetic VOC directory and writes a
    checkpoint, which ``wseg_tpu_torch.infer_val`` loads and serves, in
-   the fast and in the exact CRF mode; then the same ``train`` ->
+   the fast and in the exact CRF mode, with ``TEST.METHOD multicrop``
+   and with ``TEST.DEVICE_MERGE False`` (the per-image path), the last
+   two scored by ``eval_seg``; then the same ``train`` ->
    ``infer_val`` -> ``wseg_tpu_torch.eval_seg`` on ``voc_resnet50.yaml``,
    whose mIoU line must be printed and finite, and on
    ``voc_resnet38.yaml`` with ``NET.MODEL CAM_CASA_WGAP_v6``; then
@@ -98,7 +113,8 @@ from the repository root.  Phases, each printing its own lines:
    of the card are held to the CPU's, and ``wseg_tpu_torch.cam`` writes
    its three JPEGs;
 10. the card line, the kernel JSON line (launch counts summed over the
-    flagship's, the ``ae``, the zoo's and the SEAM main paths), and last ``{"ok":
+    flagship's, the ``ae``, the zoo's, multicrop, host-view and the SEAM
+    main paths), and last ``{"ok":
     true, ...}``.  Each phase prints its wall seconds.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -280,7 +296,7 @@ def phase_build(card: str) -> None:
             print(f"  nvcc {name}: {line}", flush=True)
 
 
-def phase_kernel(card: str) -> dict:
+def phase_kernel(card: str, shapes=KERNEL_SHAPES) -> dict:
     """The bilateral-message kernel against its plain version at the fast
     CRF's two message shapes (21 classes and the C = 1 norm filter);
     returns the entry of the 21-class shape (10 of the 12 launches of a
@@ -296,7 +312,7 @@ def phase_kernel(card: str) -> dict:
 
     taps = [(-dy, -dx) for dy, dx in _bilateral_taps(40.0, 2.0)]
     entry = None
-    for k, shape in enumerate(KERNEL_SHAPES):
+    for k, shape in enumerate(shapes):
         b, c, h, w = shape
         plan = band_plan(tuple(taps), c, h, w)
         gen = torch.Generator(device="cuda").manual_seed(k)
@@ -368,7 +384,7 @@ def ptxas_lines(name: str, entry: str) -> list:
     return out
 
 
-def phase_gauss(card: str) -> dict:
+def phase_gauss(card: str, cases=GAUSS_CASES) -> dict:
     """The Gaussian-blur kernel against its plain version at the fast
     CRF's four filter shapes, each without and with the valid mask as
     the CRF calls it (at C = 1 the norm filter blurs the mask itself, so
@@ -387,13 +403,13 @@ def phase_gauss(card: str) -> dict:
     )
 
     torch.backends.cudnn.allow_tf32 = False
-    for r in sorted({r for _, r in GAUSS_CASES}):
+    for r in sorted({r for _, r in cases}):
         lines = ptxas_lines("crf_gauss", f"gauss_band_kernelILi{r}E")
         check(lines, f"no ptxas lines for gauss_band_kernel<{r}>")
         print(f"ptxas gauss_band_kernel<{r}>: {'; '.join(lines)}",
               flush=True)
     entry = None
-    for k, (shape, r) in enumerate(GAUSS_CASES):
+    for k, (shape, r) in enumerate(cases):
         k1d = gauss_taps(r)
         gen = torch.Generator(device="cuda").manual_seed(3 + k)
         x = torch.rand(shape, generator=gen, device="cuda")
@@ -485,13 +501,11 @@ def phase_gauss(card: str) -> dict:
 
 
 def phase_slice(card: str) -> dict:
-    import numpy as np
     import torch
 
     from wseg_tpu_torch.config import cfg
     from wseg_tpu_torch.engine.infer import _postprocess
     from wseg_tpu_torch.flagship import (
-        THRESHS,
         build_flagship_server,
         load_cfg,
         synthetic_images,
@@ -557,14 +571,7 @@ def phase_slice(card: str) -> dict:
           f"launches {launches} for {pp_calls[0]} postprocess calls, "
           "expected 12 of each kernel per call")
 
-    for (img, lab), (res, got_lab) in zip(images, results):
-        check(np.array_equal(got_lab, lab), "labels changed")
-        for t in THRESHS:
-            for key in ("pred", "pred_crf"):
-                m = res[t][key]
-                check(m.dtype == np.uint8 and m.shape == img.shape[:2],
-                      f"{key}@{t}: {m.dtype} {m.shape} for {img.shape}")
-                check(int(m.max()) <= 20, f"{key}@{t}: label {m.max()}")
+    check_results("slice", images, results)
 
     # scores of one image per size are finite, and the writer math
     # (incl. the CRF with both kernels) on the card matches the same
@@ -1257,11 +1264,14 @@ def slice_l2_bytes(tables, c: int) -> dict:
             "tile_distinct": distinct}
 
 
-def phase_lattice_kernels(card: str) -> list:
+def phase_lattice_kernels(card: str, canvas=LATTICE_CANVAS,
+                          image=LATTICE_IMAGE, window=LATTICE_WINDOW,
+                          full: bool = True) -> list:
     """The four exact-CRF kernels against their plain versions on the
-    lattices of one photo-like VOC image on the flagship merge canvas:
-    (entries without launches) for the bilateral lattice, and the same
-    checks for the Gaussian one; then per lattice the one-call filter."""
+    lattices of one photo-like VOC image on a merge canvas (the
+    flagship's by default): (entries without launches) for the bilateral
+    lattice, and the same checks for the Gaussian one; with ``full``
+    also the slice's L2 floor and per lattice the one-call filter."""
     import torch
 
     from wseg_tpu_torch.engine.infer import ExactCRF
@@ -1269,16 +1279,15 @@ def phase_lattice_kernels(card: str) -> list:
     from wseg_tpu_torch.ops import crf_lattice_cuda as k
     from wseg_tpu_torch.ops.crf_lattice import SPLAT_CHUNK, kernel_norm
 
-    hc, wc = LATTICE_CANVAS
-    img = smooth_image(*LATTICE_IMAGE, seed=0)
+    hc, wc = canvas
+    img = smooth_image(*image, seed=0)
     ex = ExactCRF(THRESHS, crf_iters=CRF_ITERS)
     t0 = time.perf_counter()
-    lat_g, lat_b = ex.build(img, LATTICE_CANVAS, LATTICE_WINDOW,
-                            device="cuda")
+    lat_g, lat_b = ex.build(img, canvas, window, device="cuda")
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) * 1e3
-    print(f"exact-CRF lattices of a photo-like {LATTICE_IMAGE[1]}x"
-          f"{LATTICE_IMAGE[0]} image on the {hc}x{wc} canvas: Gaussian (d=2) "
+    print(f"exact-CRF lattices of a photo-like {image[1]}x"
+          f"{image[0]} image on the {hc}x{wc} canvas: Gaussian (d=2) "
           f"m = {lat_g.m}, bilateral (d=5) m = {lat_b.m}, CSR rows of the "
           f"bilateral lattice: mean {lat_b.entries.numel() / lat_b.m:.1f}, "
           f"max {int((lat_b.row_ptr[1:] - lat_b.row_ptr[:-1]).max())} "
@@ -1290,7 +1299,7 @@ def phase_lattice_kernels(card: str) -> list:
     gen = torch.Generator(device="cuda").manual_seed(2)
     q = torch.softmax(torch.randn((hc * wc, 21), generator=gen,
                                   device="cuda") * 3, dim=-1)
-    l2_bps = l2_rate()
+    l2_bps = l2_rate() if full else None
     entries = []
     for name, tables in (("Gaussian", lat_g), ("bilateral", lat_b)):
         norm = kernel_norm(tables)
@@ -1375,7 +1384,7 @@ def phase_lattice_kernels(card: str) -> list:
                   f"median {p1:.4f} / {p2:.4f} ms; bound "
                   f"{bnd['bound_ms'] * 1e3:.2f} us ({bnd['bound_by']}, "
                   f"{nbytes / 1e6:.2f} MB) ({card})", flush=True)
-            if kname == "lattice_slice":
+            if kname == "lattice_slice" and full:
                 l2 = slice_l2_bytes(tables, c)
                 floor_us = l2["floor"] / l2_bps * 1e6
                 no_l1_us = (l2["no_l1"] + l2["once"]) / l2_bps * 1e6
@@ -1397,7 +1406,8 @@ def phase_lattice_kernels(card: str) -> list:
                     "replaces": src, "max_abs_err": max_abs,
                     "ms": min(k1, k2), "plain_ms": min(p1, p2), **bnd,
                     "library_ms": lib_ms})
-        lattice_filter_row(name, tables, wn_pix, wn_csr, q, card)
+        if full:
+            lattice_filter_row(name, tables, wn_pix, wn_csr, q, card)
     return entries
 
 
@@ -1527,12 +1537,10 @@ def check_against_host_oracle(img, lab, merged, window, tables, server,
 def phase_exact_slice(card: str) -> dict:
     """The flagship serving path with TEST.CRF_MODE exact; returns the
     lattice kernels' launch counts of the served run."""
-    import numpy as np
     import torch
 
     from wseg_tpu_torch.config import cfg, reset_cfg
     from wseg_tpu_torch.flagship import (
-        THRESHS,
         build_flagship_server,
         load_cfg,
         synthetic_images,
@@ -1572,14 +1580,7 @@ def phase_exact_slice(card: str) -> dict:
           f"{len(images) / dt:.3f} images/s; launches {launches} "
           f"(expected {want}) ({card})", flush=True)
     check(launches == want, f"lattice launches {launches}, expected {want}")
-    for (img, lab), (res, got_lab) in zip(images, results):
-        check(np.array_equal(got_lab, lab), "labels changed")
-        for t in THRESHS:
-            for key in ("pred", "pred_crf"):
-                m = res[t][key]
-                check(m.dtype == np.uint8 and m.shape == img.shape[:2],
-                      f"{key}@{t}: {m.dtype} {m.shape} for {img.shape}")
-                check(int(m.max()) <= 20, f"{key}@{t}: label {m.max()}")
+    check_results("exact slice", images, results)
 
     # per image: host build and device time apart, one at a time
     ex = pp.exact
@@ -1620,7 +1621,9 @@ def phase_exact_slice(card: str) -> dict:
 
 def phase_entry(card: str) -> None:
     """``wseg_tpu_torch.train.main`` for one short epoch + validation on
-    a synthetic VOC, then ``infer_val`` on its checkpoint."""
+    a synthetic VOC, then ``infer_val`` on its checkpoint: fast and exact
+    CRF, multicrop and the per-image path, the last two scored by
+    ``eval_seg``."""
     import torch
 
     from wseg_tpu_torch import infer_val, train
@@ -1683,9 +1686,458 @@ def phase_entry(card: str) -> None:
         check(n == {"no_crf": 4, "crf": 4}, f"exact infer_val wrote {n}")
         print(f"entry point: infer_val with TEST.CRF_MODE exact wrote {n} "
               f"PNGs at threshold 0.0 in {dt:.2f} s ({card})", flush=True)
+
+        # multicrop at the covering geometry, and the per-image path
+        # (InferenceEngine, host C++ CRF in the writers), each scored
+        for tag, extra in (("multicrop", MULTICROP_SET),
+                           ("per-image", ["TEST.DEVICE_MERGE", "False"])):
+            reset_cfg()
+            out = os.path.join(tmp, "masks_" + tag)
+            t0 = time.perf_counter()
+            infer_val.main(common + ["--resume", suffix, "--infer-list",
+                                     os.path.join(root, "val_voc.txt"),
+                                     "--mask-output-dir", out] + sets
+                           + extra)
+            dt = time.perf_counter() - t0
+            n = {sub: len(os.listdir(os.path.join(out + "_0", sub)))
+                 for sub in ("no_crf", "crf")}
+            check(n == {"no_crf": 4, "crf": 4}, f"{tag} infer_val wrote {n}")
+            miou = score_masks(root, out + "_0", tmp)
+            print(f"entry point: infer_val ({tag}, {extra}) wrote {n} PNGs "
+                  f"at threshold 0.0 in {dt:.2f} s; eval_seg mIoU "
+                  f"{miou:.4f} ({card})", flush=True)
     finally:
         reset_cfg()
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def score_masks(root: str, masks: str, tmp: str) -> float:
+    """``eval_seg`` on ``<masks>/crf``: its table must show the 4 images
+    and a finite mIoU, which it returns."""
+    import contextlib
+    import io
+    import math
+
+    from wseg_tpu_torch import eval_seg
+
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        stats = eval_seg.main([
+            "--data", root, "--filelist", os.path.join(root, "val_voc.txt"),
+            "--masks", os.path.join(masks, "crf"),
+            "--log-scores", os.path.join(tmp, "scores.log")])
+    lines = [ln for ln in text.getvalue().splitlines()
+             if ln.startswith(("# of images", "mIoU"))]
+    check(len(lines) == 3 and "# of images: 4" in lines[0]
+          and math.isfinite(stats["miou"]),
+          f"eval_seg printed {lines}, mIoU {stats['miou']}")
+    return float(stats["miou"])
+
+
+# multicrop serving at the covering geometry of bench.py (the default
+# PAD 1024 / grid 2x2 has stride 512 > crop 448 and is refused): crops
+# 448x448 on a 2x2 grid with flip over the 640x640 canvas, stride 320
+MULTICROP_SET = ["TEST.METHOD", "multicrop", "TEST.PAD_SIZE", "[640, 640]"]
+# a photo larger than the flagship's 512x512 device canvas, and a second
+# one just over it: both take the host-view path
+OVERSIZE = [(640, 480), (520, 390)]
+# card bfloat16 model, device against host views of the same image
+# (one-LSB pixel differences through the forward): mean |d merged|
+VIEWS_MEAN_TOL = 1e-2
+# the per-image engine against the server on one image (same batches,
+# float32 merges in another order)
+ENGINE_TOL = 1e-4
+
+
+def crf_planes(run) -> dict:
+    """Run ``run()`` and count the fast CRF's kernel calls in it by plane:
+    ("bilateral_message_cm", shape) and ("gauss_blur_cm", shape, r,
+    masked)."""
+    from collections import Counter
+
+    from wseg_tpu_torch.ops import crf as crf_mod
+
+    seen = Counter()
+    bil, gauss = crf_mod.bilateral_message_cm, crf_mod.gauss_blur_cm
+
+    def rec_b(q, *args, **kw):
+        seen[("bilateral_message_cm", tuple(q.shape))] += 1
+        return bil(q, *args, **kw)
+
+    def rec_g(x, k1d, r, *args, **kw):
+        seen[("gauss_blur_cm", tuple(x.shape), int(r),
+              kw.get("mask") is not None)] += 1
+        return gauss(x, k1d, r, *args, **kw)
+
+    crf_mod.bilateral_message_cm, crf_mod.gauss_blur_cm = rec_b, rec_g
+    try:
+        run()
+    finally:
+        crf_mod.bilateral_message_cm, crf_mod.gauss_blur_cm = bil, gauss
+    return dict(seen)
+
+
+def check_results(tag, images, results, labels=True) -> None:
+    """uint8 label maps in [0, 20] at each image's size; the GT labels
+    back."""
+    import numpy as np
+
+    from wseg_tpu_torch.flagship import THRESHS
+
+    for (img, lab), (res, got_lab) in zip(images, results):
+        if labels:
+            check(np.array_equal(got_lab, lab), f"{tag}: labels changed")
+        for t in THRESHS:
+            for key in ("pred", "pred_crf"):
+                m = res[t][key]
+                check(m.dtype == np.uint8 and m.shape == img.shape[:2]
+                      and int(m.max()) <= 20,
+                      f"{tag} {key}@{t}: {m.dtype} {m.shape} max {m.max()}")
+
+
+def serve_timed(server, images):
+    """Submit every image, wait for all; (results, seconds)."""
+    t0 = time.perf_counter()
+    futs = [server.submit(img, lab) for img, lab in images]
+    results = [f.result(timeout=600) for f in futs]
+    return results, time.perf_counter() - t0
+
+
+def pp_peak_ratio(pp, hw, slots: int, lab, n_views: int) -> float:
+    """Peak device bytes of one ``dispatch_group`` over ``slots`` random
+    (H, W, 21) merged maps (the window the whole canvas), per slot, over
+    the bytes of one slot's float32 merged map."""
+    import numpy as np
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    h, w = hw
+    sums = torch.rand((slots, h, w, 21), generator=gen, device="cuda")
+    u8 = torch.randint(0, 256, (slots, h, w, 3), generator=gen,
+                       device="cuda").to(torch.uint8)
+    wins = np.tile(np.asarray([0, 0, h, w], np.int32), (slots, 1))
+    labels = np.repeat(lab[None], slots, 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = pp.dispatch_group(sums, labels, wins, u8, n_views)
+    torch.cuda.synchronize()
+    del out
+    return ((torch.cuda.max_memory_allocated() - base) / slots
+            / (h * w * 21 * 4))
+
+
+def phase_multicrop_serve(card: str):
+    """The flagship model serves the 8 VOC-sized images through
+    ``MultiCropServer`` at the covering geometry, in fast then exact CRF
+    mode; the fast CRF's planes read from its launches, the postprocess's
+    peak bytes per slot, both fast-CRF kernels at those planes, the
+    lattice kernels on the 640x640 canvas and the fast and exact CRF on
+    image 0's merged map against their plain versions.  Returns the fast
+    CRF's and the lattice kernels' launches of the served runs."""
+    import numpy as np
+    import torch
+
+    from wseg_tpu_torch.config import cfg, cfg_from_list, reset_cfg
+    from wseg_tpu_torch.engine import serving
+    from wseg_tpu_torch.engine.infer import ExactCRF
+    from wseg_tpu_torch.flagship import (
+        THRESHS,
+        build_flagship_server,
+        load_cfg,
+        synthetic_images,
+    )
+    from wseg_tpu_torch.ops import crf_lattice_cuda as k
+    from wseg_tpu_torch.ops.crf_bilateral import bilateral_message_cm
+    from wseg_tpu_torch.ops.crf_exact import crf_exact
+    from wseg_tpu_torch.ops.crf_gauss import gauss_blur_cm
+
+    fast_kernels = (bilateral_message_cm, gauss_blur_cm)
+    lattice = {f.__name__: f for f in (k.lattice_weights, k.lattice_splat,
+                                       k.lattice_blur, k.lattice_slice)}
+    reset_cfg()
+    src = load_cfg("voc_resnet38.yaml")
+    cfg_from_list(MULTICROP_SET)
+    server = build_flagship_server("cuda", seed=0)
+    views = server.views
+    print(f"multicrop serving ({src} + {MULTICROP_SET}): pad "
+          f"{views.pad_size}, crop {views.crop_h}x{views.crop_w}, grid "
+          f"{views.grid_h}x{views.grid_w}, flip {views.flip}: "
+          f"{views.num_views} views an image at {views.coords}, "
+          f"{server.max_batch} slots, bg_pow "
+          f"{server.postprocess._kw['bg_pow']} ({card})", flush=True)
+    pp = server.postprocess
+    pp_calls = [0]
+    dispatch_group = pp.dispatch_group
+
+    def counted_dispatch(*args, **kw):
+        pp_calls[0] += 1
+        return dispatch_group(*args, **kw)
+
+    pp.dispatch_group = counted_dispatch
+    images = synthetic_images(VOC_SIZES)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        before = [f.launches for f in fast_kernels]
+        server.warmup([VOC_SIZES[0]])
+        delta = [f.launches - n for f, n in zip(fast_kernels, before)]
+        check(delta == [12, 12], f"multicrop warm-up: {delta}")
+        torch.cuda.synchronize()
+        print(f"multicrop warm-up group: {time.perf_counter() - t0:.2f} s",
+              flush=True)
+        pp_calls[0] = 0
+        for f in fast_kernels:
+            f.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        results, dt = serve_timed(server, images)
+        launches = {f.__name__: f.launches for f in fast_kernels}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        server.close()
+    print(f"multicrop serving (fast CRF): {len(images)} images in {dt:.3f} "
+          f"s = {len(images) / dt:.3f} images/s, {pp_calls[0]} postprocess "
+          f"calls, launches {launches}, peak memory {peak:.2f} GiB "
+          f"({card})", flush=True)
+    check(pp_calls[0] >= 1 and all(n == 12 * pp_calls[0]
+                                   for n in launches.values()),
+          f"multicrop launches {launches} for {pp_calls[0]} calls")
+    check_results("multicrop", images, results)
+
+    # one image's merged map: finite scores, the CRF's planes, the
+    # postprocess's peak bytes per slot
+    img, lab = images[0]
+    h, w = img.shape[:2]
+    pt, pl, _, _ = views.window(h, w)
+    canv = np.zeros((1, *views.pad_size, 3), np.uint8)
+    canv[0, pt:pt + h, pl:pl + w] = img
+    canv_d = torch.from_numpy(canv).cuda()
+    owin = torch.tensor([[pt, pl, h, w]], device="cuda")
+    cls, merged = server.dispatch_crops(canv_d, owin)
+    check(bool(torch.isfinite(merged).all() and torch.isfinite(cls).all()),
+          "multicrop: non-finite scores")
+    labels = lab[None]
+    # one present class: no near-tied classes, whose mean field would
+    # amplify the kernels' and the plain versions' summation orders
+    one = np.zeros_like(lab)
+    one[np.flatnonzero(lab)[0]] = 1.0
+    planes = crf_planes(lambda: pp.dispatch_group(
+        merged, labels, owin.cpu().numpy(), canv_d, views.num_views))
+    print(f"multicrop fast CRF planes (kernel, plane[, r, masked]: calls "
+          f"per postprocess call): {planes}", flush=True)
+    slots = server.max_batch
+    ratios = {}
+    for hw in (views.pad_size, LATTICE_CANVAS):
+        for s_n in (1, slots):
+            ratios[(hw, s_n)] = pp_peak_ratio(pp, hw, s_n, lab,
+                                              views.num_views)
+    print(f"fast-CRF postprocess peak bytes per slot over its float32 "
+          f"merged map, by (canvas, slots): {ratios}; the server budgets "
+          f"{serving.PP_BYTES_PER_CANVAS_BYTE} ({card})", flush=True)
+    check(max(ratios.values()) <= serving.PP_BYTES_PER_CANVAS_BYTE,
+          f"postprocess peak {ratios} over PP_BYTES_PER_CANVAS_BYTE")
+    # the fast CRF on this merged map (float32), card against CPU: as
+    # served (no BG_POW, so background and the class nearly tie on the
+    # seeded model's flat masks: argmax held), and with BG^3 (no ties:
+    # Q held)
+    crf_on_merged_map("multicrop", server, merged, one, owin, canv_d, card,
+                      hold_q=False)
+    crf_on_merged_map("multicrop", server, merged, one, owin, canv_d, card,
+                      bg_pow=3.0)
+
+    # exact mode: the served run, then image 0's exact CRF on the
+    # 640x640 canvas against the plain filter on the CPU
+    cfg.TEST.CRF_MODE = "exact"
+    server = build_flagship_server("cuda", seed=0)
+    try:
+        server.warmup([VOC_SIZES[0]])
+        for f in lattice.values():
+            f.launches = 0
+        results, dt = serve_timed(server, images)
+        lat_launches = {n: f.launches for n, f in lattice.items()}
+    finally:
+        server.close()
+    want = {n: len(images) * v
+            for n, v in per_image_launches(CRF_ITERS).items()}
+    print(f"multicrop serving (exact CRF): {len(images)} images in "
+          f"{dt:.3f} s = {len(images) / dt:.3f} images/s; launches "
+          f"{lat_launches} (expected {want}) ({card})", flush=True)
+    check(lat_launches == want, f"multicrop exact launches {lat_launches}")
+    check_results("multicrop exact", images, results)
+    ex = ExactCRF(THRESHS, crf_iters=CRF_ITERS)
+    window = (pt, pl, h, w)
+    tables = ex.build(img, views.pad_size, window, device="cuda")
+    with torch.inference_mode():
+        # image 0's map with one class and BG^3 (no near-tied classes)
+        m_clean = merged[0] / float(views.num_views)
+        m_clean[..., 1:] *= torch.from_numpy(one).cuda()
+        m_clean[..., 0] = m_clean[..., 0].clamp(min=0.0) ** 3
+        q_card = crf_exact(m_clean, *tables, t=CRF_ITERS)
+        q_cpu = crf_exact(m_clean.cpu(), *(t.to("cpu") for t in tables),
+                          t=CRF_ITERS)
+    cut = (slice(pt, pt + h), slice(pl, pl + w))
+    dq = float((q_card.cpu() - q_cpu)[cut].abs().max())
+    agree = float((q_card.cpu()[cut].argmax(-1) == q_cpu[cut].argmax(-1))
+                  .float().mean())
+    print(f"multicrop exact CRF, image 0 with one class and BG^3 ({w}x{h} "
+          f"at {window} of "
+          f"{views.pad_size}), kernels vs the plain filter on the CPU: max "
+          f"|dQ| {dq:.3e} (tol {CRF_Q_TOL:g}), argmax agreement {agree:.5f} "
+          f"({card})", flush=True)
+    check(dq <= CRF_Q_TOL, f"multicrop exact CRF |dQ| {dq}")
+    del server
+    torch.cuda.empty_cache()
+
+    # both fast-CRF kernels at the planes read above, the lattice kernels
+    # on the 640x640 canvas
+    bil_shapes = tuple(sorted({p[1] for p in planes
+                               if p[0] == "bilateral_message_cm"},
+                              key=lambda s: -s[1]))
+    gauss_cases = tuple(sorted({(p[1], p[2]) for p in planes
+                                if p[0] == "gauss_blur_cm"},
+                               key=lambda c: (-c[0][1], c[0][2])))
+    phase_kernel(card, tuple((slots, *s[1:]) for s in bil_shapes))
+    phase_gauss(card, tuple(((slots, *s[1:]), r) for s, r in gauss_cases))
+    ph, pw = views.pad_size
+    lh, lw = LATTICE_IMAGE
+    phase_lattice_kernels(card, canvas=(ph, pw), image=LATTICE_IMAGE,
+                          window=((ph - lh) // 2, (pw - lw) // 2, lh, lw),
+                          full=False)
+    return launches, lat_launches
+
+
+def phase_host_paths(card: str) -> dict:
+    """The host-view paths on the card with the flagship model: 4
+    VOC-sized images submitted with two larger than the 512x512 device
+    canvas (the server sends those to host views), then the 4 with
+    ``DEVICE_VIEWS`` off, with the fast-CRF postprocess; device against
+    host views' merged scores; and ``InferenceEngine.run_image`` in
+    host-merge, device-merge and multicrop mode against the server on the
+    same image.  Returns the fast CRF's launches of the served runs."""
+    import numpy as np
+    import torch
+
+    from wseg_tpu_torch.config import cfg, cfg_from_list, reset_cfg
+    from wseg_tpu_torch.engine.infer import InferenceEngine
+    from wseg_tpu_torch.engine.serving import MultiScaleServer
+    from wseg_tpu_torch.engine.serving_crop import MultiCropServer
+    from wseg_tpu_torch.flagship import (
+        build_flagship_server,
+        load_cfg,
+        synthetic_images,
+    )
+    from wseg_tpu_torch.ops.crf_bilateral import bilateral_message_cm
+    from wseg_tpu_torch.ops.crf_gauss import gauss_blur_cm
+
+    kernels = (bilateral_message_cm, gauss_blur_cm)
+    reset_cfg()
+    load_cfg("voc_resnet38.yaml")
+    server = build_flagship_server("cuda", seed=0)
+    model, pp = server.model, server.postprocess
+    voc = synthetic_images(VOC_SIZES[:4])
+    over = synthetic_images(OVERSIZE, seed=1)
+    paths = {"_process_device": 0, "_process_host": 0}
+    pp_calls = [0]
+
+    def spy_on(srv):
+        for name in paths:
+            run = getattr(srv, name)
+
+            def spy(group, _run=run, _name=name):
+                paths[_name] += len(group)
+                return _run(group)
+
+            setattr(srv, name, spy)
+
+    dispatch_group = pp.dispatch_group
+
+    def counted_dispatch(*args, **kw):
+        pp_calls[0] += 1
+        return dispatch_group(*args, **kw)
+
+    pp.dispatch_group = counted_dispatch
+    spy_on(server)
+    for f in kernels:
+        f.launches = 0
+    try:
+        results, dt = serve_timed(server, voc + over)
+    finally:
+        server.close()
+    launches = {f.__name__: f.launches for f in kernels}
+    print(f"host paths: {len(voc)} VOC-sized images + {OVERSIZE} over the "
+          f"{server.canvas_hw} canvas in {dt:.3f} s; images per path "
+          f"{paths}, {pp_calls[0]} postprocess calls, launches {launches} "
+          f"({card})", flush=True)
+    check(paths == {"_process_device": len(voc),
+                    "_process_host": len(over)},
+          f"host paths: {paths}")
+    check_results("oversize split", voc + over, results)
+
+    cfg.TEST.DEVICE_VIEWS = False
+    server = MultiScaleServer(model, cfg.TEST, max_batch=8, postprocess=pp)
+    paths.update({"_process_device": 0, "_process_host": 0})
+    spy_on(server)
+    try:
+        results, dt = serve_timed(server, voc)
+    finally:
+        server.close()
+    for f in kernels:
+        launches[f.__name__] = f.launches
+    print(f"host paths: DEVICE_VIEWS False, {len(voc)} images in {dt:.3f} "
+          f"s, images per path {paths}; {pp_calls[0]} postprocess calls, "
+          f"launches {launches} so far ({card})", flush=True)
+    check(paths["_process_host"] == len(voc), f"host views: {paths}")
+    check_results("host views", voc, results)
+    check(all(n == 12 * pp_calls[0] for n in launches.values()),
+          f"host paths: launches {launches} for {pp_calls[0]} calls")
+
+    merged = {}
+    for device_views in (True, False):
+        cfg.TEST.DEVICE_VIEWS = device_views
+        srv = MultiScaleServer(model, cfg.TEST, max_batch=8)
+        try:
+            merged[device_views], _ = serve_timed(srv, voc)
+        finally:
+            srv.close()
+    diffs, agree = [], []
+    for (m_d, _), (m_h, _) in zip(merged[True], merged[False]):
+        check(m_d.shape == m_h.shape and np.isfinite(m_d).all()
+              and np.isfinite(m_h).all(), "views: merged shapes or values")
+        diffs.append(float(np.abs(m_d - m_h).mean()))
+        agree.append(float((m_d.argmax(-1) == m_h.argmax(-1)).mean()))
+    print(f"device vs host views, merged scores: mean |d| per image "
+          f"{[f'{d:.2e}' for d in diffs]} (tol {VIEWS_MEAN_TOL:g}), argmax "
+          f"agreement {[round(a, 4) for a in agree]} ({card})", flush=True)
+    check(max(diffs) <= VIEWS_MEAN_TOL, f"device vs host views: {diffs}")
+
+    # the per-image engine against the server on one image, per mode
+    img, lab = voc[0]
+    for mode, sets in (("host-merge", ["TEST.DEVICE_MERGE", "False"]),
+                       ("device-merge", ["TEST.DEVICE_MERGE", "True"]),
+                       ("multicrop", MULTICROP_SET)):
+        reset_cfg()
+        load_cfg("voc_resnet38.yaml")
+        cfg_from_list(["TEST.DEVICE_VIEWS", "False"] + sets)
+        engine = InferenceEngine(model, cfg.TEST)
+        t0 = time.perf_counter()
+        got, got_lab = engine.run_image(img, lab)
+        dt = time.perf_counter() - t0
+        srv = (MultiScaleServer if mode != "multicrop" else MultiCropServer)(
+            model, cfg.TEST, max_batch=8)
+        try:
+            [(want, want_lab)], _ = serve_timed(srv, [(img, lab)])
+        finally:
+            srv.close()
+        err = float(np.abs(got - want).max())
+        print(f"InferenceEngine.run_image ({mode}, {img.shape[1]}x"
+              f"{img.shape[0]}) in {dt:.3f} s: against the server max |d| "
+              f"{err:.3e} (tol {ENGINE_TOL:g}) ({card})", flush=True)
+        check(got.shape == img.shape[:2] + (21,) and np.isfinite(got).all()
+              and err <= ENGINE_TOL and np.array_equal(got_lab, want_lab),
+              f"engine {mode} vs server: {err}")
+    del server, model
+    torch.cuda.empty_cache()
+    return launches
 
 
 AE_CONFIGS = ("voc_resnet50.yaml", "voc_resnet101.yaml", "voc_vgg16.yaml")
@@ -2059,12 +2511,10 @@ def serve_slice(tag: str, cfg_name: str, card: str, model_name: str = "",
     merged map with the kernels against the plain versions (float32,
     card against CPU); returns the CRF kernels' launch counts of the
     served run."""
-    import numpy as np
     import torch
 
     from wseg_tpu_torch.config import cfg, reset_cfg
     from wseg_tpu_torch.flagship import (
-        THRESHS,
         build_flagship_server,
         load_cfg,
         synthetic_images,
@@ -2124,14 +2574,7 @@ def serve_slice(tag: str, cfg_name: str, card: str, model_name: str = "",
     check(pp_calls[0] >= len(sigs) and all(
         n == 12 * pp_calls[0] for n in launches.values()),
         f"{tag} serving launches {launches} for {pp_calls[0]} calls")
-    for (img, lab), (res, got_lab) in zip(images, results):
-        check(np.array_equal(got_lab, lab), "labels changed")
-        for t in THRESHS:
-            for key in ("pred", "pred_crf"):
-                m = res[t][key]
-                check(m.dtype == np.uint8 and m.shape == img.shape[:2]
-                      and int(m.max()) <= 20,
-                      f"{tag} {key}@{t}: {m.dtype} {m.shape} max {m.max()}")
+    check_results(tag, images, results)
     for k, (img, lab) in enumerate(images[:4]):
         total, cls_all, dst, u8 = image_merged_sums(server, img)
         check(bool(torch.isfinite(total).all()) and all(
@@ -2144,11 +2587,14 @@ def serve_slice(tag: str, cfg_name: str, card: str, model_name: str = "",
     return launches
 
 
-def crf_on_merged_map(tag, server, total, lab, dst, u8, card) -> None:
+def crf_on_merged_map(tag, server, total, lab, dst, u8, card,
+                      bg_pow=None, hold_q=True) -> None:
     """The fast CRF (float32, the config's strides) on one image's
-    cleaned merged map: the card's run (bilateral-message and blur
-    kernels) against the CPU's (their plain versions), max |dQ| <=
-    ``CRF_Q_TOL``, and the launches of the card's run."""
+    cleaned merged map (BG^``bg_pow``, the server's by default): the
+    card's run (bilateral-message and blur kernels) against the CPU's
+    (their plain versions), max |dQ| <= ``CRF_Q_TOL`` (with ``hold_q``;
+    else argmax agreement >= 0.99: near-tied classes let the mean field
+    amplify summation order), and the launches of the card's run."""
     import torch
 
     from wseg_tpu_torch.engine.infer import _postprocess
@@ -2158,6 +2604,8 @@ def crf_on_merged_map(tag, server, total, lab, dst, u8, card) -> None:
 
     kw = dict(server.postprocess._kw, n_views=server.views.num_views,
               crf_threshs=(), ret_merged=True)
+    if bg_pow is not None:
+        kw["bg_pow"] = float(bg_pow)
     labels = torch.from_numpy(lab[None]).to(total.device)
     _, merged = _postprocess(total, labels, dst, u8, **kw)
     h, w = merged.shape[1:3]
@@ -2187,11 +2635,16 @@ def crf_on_merged_map(tag, server, total, lab, dst, u8, card) -> None:
     agree = float((q_card.argmax(-1).cpu() == q_cpu.argmax(-1)).float()
                   .mean())
     print(f"{tag} fast CRF on image 0's merged map {tuple(merged.shape)} "
-          f"(float32): kernels (bilateral, blur launches {n}) vs plain "
-          f"on the CPU max |dQ| {err:.3e} (tol {CRF_Q_TOL:g}), argmax "
-          f"agreement {agree:.5f} ({card})", flush=True)
+          f"(float32, BG^{kw['bg_pow']:g}): kernels (bilateral, blur "
+          f"launches {n}) vs plain on the CPU max |dQ| {err:.3e} "
+          f"({f'tol {CRF_Q_TOL:g}' if hold_q else 'not held'}), argmax "
+          f"agreement {agree:.5f}{'' if hold_q else ' (>= 0.99)'} ({card})",
+          flush=True)
     check(n[0] > 0 and n[1] > 0, f"{tag}: the CRF launched {n}")
-    check(err <= CRF_Q_TOL, f"{tag}: CRF kernels vs plain |dQ| {err}")
+    if hold_q:
+        check(err <= CRF_Q_TOL, f"{tag}: CRF kernels vs plain |dQ| {err}")
+    else:
+        check(agree >= 0.99, f"{tag}: CRF kernels vs plain argmax {agree}")
 
 
 def phase_ae_serve(card: str) -> dict:
@@ -2602,12 +3055,21 @@ def main() -> int:
               f"a serving slice never launched {name}")
         entry["launches"] = (slice_launches[name] + ae_serve_launches[name]
                              + zoo_serve_launches[name])
+    crop_launches, crop_lattice = timed(phase_multicrop_serve, card)
+    host_launches = timed(phase_host_paths, card)
+    for entry in (kern, gauss):
+        name = entry["name"]
+        check(crop_launches[name] > 0 and host_launches[name] > 0,
+              f"multicrop or host-view serving never launched {name}")
+        entry["launches"] += crop_launches[name] + host_launches[name]
     lattice_kernels = timed(phase_lattice_kernels, card)
     exact_launches = timed(phase_exact_slice, card)
     for entry in lattice_kernels:
-        entry["launches"] = exact_launches[entry["name"]]
-        check(entry["launches"] > 0, f"the exact slice never launched "
-              f"{entry['name']}")
+        entry["launches"] = (exact_launches[entry["name"]]
+                             + crop_lattice[entry["name"]])
+        check(exact_launches[entry["name"]] > 0
+              and crop_lattice[entry["name"]] > 0,
+              f"an exact slice never launched {entry['name']}")
     pamr_kernels = timed(phase_pamr_kernels, card)
     lab_kernels = timed(phase_pamr_variants, card)
     launches = timed(phase_train, card)
@@ -2623,7 +3085,10 @@ def main() -> int:
                              + zoo_launches[name] + seam_launches[name])
     print(f"main-path launches: fast CRF kernels {slice_launches} (flagship "
           f"slice) + {ae_serve_launches} (ae serving) + "
-          f"{zoo_serve_launches} (zoo serving); PAMR kernels {launches} "
+          f"{zoo_serve_launches} (zoo serving) + {crop_launches} (multicrop) "
+          f"+ {host_launches} (host views); lattice kernels "
+          f"{exact_launches} (exact slice) + {crop_lattice} (multicrop "
+          f"exact); PAMR kernels {launches} "
           f"(flagship steps) + {ae_launches} (ae steps) + {zoo_launches} "
           f"(zoo steps) + {seam_launches} (SEAM steps)", flush=True)
     timed(phase_entry, card)

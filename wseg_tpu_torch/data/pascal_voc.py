@@ -9,6 +9,7 @@ augmenting train/validation dataset of ``wseg_tpu/data/pascal_voc.py``
 from __future__ import annotations
 
 import os
+import warnings
 from typing import List, Tuple
 
 import numpy as np
@@ -77,6 +78,29 @@ def read_filelist(path: str, root: str = "") -> List[Tuple[str, str]]:
                 if len(parts) > 1 else ""
             entries.append((img, msk))
     return entries
+
+
+# Official split sizes the reference hard-asserts: SBD-augmented train
+# (its list is train_augvoc), the VOC2012 val list and the plain VOC2012
+# train list (train_voc)
+OFFICIAL_SPLIT_SIZES = {"train": 10582, "val": 1449, "train_voc": 1464}
+
+
+def check_split_integrity(split: str, n: int, strict: bool = False):
+    """Warn when an official split list (by its file stem) has another
+    length than the official one; raise with ``strict`` or under
+    ``WSEG_STRICT_SPLITS=1``.  Synthetic and subset lists are
+    legitimate, so the default only warns."""
+    split = {"train_augvoc": "train", "val_voc": "val"}.get(split, split)
+    expect = OFFICIAL_SPLIT_SIZES.get(split)
+    if expect is None or n == expect:
+        return
+    msg = (f"split '{split}' has {n} entries; the official VOC list has "
+           f"{expect}")
+    flag = os.environ.get("WSEG_STRICT_SPLITS", "").strip().lower()
+    if strict or flag in ("1", "true", "yes", "on"):
+        raise AssertionError(msg)
+    warnings.warn(msg)
 
 
 class VOCSegmentation:

@@ -1,16 +1,19 @@
-"""Multi-scale inference on the device: views -> forward -> merge ->
+"""Multi-scale / multi-crop inference: views -> forward -> merge ->
 writer math with the dense CRF.
 
-Mirror of the fast path of ``wseg_tpu/engine/infer.py``:
+Mirror of ``wseg_tpu/engine/infer.py``: ``make_infer_fn`` (test-mode
+forward of host views, normalised on the device in uint8 mode),
 ``make_infer_merge_fn`` (device views, normalise, test-mode forward,
-tent-matrix merge onto the scale-1.0 canvas) and
-``make_device_postprocess`` (clean -> BG^pow -> CRF -> threshold ->
-argmax), both slot-batched.  ``TEST.CRF_MODE`` picks the CRF: ``fast``,
-the coarse-to-fine sparse-tap CRF inside the batched writer math, or
-``exact``, where the batched program also returns the merged maps and
-``ExactCRF`` runs the exact permutohedral mean field per image (host
-lattice build, CUDA filter kernels).  Only uint8 label maps leave the
-device.
+tent-matrix merge onto the scale-1.0 canvas), ``_device_merge_bucket``
+and ``finalize_device_merge`` (the host-view path's device merge and its
+host tail), ``make_device_postprocess`` (clean -> BG^pow -> CRF ->
+threshold -> argmax), slot-batched, and ``InferenceEngine``, the
+per-image path (host or device merge, multi-crop).  ``TEST.CRF_MODE``
+picks the CRF: ``fast``, the coarse-to-fine sparse-tap CRF inside the
+batched writer math, or ``exact``, where the batched program also
+returns the merged maps and ``ExactCRF`` runs the exact permutohedral
+mean field per image (host lattice build, CUDA filter kernels).  Only
+uint8 label maps leave the device on the batched paths.
 """
 
 from __future__ import annotations
@@ -23,6 +26,12 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
 
+from wseg_tpu_torch.data.multiscale import (
+    CropViews,
+    MultiscaleViews,
+    merge_crops,
+    merge_multiscale,
+)
 from wseg_tpu_torch.data.pascal_voc import MEAN, STD
 from wseg_tpu_torch.ops.crf import crf_inference_torch
 from wseg_tpu_torch.ops.crf_exact import build_exact_lattice, crf_exact
@@ -89,6 +98,79 @@ def _merge_views(masks: torch.Tensor, src_windows: torch.Tensor,
     return out.sum(dim=1)
 
 
+def _device_merge_bucket(masks: torch.Tensor, src_windows, dst_window,
+                         flips, merge_hw) -> torch.Tensor:
+    """One image's bucket views (V, Hs, Ws, C) -> its (H, W, C) partial
+    sum on the merge canvas ``merge_hw``; windows (V, 4) and (4,), flips
+    (V,) bool."""
+    dev = masks.device
+    src = torch.as_tensor(np.asarray(src_windows, np.float32), device=dev)
+    dst = torch.as_tensor(np.asarray(dst_window, np.float32), device=dev)
+    fl = torch.as_tensor(np.asarray(flips, bool), device=dev)
+    return _merge_views(masks[None], src[None], dst[None], fl,
+                        int(merge_hw[0]), int(merge_hw[1]))[0]
+
+
+def finalize_device_merge(sum_map: np.ndarray, dst_window, size_hw,
+                          labels: np.ndarray, n_views: int,
+                          bg_pow: float) -> np.ndarray:
+    """Host tail of the device merge: cut the scale-1.0 window, resize it
+    to the original size (OpenCV bilinear), zero the absent classes,
+    BG^bg_pow."""
+    import cv2
+
+    pt, pl, vh, vw = dst_window
+    merged = np.asarray(sum_map, np.float32) / float(n_views)
+    merged = merged[pt:pt + vh, pl:pl + vw]
+    merged = cv2.resize(merged, (size_hw[1], size_hw[0]),
+                        interpolation=cv2.INTER_LINEAR)
+    merged[..., 1:] *= labels[None, None, :]
+    merged[..., 0] = np.power(merged[..., 0], bg_pow)
+    return merged
+
+
+def normalise_in_window(views_u8: torch.Tensor,
+                        windows: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, 3) uint8 views -> ImageNet-normalised float32, zero
+    outside each view's (top, left, h, w) window (B, 4): the host path
+    normalises the resized pixels, then pastes them into a zero canvas."""
+    dev = views_u8.device
+    mean = torch.tensor(MEAN, dtype=torch.float32, device=dev)
+    std = torch.tensor(STD, dtype=torch.float32, device=dev)
+    x = (views_u8.float() / 255.0 - mean) / std
+    h, w = views_u8.shape[1:3]
+    ri = torch.arange(h, device=dev)[None, :, None, None]
+    ci = torch.arange(w, device=dev)[None, None, :, None]
+    pt, pl, vh, vw = (windows.long()[:, k, None, None, None]
+                      for k in range(4))
+    inside = (ri >= pt) & (ri < pt + vh) & (ci >= pl) & (ci < pl + vw)
+    return torch.where(inside, x, torch.zeros_like(x))
+
+
+def make_infer_fn(model, device_norm: bool = False):
+    """Test-mode forward of host-built views on the model's device.
+
+    fn(views) -> (cls (B, C-1), masks (B, H, W, C)) for float32
+    normalised views, or with ``device_norm`` fn(views_u8, windows (B, 4))
+    for uint8 views, normalised and zeroed outside each window on the
+    device.  Views are numpy arrays or tensors; outputs stay on the
+    device.
+    """
+    dev = next(model.parameters()).device
+
+    @torch.inference_mode()
+    def infer(views, windows=None):
+        x = torch.as_tensor(views).to(dev)
+        if device_norm:
+            win = torch.as_tensor(np.asarray(windows, np.int32)).to(dev)
+            x = normalise_in_window(x, win)
+        with record_function("serve.forward"):
+            out = model(x)
+        return out.cls, out.masks
+
+    return infer
+
+
 def make_infer_merge_fn(model):
     """Fused device step for one scale bucket: view generation ->
     normalise/pad -> test-mode forward -> per-slot merge of the bucket's
@@ -104,19 +186,10 @@ def make_infer_merge_fn(model):
         dev = orig_u8.device
         vpi = 2 if flip_pair else 1
         with record_function("serve.views"):
-            mean = torch.tensor(MEAN, dtype=torch.float32, device=dev)
-            std = torch.tensor(STD, dtype=torch.float32, device=dev)
             views_u8 = build_views_u8(orig_u8, owin, vwin, out_hw=out_hw,
                                       flip_pair=flip_pair)
-            x = (views_u8.float() / 255.0 - mean) / std
-            h, w = out_hw
-            win = torch.repeat_interleave(vwin.long(), vpi, dim=0)
-            ri = torch.arange(h, device=dev)[None, :, None, None]
-            ci = torch.arange(w, device=dev)[None, None, :, None]
-            pt, pl, vh, vw_ = (win[:, k, None, None, None] for k in range(4))
-            inside = ((ri >= pt) & (ri < pt + vh) &
-                      (ci >= pl) & (ci < pl + vw_))
-            x = torch.where(inside, x, torch.zeros_like(x))
+            x = normalise_in_window(
+                views_u8, torch.repeat_interleave(vwin, vpi, dim=0))
         with record_function("serve.forward"):
             out = model(x)
         with record_function("serve.merge"):
@@ -351,3 +424,110 @@ def make_device_postprocess(threshs, crf_threshs, crf_iters: int = 10,
                              crf_full_stride=crf_full_stride,
                              crf_refine_iters=crf_refine_iters,
                              crf_mode=crf_mode)
+
+
+class InferenceEngine:
+    """Per-image inference (the JAX ``InferenceEngine``): an image's
+    views are built on the host, forwarded per bucket shape on the
+    model's device, and merged on the host (``merge_multiscale``,
+    ``merge_crops``) or, with ``TEST.DEVICE_MERGE`` in multiscale mode,
+    on the device with only the merged map fetched.  ``run_image``
+    returns the (H, W, C) scores and the image-level labels that the
+    writers' ``ResultWriter.save`` takes."""
+
+    def __init__(self, model, test_cfg):
+        self.model = model
+        self.cfg = test_cfg
+        method = str(test_cfg.METHOD)
+        self.uint8 = (method == "multiscale"
+                      and bool(test_cfg.UINT8_TRANSFER))
+        self.infer = make_infer_fn(model, device_norm=self.uint8)
+        if method == "multiscale":
+            self.views = MultiscaleViews(
+                test_cfg.SCALES, bool(test_cfg.FLIP), test_cfg.PAD_SIZE,
+                bool(test_cfg.PAD_PER_SCALE), int(test_cfg.PAD_ALIGN),
+                transfer="uint8" if self.uint8 else "float32")
+        elif method in ("multicrop", "crop"):
+            self.views = CropViews(test_cfg.CROP_SIZE,
+                                   test_cfg.CROP_GRID_SIZE,
+                                   test_cfg.PAD_SIZE, bool(test_cfg.FLIP))
+        else:
+            raise NotImplementedError(f"Method {method} is unknown")
+        self.method = method
+
+    def _infer_batch(self, batch, windows):
+        if self.uint8:
+            return self.infer(batch, windows)
+        return self.infer(batch)
+
+    @staticmethod
+    def _buckets(views):
+        buckets = {}
+        for i, v in enumerate(views):
+            buckets.setdefault(v.shape[:2], []).append(i)
+        return buckets
+
+    def _forward_views(self, views, pads=None):
+        """Same-shape views batched per bucket, every bucket launched
+        before any is fetched; per-view (cls, mask) numpy in view order."""
+        pending = []
+        for idxs in self._buckets(views).values():
+            batch = np.stack([views[i] for i in idxs])
+            wins = [pads[i] for i in idxs] if pads is not None else None
+            pending.append((idxs, self._infer_batch(batch, wins)))
+        cls_out, mask_out = [None] * len(views), [None] * len(views)
+        for idxs, (cls, masks) in pending:
+            cls = cls.float().cpu().numpy()
+            masks = masks.float().cpu().numpy()
+            for k, i in enumerate(idxs):
+                cls_out[i], mask_out[i] = cls[k], masks[k]
+        return cls_out, mask_out
+
+    def predict_labels(self, cls_views, gt_labels: np.ndarray) -> np.ndarray:
+        """GT labels, or sigmoid-max over the views > FP_CUT_SCORE."""
+        if bool(self.cfg.USE_GT_LABELS):
+            return np.asarray(gt_labels, np.float32)
+        sig = 1.0 / (1.0 + np.exp(-np.stack(cls_views)))
+        return (sig.max(axis=0) >
+                float(self.cfg.FP_CUT_SCORE)).astype(np.float32)
+
+    def run_image(self, image_u8: np.ndarray, gt_labels: np.ndarray):
+        """(h, w, 3) uint8 image -> (merged (h, w, C) float32 scores,
+        labels (C-1,))."""
+        h, w = image_u8.shape[:2]
+        if self.method != "multiscale":
+            views, coords, flips = self.views.build(image_u8)
+            cls_views, mask_views = self._forward_views(views)
+            labels = self.predict_labels(cls_views, gt_labels)
+            return merge_crops(mask_views, coords, flips, labels,
+                               (h, w)), labels
+        if bool(self.cfg.DEVICE_MERGE):
+            return self._run_image_device_merge(image_u8, gt_labels)
+        views, pads, flips = self.views.build(image_u8)
+        cls_views, mask_views = self._forward_views(views, pads)
+        labels = self.predict_labels(cls_views, gt_labels)
+        return merge_multiscale(mask_views, pads, flips, labels, (h, w),
+                                float(self.cfg.BG_POW)), labels
+
+    @torch.inference_mode()
+    def _run_image_device_merge(self, image_u8, gt_labels):
+        """Views merged per bucket on the device at the scale-1.0 bucket's
+        resolution; only the merged map is fetched."""
+        h, w = image_u8.shape[:2]
+        views, pads, flips = self.views.build(image_u8)
+        merge_hw = self.views.view_shapes(w, h)[0]
+        cls_views, sum_m = [None] * len(views), None
+        for idxs in self._buckets(views).values():
+            cls, masks = self._infer_batch(np.stack([views[i] for i in idxs]),
+                                           [pads[i] for i in idxs])
+            for k, i in enumerate(idxs):
+                cls_views[i] = cls[k]
+            m = _device_merge_bucket(masks.float(), [pads[i] for i in idxs],
+                                     pads[0], [flips[i] for i in idxs],
+                                     merge_hw)
+            sum_m = m if sum_m is None else sum_m + m
+        labels = self.predict_labels(
+            [c.float().cpu().numpy() for c in cls_views], gt_labels)
+        return finalize_device_merge(sum_m.cpu().numpy(), pads[0], (h, w),
+                                     labels, len(views),
+                                     float(self.cfg.BG_POW)), labels

@@ -102,12 +102,13 @@ def card_line() -> str:
 def build_flagship_server(device="cuda", seed: int = 0):
     """Seeded random-weight model of the loaded config (its
     ``NET.MODEL`` on its backbone) on ``device``, wrapped in a
-    ``MultiScaleServer``
-    with the device postprocess of ``TEST.CRF_MODE`` (as ``infer_val``
-    builds it).  Reads the port's global cfg."""
+    ``MultiScaleServer`` (``MultiCropServer`` under ``TEST.METHOD
+    multicrop``) with the device postprocess of ``TEST.CRF_MODE`` (as
+    ``infer_val`` builds it).  Reads the port's global cfg."""
     from wseg_tpu_torch.config import cfg
     from wseg_tpu_torch.engine.infer import make_device_postprocess
     from wseg_tpu_torch.engine.serving import MultiScaleServer
+    from wseg_tpu_torch.engine.serving_crop import MultiCropServer
     from wseg_tpu_torch.models import get_model
     from wseg_tpu_torch.models.backbones.common import (
         seeded_init_,
@@ -120,15 +121,18 @@ def build_flagship_server(device="cuda", seed: int = 0):
         model = get_model(cfg.NET, num_classes=int(cfg.TEST.NUM_CLASSES))
     seeded_init_(model, torch.Generator(device=device).manual_seed(seed))
     stabilize_scratch_init(model, 0.1)
+    multiscale = str(cfg.TEST.METHOD) == "multiscale"
     pp = make_device_postprocess(
-        THRESHS, THRESHS, crf_iters=10, bg_pow=float(cfg.TEST.BG_POW),
+        THRESHS, THRESHS, crf_iters=10,
+        # the multicrop merge applies no BG_POW
+        bg_pow=float(cfg.TEST.BG_POW) if multiscale else 1.0,
         crf_dtype=str(cfg.TEST.CRF_DTYPE),
         crf_stride=int(cfg.TEST.CRF_STRIDE),
         crf_tap_div=float(cfg.TEST.CRF_TAP_DIV),
         crf_full_stride=int(cfg.TEST.CRF_FULL_STRIDE),
         crf_refine_iters=int(cfg.TEST.CRF_REFINE_ITERS),
         crf_mode=str(cfg.TEST.CRF_MODE))
-    return MultiScaleServer(
+    return (MultiScaleServer if multiscale else MultiCropServer)(
         model, cfg.TEST, max_batch=int(cfg.TEST.BATCH_SIZE), postprocess=pp)
 
 

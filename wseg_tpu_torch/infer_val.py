@@ -1,5 +1,5 @@
-"""Multi-scale mask inference with the port (same flags as the root
-``infer_val.py``).
+"""Multi-scale / multi-crop mask inference with the port (same flags as
+the root ``infer_val.py``).
 
     python -m wseg_tpu_torch.infer_val --cfg configs/voc_resnet38.yaml \
         --infer-list data/val_voc.txt --resume snapshot.pth \
@@ -7,12 +7,19 @@
 
 Loads a port or reference ``.pth`` snapshot (a path, or a suffix
 ``eNNNXsS.SSS`` that the port's trainer wrote under
-``--snapshot-dir``), serves every image of the filelist through
-``MultiScaleServer`` (device views, merge and writer math with the dense
-CRF of ``TEST.CRF_MODE``: ``fast``, or ``exact`` for the permutohedral
-mean field, e.g. ``--set TEST.CRF_MODE exact``) on ``--device`` and
-writes indexed PNGs per threshold to
-``<mask-output-dir>_<thresh>/{no_crf,crf,vis}``.
+``--snapshot-dir``) and writes indexed PNGs per threshold to
+``<mask-output-dir>_<thresh>/{no_crf,crf,vis}``.  With ``TEST.METHOD``
+``multiscale`` or ``multicrop`` and ``TEST.DEVICE_MERGE`` and
+``UINT8_TRANSFER`` on (and no heatmap or scoremap writer), every image
+goes through the batched server (``MultiScaleServer``: device views, or
+host views where ``DEVICE_VIEWS`` is off or an image exceeds the
+canvas; ``MultiCropServer`` for multicrop, e.g. ``--set TEST.METHOD
+multicrop TEST.PAD_SIZE "[640, 640]"``) with the device writer math and
+the dense CRF of ``TEST.CRF_MODE`` (``fast``, or ``exact`` for the
+permutohedral mean field).  Otherwise each image goes through the
+per-image ``InferenceEngine`` (the model on ``--device``, the merge on
+the host or the device) and ``ResultWriter.save`` with the host C++
+dense CRF.
 """
 
 from __future__ import annotations
@@ -28,9 +35,12 @@ import torch
 from wseg_tpu_torch.config import cfg, cfg_from_file, cfg_from_list
 from wseg_tpu_torch.opts import get_arguments, get_device
 
-# (prospect_thresh, crf) per writer; the first TEST_ID entries are active
+# (prospect_thresh, heatmap, scoremap, crf) per writer; the first
+# TEST_ID entries are active
 TEST_ID = [0, 1]
 PROSPECT_THRESHS = [0.0, 0.1, 0.3, 0.5, 0.7]
+HEATMAPS = [False] * 5
+SCOREMAPS = [False] * 5
 CRFS = [True, True, False, False, False]
 
 
@@ -79,37 +89,17 @@ def main(argv):
     if args.set_cfgs:
         cfg_from_list(args.set_cfgs)
 
-    from wseg_tpu_torch.data.pascal_voc import labels_from_mask, read_filelist
-    from wseg_tpu_torch.engine.infer import make_device_postprocess
-    from wseg_tpu_torch.engine.serving import MultiScaleServer
-    from wseg_tpu_torch.engine.writers import ResultWriter
+    from wseg_tpu_torch.data.pascal_voc import (
+        check_split_integrity,
+        labels_from_mask,
+        read_filelist,
+    )
 
     nc = int(cfg.TEST.NUM_CLASSES)
     model = load_serving_model(args, get_device(args))
-
-    if not (str(cfg.TEST.METHOD) == "multiscale"
-            and bool(cfg.TEST.DEVICE_MERGE)
-            and bool(cfg.TEST.UINT8_TRANSFER)
-            and bool(cfg.TEST.DEVICE_VIEWS)):
-        raise NotImplementedError(
-            "only the multiscale device fast path is ported (ROADMAP.md "
-            "queue A)")
-
-    threshs = [PROSPECT_THRESHS[i] for i in TEST_ID]
-    crf_threshs = [PROSPECT_THRESHS[i] for i in TEST_ID if CRFS[i]]
-    pp = make_device_postprocess(
-        threshs, crf_threshs, crf_iters=10,
-        bg_pow=float(cfg.TEST.BG_POW), crf_dtype=str(cfg.TEST.CRF_DTYPE),
-        crf_stride=int(cfg.TEST.CRF_STRIDE),
-        crf_tap_div=float(cfg.TEST.CRF_TAP_DIV),
-        crf_full_stride=int(cfg.TEST.CRF_FULL_STRIDE),
-        crf_refine_iters=int(cfg.TEST.CRF_REFINE_ITERS),
-        crf_mode=str(cfg.TEST.CRF_MODE))
-    writers = [ResultWriter(args.mask_output_dir + "_"
-                            + str(PROSPECT_THRESHS[i]).split(".")[-1])
-               for i in TEST_ID]
-
     entries = read_filelist(args.infer_list, cfg.TEST.DATA_ROOT)
+    check_split_integrity(
+        os.path.splitext(os.path.basename(args.infer_list))[0], len(entries))
     n_total = len(entries)
 
     def read_entry(img_path, mask_path):
@@ -126,46 +116,122 @@ def main(argv):
                      else np.zeros(nc - 1, np.float32))
         return image, gt_mask, gt_labels
 
+    def progress(i):
+        if i % 100 == 0:
+            print(f"[{i}/{n_total}]", flush=True)
+
+    method = str(cfg.TEST.METHOD)
+    n_workers = max(1, int(args.workers or 4))
+    with ThreadPoolExecutor(n_workers) as pool:
+        if (method in ("multiscale", "multicrop")
+                and bool(cfg.TEST.DEVICE_MERGE)
+                and bool(cfg.TEST.UINT8_TRANSFER)
+                and not any(HEATMAPS[i] or SCOREMAPS[i] for i in TEST_ID)):
+            _serve_batched(args, model, method, entries, read_entry, pool,
+                           n_workers, progress)
+        else:
+            _serve_per_image(args, model, entries, read_entry, pool,
+                             n_workers, progress)
+
+
+def _serve_batched(args, model, method, entries, read_entry, pool,
+                   n_workers, progress):
+    """The batched server with the device writer math."""
+    from wseg_tpu_torch.engine.infer import make_device_postprocess
+    from wseg_tpu_torch.engine.serving import MultiScaleServer
+    from wseg_tpu_torch.engine.serving_crop import MultiCropServer
+    from wseg_tpu_torch.engine.writers import ResultWriter
+
+    threshs = [PROSPECT_THRESHS[i] for i in TEST_ID]
+    crf_threshs = [PROSPECT_THRESHS[i] for i in TEST_ID if CRFS[i]]
+    # the reference's multicrop merge applies no BG_POW, only the
+    # multi-scale merge does
+    pp = make_device_postprocess(
+        threshs, crf_threshs, crf_iters=10,
+        bg_pow=float(cfg.TEST.BG_POW) if method == "multiscale" else 1.0,
+        crf_dtype=str(cfg.TEST.CRF_DTYPE),
+        crf_stride=int(cfg.TEST.CRF_STRIDE),
+        crf_tap_div=float(cfg.TEST.CRF_TAP_DIV),
+        crf_full_stride=int(cfg.TEST.CRF_FULL_STRIDE),
+        crf_refine_iters=int(cfg.TEST.CRF_REFINE_ITERS),
+        crf_mode=str(cfg.TEST.CRF_MODE))
+    writers = [ResultWriter(_out_dir(args, i)) for i in TEST_ID]
+
     def write_result(res, img_path, image01, gt_mask):
         for k, idx in enumerate(TEST_ID):
             t = PROSPECT_THRESHS[idx]
             writers[k].save_pred(img_path, image01, res[t]["pred"],
                                  res[t].get("pred_crf"), gt_mask)
 
-    n_workers = max(1, int(args.workers or 4))
-    server = MultiScaleServer(model, cfg.TEST,
-                              max_batch=int(cfg.TEST.BATCH_SIZE),
-                              postprocess=pp)
-    with ThreadPoolExecutor(n_workers) as pool:
-        try:
-            if entries:
-                first, _, _ = read_entry(*entries[0])
-                server.warmup([(first.shape[1], first.shape[0])])
-            futures, inflight = deque(), deque()
+    server_cls = (MultiScaleServer if method == "multiscale"
+                  else MultiCropServer)
+    server = server_cls(model, cfg.TEST, max_batch=int(cfg.TEST.BATCH_SIZE),
+                        postprocess=pp)
+    try:
+        if entries:
+            first, _, _ = read_entry(*entries[0])
+            server.warmup([(first.shape[1], first.shape[0])])
+        futures, inflight = deque(), deque()
 
-            def drain_one():
-                j, f, p, im01, gm = inflight.popleft()
-                res, _ = f.result()
-                futures.append(pool.submit(write_result, res, p, im01, gm))
-                if j % 100 == 0:
-                    print(f"[{j}/{n_total}]", flush=True)
+        def drain_one():
+            j, f, p, im01, gm = inflight.popleft()
+            res, _ = f.result()
+            futures.append(pool.submit(write_result, res, p, im01, gm))
+            progress(j)
 
-            for i, (img_path, mask_path) in enumerate(entries):
-                while len(futures) > 4 * n_workers:
-                    futures.popleft().result()
-                image, gt_mask, gt_labels = read_entry(img_path, mask_path)
-                image01 = (image.astype(np.float32) / 255.0
-                           if gt_mask is not None else None)
-                inflight.append((i, server.submit(image, gt_labels),
-                                 img_path, image01, gt_mask))
-                while len(inflight) > 2 * int(cfg.TEST.BATCH_SIZE):
-                    drain_one()
-            while inflight:
-                drain_one()
-            while futures:
+        for i, (img_path, mask_path) in enumerate(entries):
+            while len(futures) > 4 * n_workers:
                 futures.popleft().result()
-        finally:
-            server.close()
+            image, gt_mask, gt_labels = read_entry(img_path, mask_path)
+            image01 = (image.astype(np.float32) / 255.0
+                       if gt_mask is not None else None)
+            inflight.append((i, server.submit(image, gt_labels),
+                             img_path, image01, gt_mask))
+            while len(inflight) > 2 * int(cfg.TEST.BATCH_SIZE):
+                drain_one()
+        while inflight:
+            drain_one()
+        while futures:
+            futures.popleft().result()
+    finally:
+        server.close()
+
+
+def _serve_per_image(args, model, entries, read_entry, pool, n_workers,
+                     progress):
+    """The per-image path: ``InferenceEngine`` scores, written by
+    ``ResultWriter.save`` with the host C++ dense CRF in the writer
+    pool (it overlaps the next image's forward)."""
+    from wseg_tpu_torch.engine.infer import InferenceEngine
+    from wseg_tpu_torch.engine.writers import ResultWriter
+    from wseg_tpu_torch.ops.crf_native import crf_inference_native
+
+    crf_fn = (crf_inference_native if any(CRFS[i] for i in TEST_ID)
+              else None)
+    writers = [ResultWriter(_out_dir(args, i),
+                            prospect_thresh=PROSPECT_THRESHS[i],
+                            heatmap=HEATMAPS[i], scoremap=SCOREMAPS[i],
+                            use_crf=CRFS[i], crf_fn=crf_fn)
+               for i in TEST_ID]
+    engine = InferenceEngine(model, cfg.TEST)
+    futures = deque()
+    for i, (img_path, mask_path) in enumerate(entries):
+        image, gt_mask, gt_labels = read_entry(img_path, mask_path)
+        merged, _ = engine.run_image(image, gt_labels)
+        image01 = image.astype(np.float32) / 255.0
+        for w in writers:
+            futures.append(pool.submit(w.save, img_path, image01, merged,
+                                       gt_mask))
+        while len(futures) > 4 * n_workers:
+            futures.popleft().result()
+        progress(i)
+    while futures:
+        futures.popleft().result()
+
+
+def _out_dir(args, idx: int) -> str:
+    return (args.mask_output_dir + "_"
+            + str(PROSPECT_THRESHS[idx]).split(".")[-1])
 
 
 if __name__ == "__main__":
