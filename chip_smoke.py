@@ -7,7 +7,14 @@ from the repository root.  Phases, each printing its own lines:
 
 1. environment: torch/CUDA versions and the card (fails without CUDA);
 2. build: compiles every hand-written kernel from ``wseg_tpu_torch/csrc``
-   (one nvcc per source, all started together);
+   (one nvcc per source, all started together); then the int8 kernels
+   (``csrc/qconv.cu``: ``quantize_act`` and ``qconv_s8``) against their
+   plain versions at every distinct conv of the flagship's int8 forward
+   on one bucket (16 views of 384x512), a VGG16 ``fc6`` at dilation 12
+   and a ResNet-50 stride-2 3x3: xq and sx equal, int32 sums and bf16
+   outputs bit-equal (dynamic and static), the times summed over the
+   bucket's convs beside their bounds, ``F.unfold`` + ``torch._int_mm``
+   and the bf16 cuDNN convs;
 3. kernels vs plain: the bilateral-message kernel (21 classes and the
    C = 1 norm filter) and the Gaussian-blur kernel (the four filter
    shapes of a postprocess call, each without and with the valid mask)
@@ -26,7 +33,11 @@ from the repository root.  Phases, each printing its own lines:
    then the zoo's classic-CAM ``bsl`` (ResNet-50, ``voc_resnet50.yaml``)
    and multi-level ``CAM_MF`` (WRN38, ``voc_resnet38.yaml``) the same
    way, each with the fast CRF on one image's merged map, kernels on the
-   card against the plain versions on the CPU (float32, max |dQ|);
+   card against the plain versions on the CPU (float32, max |dQ|); then
+   the flagship in int8 (``NET.DTYPE int8``), dynamic and static (the
+   statistics from ``quant_calibrate``'s CLI on the same images and
+   weights), each in turns with bf16: images/s, the int8 kernels'
+   launches (none in bf16), and the label agreement with bf16;
 5. PAMR kernels vs plain: the affinity and propagation kernels against
    their plain versions at the flagship shapes (guide (8, 48, 48, 3),
    mask (8, 48, 48, 21), dilations 1-24, 10 steps), the propagation
@@ -111,10 +122,13 @@ from the repository root.  Phases, each printing its own lines:
    checkpoint, from which ``wseg_tpu_torch.infer_cam`` (GradCAM) writes
    the 4 validation images' PNGs, the float32 GradCAM and FullGrad maps
    of the card are held to the CPU's, and ``wseg_tpu_torch.cam`` writes
-   its three JPEGs;
+   its three JPEGs; then ``train`` with ``NET.OPT Adam`` (finite
+   losses), ``quant_calibrate`` on its checkpoint, ``infer_val`` in int8
+   static (refused without statistics) and in int8 dynamic with the
+   exact CRF, multicrop and the per-image path, each scored;
 10. the card line, the kernel JSON line (launch counts summed over the
-    flagship's, the ``ae``, the zoo's, multicrop, host-view and the SEAM
-    main paths), and last ``{"ok":
+    flagship's, the ``ae``, the zoo's, multicrop, host-view, the SEAM
+    and the int8 main paths), and last ``{"ok":
     true, ...}``.  Each phase prints its wall seconds.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -271,10 +285,11 @@ def phase_build(card: str) -> None:
         crf_native,
         pamr_cuda,
         pamr_variants,
+        qconv,
     )
 
     names = ("crf_bilateral", "crf_gauss", "pamr", "pamr_variants",
-             "crf_lattice", "permutohedral_host")
+             "crf_lattice", "permutohedral_host", "qconv")
     def timed(name):
         t = time.perf_counter()
         _build.build(name)
@@ -284,7 +299,7 @@ def phase_build(card: str) -> None:
     with ThreadPoolExecutor(len(names)) as pool:
         secs = list(pool.map(timed, names))
     for module in (crf_bilateral, crf_gauss, pamr_cuda, pamr_variants,
-                   crf_lattice_cuda, crf_native):
+                   crf_lattice_cuda, crf_native, qconv):
         module._library()
     dt = time.perf_counter() - t0
     print(f"build {', '.join(_build.source(n).name for n in names)} in "
@@ -3031,6 +3046,458 @@ def phase_cam_entry(card: str, seam) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---- int8 serving (NET.DTYPE int8) -----------------------------------
+
+# the card's dense int8 tensor-core peak (H100 SXM data sheet)
+INT8_OPS = 1979e12
+# phase_qconv's bucket: the flagship's scale-1.0 views of a 500x375
+# image, 8 slots with flip, as a served group runs them
+QCONV_IMAGE = (500, 375)
+QCONV_SLOTS = 8
+# (name, B, cin, H, W, cout, k, stride, dilation, bias) beside the
+# flagship's convs: VGG16's fc6 at the ae config's 1.0 view (biased,
+# dilation 12, as the LargeFOV fc6) and a ResNet-50 stride-2 3x3
+# (layer2.0.conv2 at the same view)
+QCONV_EXTRA = (("vgg16.fc6_d12", 8, 512, 48, 64, 1024, 3, 1, 12, True),
+               ("resnet50.layer2.0.conv2", 8, 128, 192, 256, 128, 3, 2, 1,
+                False))
+
+
+def conv_bound(b, cin, cp, h, w, cout, k, ho, wo) -> dict:
+    """The least time of one w8a8 conv on the card: its int8 operations
+    (true input channels) at the int8 peak, or xq, wq and the bf16
+    output moved once at the HBM rate (ms each, and the operations)."""
+    ops = 2.0 * b * ho * wo * cout * k * k * cin
+    nbytes = b * h * w * cp + cout * k * k * cp + 2 * b * ho * wo * cout
+    return {"t_ops": ops / INT8_OPS * 1e3,
+            "t_bytes": nbytes / HBM_BYTES_PER_S * 1e3, "ops": ops}
+
+
+def flagship_conv_inputs(model, x):
+    """[(QuantConv, its bf16 input)] of one forward of ``model`` on x."""
+    import torch
+
+    from wseg_tpu_torch.models.backbones.common import QuantConv
+
+    calls = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args: calls.append((mod, args[0])))
+        for m in model.modules() if isinstance(m, QuantConv)]
+    try:
+        with torch.inference_mode():
+            model(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return calls
+
+
+def qconv_case(tag, x, weight, bias, stride, pad, dil, count, card) -> dict:
+    """``quantize_act`` (dynamic and static) and ``qconv_s8`` against
+    their plain versions on one conv's input: xq and sx equal, int32
+    sums and bf16 outputs bit-equal; the dynamic mode's times (kernels,
+    plain, ``F.unfold`` + ``torch._int_mm``, the bf16 cuDNN conv) and
+    bounds."""
+    import torch
+    import torch.nn.functional as F
+
+    from wseg_tpu_torch.ops import qconv as Q
+
+    b, cin, h, w = x.shape
+    cout, _, k, _ = weight.shape
+    cp = Q.padded_channels(cin)
+    for static in (False, True):
+        sc = (Q.amax_scale(x.float().abs().amax(dim=(0, 2, 3)) * 0.9)
+              if static else None)
+        wq, sw = Q.quantize_weight(weight, sc)
+        xq, sx = Q.quantize_act(x, sc)
+        rxq, rsx = Q.quantize_act_reference(x, sc)
+        check(torch.equal(xq, rxq) and (sx is None) == (rsx is None)
+              and (sx is None or torch.equal(sx, rsx)),
+              f"{tag}: quantize_act differs from plain (static {static})")
+        acc = Q.qconv_s8(xq, wq, sx, sw, bias, stride, pad, dil,
+                         acc_only=True)
+        racc = Q.qconv_acc_reference(xq, wq, stride, pad, dil)
+        check(torch.equal(acc, racc), f"{tag}: int32 sums differ from plain "
+              f"(static {static}): max |d| "
+              f"{(acc.long() - racc.long()).abs().max().item()}")
+        y = Q.qconv_s8(xq, wq, sx, sw, bias, stride, pad, dil)
+        ry = Q.dequantize_reference(racc, sx, sw, bias)
+        check(torch.equal(y, ry), f"{tag}: bf16 output differs from plain "
+              f"(static {static})")
+    # the served (dynamic) mode's times
+    wq, sw = Q.quantize_weight(weight)
+    xq, sx = Q.quantize_act(x)
+    acc = Q.qconv_s8(xq, wq, sx, sw, bias, stride, pad, dil, acc_only=True)
+    ho, wo = acc.shape[2], acc.shape[3]
+    q_ms = cuda_median_ms(lambda: Q.quantize_act(x), reps=20)
+    q_plain = cuda_median_ms(lambda: Q.quantize_act_reference(x), reps=3)
+    c_ms = cuda_median_ms(
+        lambda: Q.qconv_s8(xq, wq, sx, sw, bias, stride, pad, dil), reps=20)
+    c_plain = cuda_median_ms(
+        lambda: Q.qconv_s8_reference(xq, wq, sx, sw, bias, stride, pad, dil),
+        reps=2, warmup=1)
+    xh = xq.permute(0, 3, 1, 2)
+    wl = wq.permute(0, 3, 1, 2).reshape(cout, cp * k * k).t()
+
+    def library():
+        cols = F.unfold(xh.to(torch.float16), k, dilation=dil, padding=pad,
+                        stride=stride)
+        a = cols.transpose(1, 2).reshape(-1, cp * k * k).to(torch.int8)
+        return torch._int_mm(a, wl)
+
+    lib_ms = None
+    try:
+        lib = library().reshape(b, ho, wo, cout).permute(0, 3, 1, 2)
+        check(torch.equal(lib, acc), f"{tag}: unfold + _int_mm differs")
+        lib_ms = cuda_median_ms(library, reps=5)
+    except RuntimeError as e:  # a shape _int_mm refuses
+        print(f"  {tag}: no library yardstick: {e}", flush=True)
+    wb = weight.to(torch.bfloat16)
+    bb = None if bias is None else bias.to(torch.bfloat16)
+    cudnn_ms = cuda_median_ms(
+        lambda: F.conv2d(x, wb, bb, stride, pad, dil), reps=20)
+    # bf16 x read once, xq written once
+    q_bound = (2 * x.numel() + xq.numel()) / HBM_BYTES_PER_S * 1e3
+    cb = conv_bound(b, cin, cp, h, w, cout, k, ho, wo)
+    c_bound = max(cb["t_ops"], cb["t_bytes"])
+    c_by = "operations" if cb["t_ops"] >= cb["t_bytes"] else "bytes"
+    print(f"qconv {tag} x{count}: ({b}, {cin}, {h}, {w}) -> {cout}, k{k} "
+          f"s{stride} d{dil}{' +bias' if bias is not None else ''}: xq, sx "
+          f"equal, int32 and bf16 bit-equal (dynamic and static); "
+          f"quantize_act {q_ms:.4f} ms (plain {q_plain:.4f}, bound "
+          f"{q_bound:.4f}); qconv_s8 {c_ms:.4f} ms = "
+          f"{cb['ops'] / c_ms / 1e9:.1f} TOPS (plain {c_plain:.3f}, bound "
+          f"{c_bound:.4f} {c_by}, unfold + _int_mm "
+          f"{'n/a' if lib_ms is None else f'{lib_ms:.4f}'}, bf16 cuDNN "
+          f"{cudnn_ms:.4f}) ({card})", flush=True)
+    return {"count": count, "q_ms": q_ms, "q_plain": q_plain,
+            "q_bound": q_bound, "c_ms": c_ms, "c_plain": c_plain,
+            "c_bound": c_bound, "c_ops": cb["ops"], "t_ops": cb["t_ops"],
+            "t_bytes": cb["t_bytes"], "lib_ms": lib_ms,
+            "cudnn_ms": cudnn_ms}
+
+
+def phase_qconv(card: str) -> list:
+    """``quantize_act`` and ``qconv_s8`` against their plain versions at
+    every distinct conv of the flagship's int8 serving forward on one
+    bucket (the scale-1.0 views of a 500x375 image, 8 slots with flip:
+    the inputs the seeded model computes from a synthetic image), and at
+    ``QCONV_EXTRA``; returns the two kernels' entries (times and bounds
+    summed over one such forward's convs, each distinct conv times its
+    count), without launches."""
+    import numpy as np
+    import torch
+
+    from wseg_tpu_torch.config import cfg, reset_cfg
+    from wseg_tpu_torch.data.multiscale import MultiscaleViews
+    from wseg_tpu_torch.flagship import (
+        build_flagship_server,
+        load_cfg,
+        synthetic_images,
+    )
+
+    reset_cfg()
+    load_cfg("voc_resnet38.yaml")
+    cfg.NET.DTYPE = "int8"
+    server = build_flagship_server("cuda", seed=0)
+    server.close()
+    model = server.model
+    img, _ = synthetic_images([QCONV_IMAGE])[0]
+    views = MultiscaleViews(cfg.TEST.SCALES, bool(cfg.TEST.FLIP),
+                            cfg.TEST.PAD_SIZE, bool(cfg.TEST.PAD_PER_SCALE),
+                            int(cfg.TEST.PAD_ALIGN))
+    vs, _, _ = views.build(img)
+    x = torch.from_numpy(np.stack(vs[:2] * QCONV_SLOTS)).cuda()
+    calls = flagship_conv_inputs(model, x)
+    distinct = {}
+    for mod, inp in calls:
+        if not mod.quantized:
+            continue
+        key = (tuple(inp.shape), mod.out_channels, mod.kernel_size[0],
+               mod.stride[0], mod.dilation[0], mod.bias is not None)
+        if key in distinct:
+            distinct[key][2] += 1
+        else:
+            distinct[key] = [mod, inp, 1]
+    print(f"qconv: flagship int8 forward on {tuple(x.shape)} views: "
+          f"{len(calls)} convs ({sum(m.quantized for m, _ in calls)} "
+          f"quantized), {len(distinct)} distinct ({card})", flush=True)
+    rows = []
+    for key, (mod, inp, count) in distinct.items():
+        name = next(n for n, m in model.named_modules() if m is mod)
+        rows.append(qconv_case(name, inp, mod.weight.detach(),
+                               None if mod.bias is None
+                               else mod.bias.detach(), mod.stride[0],
+                               mod.padding[0], mod.dilation[0], count,
+                               card))
+    del calls, distinct, model, server, x
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for tag, b, cin, h, w, cout, k, s, d, bias in QCONV_EXTRA:
+        xe = torch.relu(torch.randn((b, cin, h, w), generator=gen,
+                                    device="cuda")).to(torch.bfloat16) \
+            .contiguous(memory_format=torch.channels_last)
+        we = torch.randn((cout, cin, k, k), generator=gen,
+                         device="cuda") * (2.0 / (cin * k * k)) ** 0.5
+        be = (torch.randn((cout,), generator=gen, device="cuda") * 0.1
+              if bias else None)
+        qconv_case(tag, xe, we, be, s, (k - 1) // 2 * d, d, 0, card)
+    reset_cfg()
+
+    def total(key):
+        return sum(r[key] * r["count"] for r in rows)
+
+    lib = (None if any(r["lib_ms"] is None for r in rows)
+           else total("lib_ms"))
+    n = sum(r["count"] for r in rows)
+    c_by = "operations" if total("t_ops") >= total("t_bytes") else "bytes"
+    print(f"qconv: one flagship bucket forward ({n} quantized convs): "
+          f"quantize_act {total('q_ms'):.3f} ms (plain "
+          f"{total('q_plain'):.3f}, bound {total('q_bound'):.3f}); "
+          f"qconv_s8 {total('c_ms'):.3f} ms = "
+          f"{total('c_ops') / total('c_ms') / 1e9:.1f} TOPS (plain "
+          f"{total('c_plain'):.3f}, bound {total('c_bound'):.3f}, "
+          f"unfold + _int_mm {lib}, bf16 cuDNN convs "
+          f"{total('cudnn_ms'):.3f}) ({card})", flush=True)
+    source = "wseg_tpu_torch/csrc/qconv.cu"
+    return [{"name": "quantize_act", "route": "cuda", "source": source,
+             "replaces": "wseg_tpu/models/backbones/common.py:173",
+             "max_abs_err": 0.0, "ms": total("q_ms"),
+             "plain_ms": total("q_plain"), "bound_ms": total("q_bound"),
+             "bound_by": "bytes", "library_ms": None},
+            {"name": "qconv_s8", "route": "cuda", "source": source,
+             "replaces": "wseg_tpu/models/backbones/common.py:184",
+             "max_abs_err": 0.0, "ms": total("c_ms"),
+             "plain_ms": total("c_plain"), "bound_ms": total("c_bound"),
+             "bound_by": c_by, "library_ms": lib}]
+
+
+def int8_launches():
+    from wseg_tpu_torch.ops.qconv import qconv_s8, quantize_act
+
+    return {"quantize_act": quantize_act.launches,
+            "qconv_s8": qconv_s8.launches}
+
+
+def zero_int8_launches():
+    from wseg_tpu_torch.ops.qconv import qconv_s8, quantize_act
+
+    quantize_act.launches = qconv_s8.launches = 0
+
+
+def phase_int8_serve(card: str) -> dict:
+    """The flagship (``voc_resnet38.yaml``, seeded weights) serves the 8
+    VOC-sized images in int8, dynamic and static (statistics written by
+    ``quant_calibrate``'s CLI from the same images and weights), each in
+    turns with bfloat16: bf16, int8, int8, bf16; label maps checked,
+    images/s, the two kernels' launches of each int8 run (none in bf16),
+    and ``quant_fidelity``'s label agreement of int8 against bf16.
+    Returns the launches of the int8 runs."""
+    import torch
+
+    from wseg_tpu_torch import quant_calibrate
+    from wseg_tpu_torch.config import reset_cfg
+    from wseg_tpu_torch.flagship import (
+        FLAGSHIP_SET,
+        load_cfg,
+        synthetic_images,
+    )
+    from wseg_tpu_torch.quant_fidelity import (
+        agreement,
+        build_server,
+        serve,
+        warm,
+    )
+
+    images = synthetic_images(VOC_SIZES)
+    launches = {"quantize_act": 0, "qconv_s8": 0}
+    tmp = tempfile.mkdtemp(prefix="wseg_smoke_int8_")
+
+    def server_of(dtype, act="dynamic", stats=None):
+        reset_cfg()
+        load_cfg("voc_resnet38.yaml")
+        srv = build_server(dtype, "cuda", seed=0, quant_act=act,
+                           stats=stats)
+        t0 = time.perf_counter()
+        warm(srv, images)
+        print(f"int8 serving: {dtype} {act if dtype == 'int8' else ''} "
+              f"server warm in {time.perf_counter() - t0:.2f} s ({card})",
+              flush=True)
+        return srv
+
+    def run(tag, srv, int8: bool):
+        zero_int8_launches()
+        results, dt = serve(srv, images)
+        got = int8_launches()
+        check_results(tag, images, [(r, None) for r in results],
+                      labels=False)
+        if int8:
+            check(got["qconv_s8"] > 0 and got["quantize_act"] > 0,
+                  f"{tag}: the int8 kernels were not launched: {got}")
+            for k in launches:
+                launches[k] += got[k]
+        else:
+            check(got == {"quantize_act": 0, "qconv_s8": 0},
+                  f"{tag}: bf16 serving launched int8 kernels: {got}")
+        print(f"int8 serving {tag}: {len(images)} images in {dt:.3f} s = "
+              f"{len(images) / dt:.3f} images/s, launches {got} ({card})",
+              flush=True)
+        return results
+
+    try:
+        bf16 = server_of("bfloat16")
+        dyn = server_of("int8")
+        ref = run("bf16 (1)", bf16, False)
+        got_dyn = run("int8 dynamic (1)", dyn, True)
+        run("int8 dynamic (2)", dyn, True)
+        run("bf16 (2)", bf16, False)
+        print(f"int8 serving fidelity, dynamic vs bf16: "
+              f"{agreement(ref, got_dyn)} ({card})", flush=True)
+        # quant_calibrate's CLI on the same weights and images
+        snap = os.path.join(tmp, "int8.pth")
+        torch.save(dyn.model.state_dict(), snap)
+        dyn.close()
+        del dyn
+        img_dir = os.path.join(tmp, "images")
+        os.makedirs(img_dir)
+        from PIL import Image
+
+        for i, (img, _) in enumerate(images):
+            Image.fromarray(img).save(os.path.join(img_dir, f"{i:02d}.png"))
+        stats_file = os.path.join(tmp, "stats.pt")
+        reset_cfg()
+        t0 = time.perf_counter()
+        quant_calibrate.main(["--out", stats_file, "--images", img_dir,
+                              "--n", str(len(images)), "--snapshot", snap,
+                              "--device", "cuda", "--set", *FLAGSHIP_SET])
+        print(f"int8 serving: quant_calibrate over {len(images)} images in "
+              f"{time.perf_counter() - t0:.2f} s ({card})", flush=True)
+        stats = torch.load(stats_file, map_location="cpu",
+                           weights_only=True)
+        static = server_of("int8", "static", stats)
+        got_static = run("int8 static (1)", static, True)
+        run("int8 static (2)", static, True)
+        run("bf16 (3)", bf16, False)
+        print(f"int8 serving fidelity, static vs bf16: "
+              f"{agreement(ref, got_static)} ({card})", flush=True)
+        static.close()
+        bf16.close()
+    finally:
+        reset_cfg()
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_int8_entry(card: str) -> dict:
+    """``train`` with ``NET.OPT Adam`` (one short epoch + validation:
+    finite losses) on a synthetic VOC; ``quant_calibrate`` on its
+    checkpoint; ``infer_val`` in int8 static (scored by ``eval_seg``),
+    and refused without statistics; ``infer_val`` in int8 dynamic with
+    the exact CRF, multicrop and the per-image path.  Returns the int8
+    kernels' launches of the ``infer_val`` runs."""
+    import contextlib
+    import io
+    import math
+    import re
+
+    import torch
+
+    from wseg_tpu_torch import infer_val, quant_calibrate, train
+    from wseg_tpu_torch.config import reset_cfg
+    from wseg_tpu_torch.flagship import FLAGSHIP_CFG, write_synthetic_voc
+    from wseg_tpu_torch.utils.checkpoints import model_file
+
+    launches = {"quantize_act": 0, "qconv_s8": 0}
+    tmp = tempfile.mkdtemp(prefix="wseg_smoke_int8e_")
+    try:
+        root = write_synthetic_voc(os.path.join(tmp, "data"), n_train=16,
+                                   n_val=4)
+        common = ["--dataset", "pascal_voc", "--cfg", FLAGSHIP_CFG,
+                  "--exp", "smoke_int8", "--run", "r0",
+                  "--snapshot-dir", os.path.join(tmp, "snap"),
+                  "--logdir", os.path.join(tmp, "logs"), "--workers", "2",
+                  "--device", "cuda"]
+        sets = ["--set", "DATASET.ROOT", root, "TEST.DATA_ROOT", root,
+                "TRAIN.NUM_EPOCHS", "0", "TRAIN.PRETRAIN", "0"]
+        reset_cfg()
+        text = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            trainer = train.main(common + sets + ["NET.OPT", "Adam"])
+        dt = time.perf_counter() - t0
+        check(isinstance(trainer.optimizer, torch.optim.Adam),
+              f"NET.OPT Adam gave {type(trainer.optimizer).__name__}")
+        losses = [float(v) for v in re.findall(
+            r"\bloss\w*: (\S+?)\s", text.getvalue())]
+        check(losses and all(math.isfinite(v) for v in losses),
+              f"Adam training losses {losses}")
+        check(all(bool(torch.isfinite(p).all())
+                  for p in trainer.model.parameters()),
+              "non-finite parameters after Adam steps")
+        check(trainer.checkpoint.checkpoints, "the Adam trainer saved "
+              "nothing")
+        suffix = trainer.checkpoint.checkpoints[-1]
+        snap = model_file(trainer.args.snapshot_dir, suffix)
+        print(f"int8 entry: train.main with NET.OPT Adam, 1 epoch of 16 + "
+              f"validation of 4 in {dt:.2f} s, losses {losses}, "
+              f"checkpoint {suffix} ({card})", flush=True)
+        del trainer
+        torch.cuda.empty_cache()
+
+        stats_file = os.path.join(tmp, "stats.pt")
+        reset_cfg()
+        quant_calibrate.main([
+            "--out", stats_file, "--images",
+            os.path.join(root, "JPEGImages"), "--n", "8", "--snapshot",
+            snap, "--cfg", FLAGSHIP_CFG, "--device", "cuda"])
+        infer = common + ["--resume", suffix, "--infer-list",
+                          os.path.join(root, "val_voc.txt")]
+        static = ["NET.DTYPE", "int8", "NET.QUANT_ACT", "static"]
+        reset_cfg()
+        try:
+            infer_val.main(infer + ["--mask-output-dir",
+                                    os.path.join(tmp, "refused")]
+                           + sets + static)
+            raise AssertionError("int8 static infer_val served without "
+                                 "NET.QUANT_STATS")
+        except FileNotFoundError as e:
+            print(f"int8 entry: static without statistics refused: {e} "
+                  f"({card})", flush=True)
+        runs = (("static", static + ["NET.QUANT_STATS", stats_file]),
+                ("dynamic exact CRF", ["NET.DTYPE", "int8",
+                                       "TEST.CRF_MODE", "exact"]),
+                ("dynamic multicrop", ["NET.DTYPE", "int8",
+                                       *MULTICROP_SET]),
+                ("dynamic per-image", ["NET.DTYPE", "int8",
+                                       "TEST.DEVICE_MERGE", "False"]))
+        for tag, extra in runs:
+            reset_cfg()
+            out = os.path.join(tmp, "masks_" + tag.replace(" ", "_"))
+            zero_int8_launches()
+            t0 = time.perf_counter()
+            infer_val.main(infer + ["--mask-output-dir", out] + sets
+                           + extra)
+            dt = time.perf_counter() - t0
+            got = int8_launches()
+            check(got["qconv_s8"] > 0 and got["quantize_act"] > 0,
+                  f"int8 infer_val ({tag}) launched {got}")
+            for k in launches:
+                launches[k] += got[k]
+            n = {sub: len(os.listdir(os.path.join(out + "_0", sub)))
+                 for sub in ("no_crf", "crf")}
+            check(n == {"no_crf": 4, "crf": 4}, f"{tag} infer_val wrote {n}")
+            miou = score_masks(root, out + "_0", tmp)
+            print(f"int8 entry: infer_val ({tag}) wrote {n} PNGs in "
+                  f"{dt:.2f} s, launches {got}; eval_seg mIoU {miou:.4f} "
+                  f"({card})", flush=True)
+    finally:
+        reset_cfg()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
 def timed(phase, card: str, *args):
     """Run ``phase(card, *args)`` and print its wall seconds."""
     t0 = time.perf_counter()
@@ -3043,6 +3510,7 @@ def timed(phase, card: str, *args):
 def main() -> int:
     card = phase_env()
     timed(phase_build, card)
+    int8_kernels = timed(phase_qconv, card)
     kern = timed(phase_kernel, card)
     gauss = timed(phase_gauss, card)
     slice_launches = timed(phase_slice, card)
@@ -3055,6 +3523,7 @@ def main() -> int:
               f"a serving slice never launched {name}")
         entry["launches"] = (slice_launches[name] + ae_serve_launches[name]
                              + zoo_serve_launches[name])
+    int8_launches_serve = timed(phase_int8_serve, card)
     crop_launches, crop_lattice = timed(phase_multicrop_serve, card)
     host_launches = timed(phase_host_paths, card)
     for entry in (kern, gauss):
@@ -3095,11 +3564,22 @@ def main() -> int:
     timed(phase_ae_entry, card)
     timed(phase_zoo_entry, card)
     timed(phase_cam_entry, card, timed(phase_seam_entry, card))
+    int8_launches_entry = timed(phase_int8_entry, card)
+    for entry in int8_kernels:
+        name = entry["name"]
+        check(int8_launches_serve[name] > 0 and int8_launches_entry[name] > 0,
+              f"int8 serving never launched {name}")
+        entry["launches"] = (int8_launches_serve[name]
+                             + int8_launches_entry[name])
+    print(f"main-path launches: int8 kernels {int8_launches_serve} (int8 "
+          f"serving slice) + {int8_launches_entry} (int8 infer_val)",
+          flush=True)
     import torch
 
     print(card, flush=True)
     print(json.dumps({"kernels": [kern, gauss] + pamr_kernels
-                      + lattice_kernels + lab_kernels}), flush=True)
+                      + lattice_kernels + lab_kernels + int8_kernels}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,10 +1,11 @@
 """The port stands alone: importing ``wseg_tpu_torch`` and every one of
-its submodules (67 with the SoftMaxAE modules -- ``models/backbones/
+its submodules (70 with the SoftMaxAE modules -- ``models/backbones/
 {resnet,vgg16}``, ``models/heads/softmax_ae``, ``ops/sg`` --, the host
 tools ``eval_seg`` and ``convert_sbd``, the SEAM trainer and the
 Grad-CAM suite -- ``engine/seam``, ``train_SEAM``, ``ops/activations``,
-``gradcam/{cam_methods,fullgrad}``, ``infer_cam``, ``cam`` --, and the
-multicrop server ``engine/serving_crop``), and the root
+``gradcam/{cam_methods,fullgrad}``, ``infer_cam``, ``cam`` --, the
+multicrop server ``engine/serving_crop``, and the int8 serving mode's
+``ops/qconv``, ``quant_calibrate`` and ``quant_fidelity``), and the root
 ``chip_smoke.py``, pulls in neither jax, flax nor the JAX package."""
 
 import os
@@ -33,8 +34,10 @@ new = {"wseg_tpu_torch.models.backbones.resnet",
        "wseg_tpu_torch.gradcam.cam_methods",
        "wseg_tpu_torch.gradcam.fullgrad", "wseg_tpu_torch.infer_cam",
        "wseg_tpu_torch.cam", "wseg_tpu_torch.engine.serving_crop",
-       "wseg_tpu_torch.engine.infer", "wseg_tpu_torch.data.multiscale"}
-sys.exit(1 if bad or len(names) < 67 or not new <= set(names) else 0)
+       "wseg_tpu_torch.engine.infer", "wseg_tpu_torch.data.multiscale",
+       "wseg_tpu_torch.ops.qconv", "wseg_tpu_torch.quant_calibrate",
+       "wseg_tpu_torch.quant_fidelity"}
+sys.exit(1 if bad or len(names) < 70 or not new <= set(names) else 0)
 """
 
 

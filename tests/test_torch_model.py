@@ -61,7 +61,7 @@ def test_bfloat16_model_runs_in_bfloat16():
 
 @pytest.mark.parametrize("key,value", [("MODEL", "CAM_CASA_WGAP_tf_v7"),
                                        ("MODEL", "CAM_CASA_WGAP_tf_v10"),
-                                       ("DTYPE", "int8")])
+                                       ("MODEL", "CAM_CASA_WGAP_tf_v3")])
 def test_unported_configurations_raise(key, value):
     from wseg_tpu_torch.config import cfg
     from wseg_tpu_torch.models import get_model

@@ -2,11 +2,13 @@
 the reference DecTrainer).
 
 Builds the loaders, the model (float32 parameters, ``NET.DTYPE``
-compute under autocast), the 4-group SGD and the checkpoint ring; runs
-the train-epoch / validation-mAP / checkpoint-best cycle with a loss
-line every 10 steps.  Left out (absent or raising, see ROADMAP.md queue
-A): the device mesh (one device per process), the fixed-batch
-TensorBoard panels and scalars, and ``--profile-dir``.  The ``ae``
+compute under autocast; ``int8`` is inference-only and raises), the
+4-group SGD or Adam and the checkpoint ring; runs the train-epoch /
+validation-mAP / checkpoint-best cycle with a loss line every 10 steps.
+``--profile-dir`` traces steps 10-20 of the first epoch with
+``torch.profiler`` and writes a Chrome trace there.  Left out (absent,
+see ROADMAP.md queue A): the device mesh (one device per process) and
+the fixed-batch TensorBoard panels and scalars.  The ``ae``
 decoder's live BatchNorms update their running statistics in the train
 epoch and normalise with them in validation (``.eval()``); they are
 buffers of the model's state_dict, so checkpoints and ``--resume``
@@ -29,6 +31,7 @@ from wseg_tpu_torch.engine.train_loop import (
 )
 from wseg_tpu_torch.models import get_model
 from wseg_tpu_torch.models.backbones.common import (
+    INT8_TRAIN_ERROR,
     seeded_init_,
     set_generator,
     stabilize_scratch_init,
@@ -67,16 +70,44 @@ def build_train_model(device, seed: int = 64):
     return model
 
 
+# steps of the first epoch that --profile-dir traces (both included)
+PROFILE_STEPS = (10, 20)
+
+
+def start_profile(device) -> torch.profiler.profile:
+    """A started ``torch.profiler`` of the host and, on a card, its
+    kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def write_profile(prof, device, profile_dir: str, epoch: int) -> str:
+    """Stop ``prof`` and write its Chrome trace into ``profile_dir``."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+    prof.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, f"trace_epoch{epoch}.json")
+    prof.export_chrome_trace(path)
+    print("Profiler trace written to", profile_dir, flush=True)
+    return path
+
+
 class DecTrainer:
     def __init__(self, args):
         self.args = args
+        if str(getattr(cfg.NET, "DTYPE", "")) == "int8":
+            # round() in the quantized convs has zero gradient: the head
+            # would learn while the backbone silently receives nothing
+            raise ValueError(INT8_TRAIN_ERROR)
         self.device = get_device(args)
         self.start_epoch = int(getattr(args, "start_epoch", 0))
-        if getattr(args, "profile_dir", ""):
-            raise NotImplementedError(
-                "--profile-dir is not ported (ROADMAP.md queue A, "
-                "'Training'); profile with torch.profiler over the "
-                "train.* ranges")
 
         self.trainloader = get_dataloader(args, cfg, cfg.DATASET.FILENAME)
         self.valloader = get_dataloader(args, cfg, "val_voc")
@@ -141,9 +172,17 @@ class DecTrainer:
         timer = Timer("New Epoch: ")
         bs = int(cfg.TRAIN.BATCH_SIZE)
         pending = []
+        profile_dir = (getattr(self.args, "profile_dir", "")
+                       if epoch == self.start_epoch else "")
+        prof = None
         for i, batch in enumerate(self.trainloader):
+            if profile_dir and i == PROFILE_STEPS[0]:
+                prof = start_profile(self.device)
             pending.append(self._train_step(
                 self._device_batch(batch, train=True), epoch))
+            if prof is not None and i == PROFILE_STEPS[1]:
+                write_profile(prof, self.device, profile_dir, epoch)
+                prof = None
             if i % 10 == 0:
                 last = self._flush(pending, stat)
                 msg = "Epoch[{}] Loss [{:04d}]: ".format(epoch, i)
@@ -151,6 +190,8 @@ class DecTrainer:
                     msg += "{}: {:.4f} | ".format(k, last[k])
                 ips = (i + 1) * bs / timer.get_stage_elapsed()
                 print(msg + " | Im/Sec: {:.1f}".format(ips), flush=True)
+        if prof is not None:  # an epoch shorter than the traced steps
+            write_profile(prof, self.device, profile_dir, epoch)
         self._flush(pending, stat)
         for k in stat.vals:
             print("{}: {:4.3f}".format(k, stat.summarize_key(k)))

@@ -59,6 +59,11 @@ def _svd_projection(acts: torch.Tensor) -> torch.Tensor:
     return proj.reshape(b, h, w)
 
 
+def _is_int8(model) -> bool:
+    """Whether ``model``'s backbone runs the int8 serving mode."""
+    return str(getattr(model, "backbone_dtype", "")).startswith("int8")
+
+
 def _device(model) -> torch.device:
     return next(model.parameters()).device
 
@@ -80,7 +85,17 @@ class BaseCAM:
         (reference base_cam.py:129-137 aggregate_multi_layers).
     """
 
+    uses_gradients = True
+
     def __init__(self, model, tap="conv6"):
+        if self.uses_gradients and _is_int8(model):
+            # round() in the quantized convs has zero gradient: every
+            # gradient-based CAM would silently return zeros (the
+            # forward-only engines, Score/Ablation/Eigen, run in int8)
+            raise ValueError(
+                "gradient-based CAM engines need a differentiable "
+                "model; NET.DTYPE 'int8' is inference-only -- use "
+                "'bfloat16' for this method")
         self.model = model
         self.taps = (tap,) if isinstance(tap, str) else tuple(tap)
         self.tap = self.taps[0]
@@ -165,6 +180,8 @@ class LayerCAM(BaseCAM):
 class EigenCAM(BaseCAM):
     """SVD projection of the raw activations (eigen_cam.py:7-20)."""
 
+    uses_gradients = False
+
     def __call__(self, image, target_category, eigen_smooth=False):
         image = _as_image(self.model, image)
         cam = _svd_projection(self._taps(image)[self.tap].float())
@@ -185,6 +202,8 @@ class ScoreCAM(BaseCAM):
     """Gradient-free: re-score the input masked by each channel's
     normalised activation; softmax over the channel scores = weights
     (score_cam.py:6-61).  ``CHANNEL_BATCH`` channels a forward."""
+
+    uses_gradients = False
 
     @torch.no_grad()
     def __call__(self, image, target_category, eigen_smooth=False):
@@ -214,6 +233,8 @@ class AblationCAM(BaseCAM):
     forward; every channel is ablated (the reference's
     ``ratio_channels_to_ablate`` below 1 samples a subset; ``wseg_tpu``
     ignores it too)."""
+
+    uses_gradients = False
 
     @torch.no_grad()
     def __call__(self, image, target_category, eigen_smooth=False):
@@ -250,6 +271,11 @@ class GuidedBackprop:
     W, 3) gradient image (not scaled; the caller deprocesses it)."""
 
     def __init__(self, model):
+        if _is_int8(model):
+            # same guard as the gradient-based engines
+            raise ValueError(
+                "GuidedBackprop needs a differentiable model; "
+                "NET.DTYPE 'int8' is inference-only -- use 'bfloat16'")
         self.model = model
 
     def __call__(self, image, target_category: int,

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from wseg_tpu_torch.gradcam.cam_methods import _as_image
+from wseg_tpu_torch.gradcam.cam_methods import _as_image, _is_int8
 from wseg_tpu_torch.models.backbones.common import FrozenBatchNorm
 from wseg_tpu_torch.ops.resize import resize_bilinear
 
@@ -42,6 +42,13 @@ def _scale_map(x: torch.Tensor, dims) -> torch.Tensor:
 
 class FullGrad:
     def __init__(self, model):
+        if _is_int8(model):
+            # the guard of the other gradient-based engines (wseg_tpu's
+            # FullGrad lacks it and would return the int8 model's zero
+            # backbone gradients)
+            raise ValueError(
+                "FullGrad needs a differentiable model; NET.DTYPE 'int8' "
+                "is inference-only -- use 'bfloat16'")
         self.model = model
 
     def site_gradients(self, image: torch.Tensor, target: int):

@@ -8,7 +8,10 @@ the root ``infer_val.py``).
 Loads a port or reference ``.pth`` snapshot (a path, or a suffix
 ``eNNNXsS.SSS`` that the port's trainer wrote under
 ``--snapshot-dir``) and writes indexed PNGs per threshold to
-``<mask-output-dir>_<thresh>/{no_crf,crf,vis}``.  With ``TEST.METHOD``
+``<mask-output-dir>_<thresh>/{no_crf,crf,vis}``.  ``--set NET.DTYPE
+int8`` serves with w8a8 backbone convs (dynamic activation scales;
+with ``NET.QUANT_ACT static NET.QUANT_STATS stats.pt`` the calibrated
+ones that ``wseg_tpu_torch.quant_calibrate`` wrote).  With ``TEST.METHOD``
 ``multiscale`` or ``multicrop`` and ``TEST.DEVICE_MERGE`` and
 ``UINT8_TRANSFER`` on (and no heatmap or scoremap writer), every image
 goes through the batched server (``MultiScaleServer``: device views, or
@@ -58,9 +61,13 @@ def _find_snapshot(resume: str, snapshot_dir: str) -> str:
 def load_serving_model(args, device):
     """``cfg.NET``'s serving model on ``device`` carrying ``--resume``'s
     weights (a ``.pth`` path or a suffix under ``--snapshot-dir``), or
-    seeded random weights when there is none."""
+    seeded random weights when there is none; with ``NET.DTYPE int8``
+    and ``NET.QUANT_ACT static``, the calibrated activation statistics
+    of ``NET.QUANT_STATS`` (a ``torch.save`` of {conv name: float32
+    (cin,) amax}, as ``wseg_tpu_torch.quant_calibrate`` writes it)."""
     from wseg_tpu_torch.models import get_model
     from wseg_tpu_torch.models.backbones.common import (
+        load_quant_stats,
         seeded_init_,
         stabilize_scratch_init,
     )
@@ -80,6 +87,19 @@ def load_serving_model(args, device):
         print("WARNING: snapshot not found, using random init")
         seeded_init_(model, torch.Generator().manual_seed(args.random_seed))
         stabilize_scratch_init(model, 0.1)
+    if (str(cfg.NET.DTYPE) == "int8"
+            and str(getattr(cfg.NET, "QUANT_ACT", "dynamic")) == "static"):
+        # serving with the zero-initialised statistics would saturate
+        # every conv input, so missing statistics are an error
+        stats_path = str(getattr(cfg.NET, "QUANT_STATS", ""))
+        if not stats_path or not os.path.isfile(stats_path):
+            raise FileNotFoundError(
+                "NET.QUANT_ACT=static needs NET.QUANT_STATS pointing at "
+                "a calibration file (python -m "
+                f"wseg_tpu_torch.quant_calibrate); got {stats_path!r}")
+        load_quant_stats(model, torch.load(stats_path, map_location="cpu",
+                                           weights_only=True))
+        print("Loaded int8 activation calibration", stats_path)
     return model.to(device)
 
 

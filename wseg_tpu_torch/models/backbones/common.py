@@ -15,20 +15,63 @@ As in ``wseg_tpu/models/backbones/common.py``:
 All three carry torch BatchNorm names (``weight``, ``bias``,
 ``running_mean``, ``running_var``) so reference checkpoints load by
 name.  Layout NCHW.
+
+``QuantConv`` is the int8 serving mode's backbone conv (``NET.DTYPE
+int8``): an ``nn.Conv2d`` with the same parameters (a bf16 or float32
+checkpoint loads unchanged) whose forward runs w8a8 through
+``ops/qconv.py``; ``calibrating``, ``quant_stats`` and
+``load_quant_stats`` drive its static activation scales.
 """
 
 from __future__ import annotations
 
 import math
 from contextlib import contextmanager
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from wseg_tpu_torch.ops.qconv import (
+    amax_scale,
+    qconv_s8,
+    quantize_act,
+    quantize_weight,
+)
+
+# backbone quantization modes of the int8 serving mode (NET.DTYPE int8):
+# per-image dynamic activation scales, or calibrated per-input-channel
+# static ones (NET.QUANT_ACT static)
+INT8 = "int8"
+INT8_STATIC = "int8_static"
+QUANT_MODES = (INT8, INT8_STATIC)
+# the serving mode's refusal to train, as the JAX trainer words it
+INT8_TRAIN_ERROR = ("NET.DTYPE 'int8' is inference-only (w8a8 convs are "
+                    "not differentiable); train with 'bfloat16' or "
+                    "'float32'")
+
+
+def _without_casts(fn):
+    """``fn`` of ``Module._apply`` without its dtype casts: device moves
+    and memory formats apply, a floating tensor keeps its dtype."""
+    def apply(t):
+        out = fn(t)
+        if t.is_floating_point() and out.dtype != t.dtype:
+            return t.to(device=out.device)
+        return out
+
+    return apply
+
 
 class FrozenBatchNorm(nn.Module):
-    """y = (x - mean) / sqrt(var + eps) * weight + bias, all constant."""
+    """y = (x - mean) / sqrt(var + eps) * weight + bias, all constant.
+
+    With ``keep_dtype`` set (the int8 mode's backbone: ``get_backbone``
+    with ``quant``) a cast of the module leaves its tensors' dtype, so
+    the constants fold from float32 as JAX's float32 params do."""
+
+    keep_dtype = False
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
@@ -37,6 +80,10 @@ class FrozenBatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features), requires_grad=False)
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
+
+    def _apply(self, fn, recurse=True):
+        return super()._apply(_without_casts(fn) if self.keep_dtype else fn,
+                              recurse)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # fold in float32, apply in the activation dtype
@@ -168,12 +215,167 @@ class Dropout2d(nn.Dropout2d):
         return x * (keep.to(x.dtype) / (1.0 - self.p))
 
 
+class QuantConv(nn.Conv2d):
+    """w8a8 conv of the int8 serving mode (``wseg_tpu``'s ``QuantConv``).
+
+    The parameters are a ``Conv2d``'s and stay float32 whatever the
+    model is cast to (``_apply`` keeps their dtype): the weights are
+    quantized from float32, as in JAX, per output channel, once per
+    weight set (cached by the tensors' version counters, so a
+    ``load_state_dict``, an in-place update or a new ``amax`` refreshes
+    it).  Inputs are bfloat16 (B, C, H, W).
+
+    * ``cin < 16`` (the RGB stems): no quantization; the bf16-rounded
+      weight and the input convolve with float32 accumulation (a
+      float32 conv of bf16 values: every product is exact, TF32 or
+      not), ``+ bias`` in float32, one rounding to bf16;
+    * ``act_mode="dynamic"``: per-image activation scales
+      (``ops/qconv.quantize_act`` without ``sc``);
+    * ``act_mode="static"``: per-input-channel scales from the
+      calibrated ``amax`` buffer (not persistent: not in the
+      state_dict), folded into the weight before it is quantized;
+    * ``calibrating`` (static mode only): the forward max-accumulates
+      each input channel's |x| into ``amax`` and computes its output by
+      the dynamic path.
+    """
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int,
+                 stride: int = 1, padding: int = 0, dilation: int = 1,
+                 bias: bool = False, act_mode: str = "dynamic"):
+        if act_mode not in ("dynamic", "static"):
+            raise ValueError(f"act_mode must be 'dynamic' or 'static', got "
+                             f"{act_mode!r}")
+        super().__init__(in_ch, out_ch, kernel, stride=stride,
+                         padding=padding, dilation=dilation, bias=bias)
+        self.act_mode = act_mode
+        self.quantized = in_ch >= 16
+        self.calibrating = False
+        if self.quantized and act_mode == "static":
+            self.register_buffer("amax", torch.zeros(in_ch),
+                                 persistent=False)
+        self._cache: dict = {}
+
+    def _apply(self, fn, recurse=True):
+        self._cache = {}
+        return super()._apply(_without_casts(fn), recurse)
+
+    def _cached(self, kind: str, deps, make):
+        w = self.weight
+        key = (w.device, w.data_ptr(), w._version) + tuple(
+            (t.data_ptr(), t._version) for t in deps)
+        hit = self._cache.get(kind)
+        if hit is None or hit[0] != key:
+            with torch.inference_mode(False), torch.no_grad():
+                hit = (key, make())
+            self._cache[kind] = hit
+        return hit[1]
+
+    def quantized_weight(self, static: bool):
+        """(wq int8 (Cout, kh, kw, Cp), sw (Cout,), sc (cin,) or None)
+        of the current weights: static mode's folds in the calibrated
+        per-channel scales."""
+        if not static:
+            return self._cached(
+                "dynamic", (),
+                lambda: quantize_weight(self.weight.detach()) + (None,))
+
+        def make():
+            sc = amax_scale(self.amax)
+            return quantize_weight(self.weight.detach(), sc) + (sc,)
+
+        return self._cached("static", (self.amax,), make)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.detach()
+        if not self.quantized:
+            w = self._cached("float", (), lambda: self.weight.detach().to(
+                torch.bfloat16).float())
+            y = F.conv2d(x.to(torch.bfloat16).float(), w, bias, self.stride,
+                         self.padding, self.dilation)
+            return y.to(torch.bfloat16)
+        if self.calibrating:
+            self._observe(x)
+        static = self.act_mode == "static" and not self.calibrating
+        wq, sw, sc = self.quantized_weight(static)
+        xq, sx = quantize_act(x, sc)
+        return qconv_s8(xq, wq, sx, sw, bias, self.stride[0],
+                        self.padding[0], self.dilation[0])
+
+    def _observe(self, x: torch.Tensor) -> None:
+        with torch.inference_mode(False), torch.no_grad():
+            cur = x.detach().float().abs().amax(dim=(0, 2, 3))
+            self.amax.copy_(torch.maximum(self.amax, cur))
+
+
+def static_quant_convs(model: nn.Module) -> Dict[str, QuantConv]:
+    """{module name: QuantConv} of ``model``'s convs that carry static
+    activation statistics (``amax``)."""
+    return {name: m for name, m in model.named_modules()
+            if isinstance(m, QuantConv) and hasattr(m, "amax")}
+
+
+@contextmanager
+def calibrating(model: nn.Module):
+    """Within this, every static ``QuantConv`` of ``model``
+    max-accumulates its input's per-channel |x| into ``amax`` (and
+    computes its output by the dynamic path)."""
+    convs = static_quant_convs(model)
+    if not convs:
+        raise ValueError("the model has no QuantConv statistics: build it "
+                         "with NET.DTYPE int8 and NET.QUANT_ACT static")
+    for m in convs.values():
+        m.calibrating = True
+    try:
+        yield
+    finally:
+        for m in convs.values():
+            m.calibrating = False
+
+
+def quant_stats(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """{conv name: float32 (cin,) amax} on the CPU: the ``NET.QUANT_STATS``
+    file's contents (``torch.save`` of this dict)."""
+    return {name: m.amax.detach().float().cpu().clone()
+            for name, m in static_quant_convs(model).items()}
+
+
+@torch.no_grad()
+def load_quant_stats(model: nn.Module,
+                     stats: Dict[str, torch.Tensor]) -> None:
+    """Set every static ``QuantConv``'s ``amax`` from ``stats`` (as
+    ``quant_stats`` returns it); the names and shapes must match
+    exactly."""
+    convs = static_quant_convs(model)
+    missing = sorted(set(convs) - set(stats))
+    extra = sorted(set(stats) - set(convs))
+    if missing or extra:
+        raise KeyError(f"quant stats do not match the model's static "
+                       f"convs: missing {missing[:5]}, unexpected "
+                       f"{extra[:5]} ({len(missing)} and {len(extra)})")
+    for name, m in convs.items():
+        v = torch.as_tensor(stats[name], dtype=torch.float32)
+        if tuple(v.shape) != tuple(m.amax.shape):
+            raise ValueError(f"quant stats of {name}: shape "
+                             f"{tuple(v.shape)}, expected "
+                             f"{tuple(m.amax.shape)}")
+        m.amax.copy_(v)
+
+
 def conv(in_ch: int, out_ch: int, kernel: int = 3, stride: int = 1,
-         dilation: int = 1, bias: bool = False) -> nn.Conv2d:
-    """kxk conv with torch-style symmetric 'same' padding."""
+         dilation: int = 1, bias: bool = False,
+         quant: Optional[str] = None) -> nn.Conv2d:
+    """kxk conv with torch-style symmetric 'same' padding; with ``quant``
+    (``INT8`` or ``INT8_STATIC``) a ``QuantConv``."""
     pad = (kernel - 1) // 2 * dilation
-    return nn.Conv2d(in_ch, out_ch, kernel, stride=stride, padding=pad,
-                     dilation=dilation, bias=bias)
+    if quant is None:
+        return nn.Conv2d(in_ch, out_ch, kernel, stride=stride, padding=pad,
+                         dilation=dilation, bias=bias)
+    if quant not in QUANT_MODES:
+        raise ValueError(f"unknown quantization {quant!r}")
+    return QuantConv(in_ch, out_ch, kernel, stride=stride, padding=pad,
+                     dilation=dilation, bias=bias,
+                     act_mode="static" if quant == INT8_STATIC
+                     else "dynamic")
 
 
 @torch.no_grad()

@@ -11,7 +11,7 @@ ImageNet ``resnet50-19c8e357.pth`` loads by name.  The deep 3-conv stem
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -28,19 +28,21 @@ class Bottleneck(nn.Module):
     LAST_CONV = "conv3"
     expansion = 4
 
-    def __init__(self, in_ch: int, planes: int, stride: int = 1):
+    def __init__(self, in_ch: int, planes: int, stride: int = 1,
+                 quant: Optional[str] = None):
         super().__init__()
         out = planes * self.expansion
-        self.conv1 = conv(in_ch, planes, 1)
+        self.conv1 = conv(in_ch, planes, 1, quant=quant)
         self.bn1 = FrozenBatchNorm(planes)
-        self.conv2 = conv(planes, planes, 3, stride)
+        self.conv2 = conv(planes, planes, 3, stride, quant=quant)
         self.bn2 = FrozenBatchNorm(planes)
-        self.conv3 = conv(planes, out, 1)
+        self.conv3 = conv(planes, out, 1, quant=quant)
         self.bn3 = FrozenBatchNorm(out)
         self.downsample = None
         if stride != 1 or in_ch != out:
-            self.downsample = nn.Sequential(conv(in_ch, out, 1, stride),
-                                            FrozenBatchNorm(out))
+            self.downsample = nn.Sequential(
+                conv(in_ch, out, 1, stride, quant=quant),
+                FrozenBatchNorm(out))
 
     def forward(self, x):
         y = relu(self.bn1(self.conv1(x)))
@@ -52,14 +54,15 @@ class Bottleneck(nn.Module):
 
 class ResNet(nn.Module):
     """Bottleneck ResNet with ``layers`` blocks per stage; ``forward``
-    takes NCHW and returns the tap dict."""
+    takes NCHW and returns the tap dict.  ``quant`` makes every conv a
+    ``QuantConv``."""
 
     # tap name -> channels
     TAPS = {"conv3": 256, "conv6": 2048}
 
-    def __init__(self, layers: Sequence[int]):
+    def __init__(self, layers: Sequence[int], quant: Optional[str] = None):
         super().__init__()
-        self.conv1 = conv(3, 64, 7, 2)
+        self.conv1 = conv(3, 64, 7, 2, quant=quant)
         self.bn1 = FrozenBatchNorm(64)
         in_ch = 64
         for i, (planes, n, stride) in enumerate(
@@ -67,7 +70,7 @@ class ResNet(nn.Module):
             blocks = []
             for j in range(n):
                 blocks.append(Bottleneck(in_ch, planes,
-                                         stride if j == 0 else 1))
+                                         stride if j == 0 else 1, quant))
                 in_ch = planes * Bottleneck.expansion
             setattr(self, f"layer{i + 1}", nn.Sequential(*blocks))
 
@@ -79,9 +82,9 @@ class ResNet(nn.Module):
         return {"conv3": conv3, "conv6": self.layer4(x)}
 
 
-def ResNet50() -> ResNet:
-    return ResNet((3, 4, 6, 3))
+def ResNet50(quant: Optional[str] = None) -> ResNet:
+    return ResNet((3, 4, 6, 3), quant)
 
 
-def ResNet101() -> ResNet:
-    return ResNet((3, 4, 23, 3))
+def ResNet101(quant: Optional[str] = None) -> ResNet:
+    return ResNet((3, 4, 23, 3), quant)

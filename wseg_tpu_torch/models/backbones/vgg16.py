@@ -11,7 +11,7 @@ Mirror of ``wseg_tpu/models/backbones/vgg16.py``: 13 convs with bias,
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -30,21 +30,24 @@ _STAGES = (((("conv1_1", 64), ("conv1_2", 64)), 1, 2),
 
 
 class VGG16(nn.Module):
-    """VGG16 trunk; ``forward`` takes NCHW and returns the tap dict."""
+    """VGG16 trunk; ``forward`` takes NCHW and returns the tap dict.
+    ``quant`` makes every conv a ``QuantConv``."""
 
     # tap name -> channels
     TAPS = {"conv3": 256, "conv6": 1024}
 
-    def __init__(self, fc6_dilation: int = 1):
+    def __init__(self, fc6_dilation: int = 1, quant: Optional[str] = None):
         super().__init__()
         in_ch = 3
         for convs, dil, _ in _STAGES:
             for name, out in convs:
-                setattr(self, name, conv(in_ch, out, 3, 1, dil, bias=True))
+                setattr(self, name, conv(in_ch, out, 3, 1, dil, bias=True,
+                                         quant=quant))
                 in_ch = out
-        self.fc6 = conv(512, 1024, 3, 1, fc6_dilation, bias=True)
+        self.fc6 = conv(512, 1024, 3, 1, fc6_dilation, bias=True,
+                        quant=quant)
         self.dropout = Dropout(0.5)
-        self.fc7 = conv(1024, 1024, 1, bias=True)
+        self.fc7 = conv(1024, 1024, 1, bias=True, quant=quant)
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         conv3 = None

@@ -47,7 +47,12 @@ import torch
 from torch import nn
 
 from wseg_tpu_torch.models.backbones import get_backbone
-from wseg_tpu_torch.models.backbones.common import Dropout2d
+from wseg_tpu_torch.models.backbones.common import (
+    INT8,
+    INT8_STATIC,
+    INT8_TRAIN_ERROR,
+    Dropout2d,
+)
 from wseg_tpu_torch.models.heads.attention import (
     ChannelAttention,
     GlobalSRA,
@@ -201,7 +206,9 @@ class StageNet(nn.Module):
     float32 and runs backbone and head convs under ``torch.autocast`` in
     that dtype, as Flax's ``dtype`` sets the compute type only; the
     attention products, WGAP, PCM's affinity and every resize stay
-    float32, as in JAX."""
+    float32, as in JAX.  ``quant`` (``INT8`` or ``INT8_STATIC`` of
+    ``models/backbones/common.py``) builds every backbone conv as a
+    ``QuantConv`` (the int8 serving mode; ``dtype`` bfloat16)."""
 
     def __init__(self, spec: HeadSpec, backbone: str = "resnet38",
                  num_classes: int = 21, bg_score: float = 0.1,
@@ -211,7 +218,8 @@ class StageNet(nn.Module):
                  amp_dtype: Optional[torch.dtype] = None,
                  pamr_iter: int = 10,
                  pamr_kernel: Sequence[int] = (1, 2, 4, 8, 12, 24),
-                 pamr_impl: str = "auto"):
+                 pamr_impl: str = "auto",
+                 quant: Optional[str] = None):
         super().__init__()
         self.spec = spec
         self.num_classes = num_classes
@@ -223,7 +231,10 @@ class StageNet(nn.Module):
         self.pamr_iter = int(pamr_iter)
         self.pamr_kernel = tuple(int(d) for d in pamr_kernel)
         self.pamr_impl = pamr_impl
-        bb = get_backbone(backbone)
+        # the backbone convs' quantization (None, "int8", "int8_static");
+        # the head stays in ``dtype``
+        self.backbone_dtype = quant
+        bb = get_backbone(backbone, quant)
         missing = sorted(required_taps(spec) - set(bb.TAPS))
         if missing:
             raise ValueError(
@@ -524,10 +535,15 @@ class StageNet(nn.Module):
 def get_model(net_cfg, num_classes: int = 21,
               train: bool = False) -> StageNet:
     """Build a StageNet from a cfg.NET-style AttrDict; NET.DTYPE picks
-    the compute dtype ("float32" or "bfloat16").
+    the compute dtype ("float32", "bfloat16", or "int8": w8a8 backbone
+    convs, ``QuantConv``, with bfloat16 head math; NET.QUANT_ACT
+    "static" takes calibrated per-channel activation scales, which the
+    caller loads with ``load_quant_stats``).
 
-    Serving (``train=False``): weights cast to that dtype, ``.eval()``.
-    Training: float32 weights, autocast to that dtype, ``.train()``."""
+    Serving (``train=False``): weights cast to that dtype (an int8
+    backbone keeps its float32 tensors), ``.eval()``.  Training:
+    float32 weights, autocast to that dtype, ``.train()``; int8 is
+    inference-only and raises."""
     name = str(net_cfg.MODEL)
     if name == "vgg16":  # reference default config quirk: MODEL 'vgg16'
         name = "bsl"
@@ -539,12 +555,17 @@ def get_model(net_cfg, num_classes: int = 21,
     if name not in MODEL_SPECS:
         raise NotImplementedError(f"Unknown model '{name}'")
     dstr = str(getattr(net_cfg, "DTYPE", "float32"))
-    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+              "int8": torch.bfloat16}
     if dstr not in dtypes:
-        raise NotImplementedError(
-            f"NET.DTYPE '{dstr}' is not ported yet (ROADMAP.md queue A, "
-            "'Low-precision inference')")
+        raise NotImplementedError(f"Unknown NET.DTYPE '{dstr}'")
     dtype = dtypes[dstr]
+    quant = None
+    if dstr == "int8":
+        if train:
+            raise ValueError(INT8_TRAIN_ERROR)
+        static = str(getattr(net_cfg, "QUANT_ACT", "dynamic")) == "static"
+        quant = INT8_STATIC if static else INT8
     model = StageNet(MODEL_SPECS[name], backbone=str(net_cfg.BACKBONE),
                      num_classes=num_classes,
                      bg_score=float(net_cfg.BG_SCORE),
@@ -556,7 +577,8 @@ def get_model(net_cfg, num_classes: int = 21,
                      else None,
                      pamr_iter=int(net_cfg.PAMR_ITER),
                      pamr_kernel=tuple(net_cfg.PAMR_KERNEL),
-                     pamr_impl=str(getattr(net_cfg, "PAMR_IMPL", "auto")))
+                     pamr_impl=str(getattr(net_cfg, "PAMR_IMPL", "auto")),
+                     quant=quant)
     if train:
         return model.to(memory_format=torch.channels_last).train()
     model = model.to(dtype=dtype, memory_format=torch.channels_last)

@@ -1,13 +1,18 @@
-"""4-group SGD with the reference's per-group LR multipliers.
+"""4-group SGD or Adam with the reference's per-group LR multipliers.
 
 Mirror of ``wseg_tpu/parallel/optim.py``: parameters split into
 {pretrained weight, pretrained bias, head weight, head bias} groups at
 LR multipliers (1, 2, 10, 20) -- (1, 1, 10, 10) for ResNet-50/101 --
-weight decay on the weight groups only,
-momentum 0.9 without Nesterov or dampening.  optax's
+weight decay on the weight groups only.  ``NET.OPT SGD``: momentum
+``NET.MOMENTUM`` without Nesterov or dampening; optax's
 ``add_decayed_weights -> trace -> scale(-lr)`` is exactly
 ``torch.optim.SGD``'s update (decay added to the gradient, buffer
-m <- mu * m + g starting at g, p <- p - lr * m).
+m <- mu * m + g starting at g, p <- p - lr * m).  ``NET.OPT Adam``:
+optax's ``add_decayed_weights -> scale_by_adam(b1=NET.BETA1, b2=0.999,
+eps=1e-8) -> scale(-lr)`` is ``torch.optim.Adam`` with L2
+``weight_decay`` (the decay added to the gradient before the moments,
+not AdamW's decoupled decay), up to float rounding (optax divides by
+``sqrt(v_hat) + eps``, torch by ``sqrt(v) / sqrt(1 - b2^t) + eps``).
 
 Frozen parameters (every ``FrozenBatchNorm`` and the backbone's stem:
 ``conv1a``, ``b2``, ``b2_1``, ``b2_2`` for WRN38, ``conv1``/``bn1`` for
@@ -71,13 +76,10 @@ def label_params(model: nn.Module, backbone: str) -> Dict[str, str]:
 
 
 def make_optimizer(net_cfg, model: nn.Module):
-    """(torch.optim.SGD over the four groups, label dict).  Sets
+    """(torch.optim.SGD or Adam over the four groups, label dict).  Sets
     ``requires_grad=False`` on the frozen parameters."""
     opt_name = str(net_cfg.OPT)
-    if opt_name == "Adam":
-        raise NotImplementedError("NET.OPT 'Adam' is not ported yet "
-                                  "(ROADMAP.md queue A, 'Training')")
-    if opt_name != "SGD":
+    if opt_name not in ("SGD", "Adam"):
         raise NotImplementedError(f"Optimizer '{opt_name}'")
     backbone = str(net_cfg.BACKBONE)
     labels = label_params(model, backbone)
@@ -93,8 +95,13 @@ def make_optimizer(net_cfg, model: nn.Module):
             "params": [params[n] for n, lab in labels.items() if lab == g],
             "lr": base_lr * mults[g], "name": g,
             "weight_decay": wd if g in (PRE_W, NEW_W) else 0.0})
-    opt = torch.optim.SGD(groups, lr=base_lr,
-                          momentum=float(net_cfg.MOMENTUM), dampening=0.0,
-                          nesterov=False)
+    if opt_name == "Adam":
+        opt = torch.optim.Adam(
+            groups, lr=base_lr,
+            betas=(float(getattr(net_cfg, "BETA1", 0.9)), 0.999), eps=1e-8)
+    else:
+        opt = torch.optim.SGD(groups, lr=base_lr,
+                              momentum=float(net_cfg.MOMENTUM),
+                              dampening=0.0, nesterov=False)
     return opt, labels
 

@@ -8,6 +8,9 @@ The port's module names are the reference torch state_dict's, so
 * ``port_name`` maps one parameter path of the JAX tree to its port
   name (``labels_from_jax`` uses it to carry the JAX optimizer's
   ``label_params`` groups over);
+* ``quant_stats_from_jax`` turns the int8 static mode's
+  ``quant_stats`` collection into the port's ``NET.QUANT_STATS``
+  contents ({conv name: float32 (cin,) amax});
 * a port state_dict saved with ``torch.save`` is a reference-layout
   ``.pth``: ``wseg_tpu.utils.torch_convert.load_reference_checkpoint``
   reads it unchanged, and ``load_checkpoint`` reads either kind here;
@@ -139,6 +142,23 @@ def state_dict_from_jax(variables_np: Mapping) -> Dict[str, torch.Tensor]:
             sd[prefix + ".running_mean"] = torch.zeros(v.shape)
             sd[prefix + ".running_var"] = torch.ones(v.shape)
     return sd
+
+
+def quant_stats_from_jax(quant_stats_np: Mapping) -> Dict[str, torch.Tensor]:
+    """``wseg_tpu``'s ``quant_stats`` collection (nested numpy arrays,
+    ``{"quant_stats": ...}`` or the collection itself; one ``amax`` leaf
+    per static ``QuantConv``) -> {port conv name: float32 (cin,) CPU
+    tensor}, the names ``port_name`` gives the convs' kernels less
+    ``.weight``, as ``models/backbones/common.load_quant_stats`` takes
+    them."""
+    stats = quant_stats_np.get("quant_stats", quant_stats_np)
+    out = {}
+    for path, v in _flatten(stats).items():
+        if path[-1] != "amax":
+            raise ValueError(f"unexpected quant_stats leaf {'/'.join(path)}")
+        name = port_name(path[:-1] + ("kernel",))[:-len(".weight")]
+        out[name] = torch.from_numpy(np.array(v, np.float32))
+    return out
 
 
 def labels_from_jax(labels_tree: Mapping) -> Dict[str, str]:
