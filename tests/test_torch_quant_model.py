@@ -9,16 +9,18 @@ the entry points, on the CPU (the port's plain w8a8 versions).
   with ``strict=True``.
 * The flagship (WRN38 + ``CAM_CASA_WGAP_tf``) in int8, dynamic and
   static, against JAX's int8 model on the same converted float32
-  weights at 64x64 (two JAX forwards in all, the backbone's taps
-  captured in the same forward): the five taps are bit-equal.  The
-  bf16 head then differs as the bf16 mode's does (the port's head
-  holds bf16 weights, JAX casts float32 ones at each use): measured
-  mask argmax agreement 0.98975 and cls within 0.0287 (dynamic),
-  0.99036 and 0.0276 (static), on logits of mean magnitude 2.56.
-  Held: agreement >= 0.98, cls within 0.05.  The JAX forwards run
-  eagerly, as ``tests/test_quant.py`` runs them: under ``jit`` XLA keeps
-  excess precision between fused bf16 ops, and 70% of the conv3 tap's
-  elements differ by rounding (ROADMAP C).
+  weights at 64x64 (two JAX compiles in all, the backbone's taps
+  captured in the same forward): the five taps are bit-equal.  JAX's
+  forward is jitted with XLA's excess precision off and its algebraic
+  simplifier disabled, which keeps its arithmetic that of the eager
+  forward (``tests/test_quant.py``'s; the taps of the two are then
+  bit-equal; by default 70% of the conv3 tap's elements differ by
+  rounding, ROADMAP C) in one compile.  The
+  bf16 head differs as the bf16 mode's does (the port's head holds bf16
+  weights, JAX casts float32 ones at each use): measured mask argmax
+  agreement 0.98816 and cls within 0.0444 (dynamic), 0.98853 and
+  0.0402 (static), on logits of mean magnitude 2.57.  Held: agreement
+  >= 0.98, cls within 0.06.
 * The port's int8 model against its own bf16 model with JAX's bounds
   (``tests/test_quant.py``): argmax agreement > 0.9, mean cls
   deviation < 0.25 of the mean magnitude, correlation > 0.9.
@@ -136,12 +138,14 @@ def _jax_int8(variables, x, static_stats=None):
             path: jnp.asarray(static_stats[
                 port_name(path[:-1] + ("kernel",))[:-len(".weight")]])
             for path in trav.flatten_dict(shapes["quant_stats"])})
-    # eager, as tests/test_quant.py runs it: under jit XLA keeps excess
-    # precision between the fused bf16 ops (xla_allow_excess_precision)
-    out, inter = jm.apply(v, jnp.asarray(x), train=False,
-                          mutable=["intermediates"],
-                          capture_intermediates=lambda m, _: (
-                              m.name == "backbone"))
+    fwd = jax.jit(lambda v, x: jm.apply(
+        v, x, train=False, mutable=["intermediates"],
+        capture_intermediates=lambda m, _: m.name == "backbone"))
+    # XLA's own arithmetic: no excess precision between fused bf16 ops,
+    # no algebraic rewrites (the eager forward's numerics, in one compile)
+    out, inter = fwd.lower(v, jnp.asarray(x)).compile(compiler_options={
+        "xla_allow_excess_precision": False,
+        "xla_disable_hlo_passes": "algsimp"})(v, jnp.asarray(x))
     taps = inter["intermediates"]["backbone"]["__call__"][0]
     return (np.asarray(out.cls, np.float32),
             np.asarray(out.masks, np.float32),
@@ -172,17 +176,21 @@ def test_int8_flagship_tracks_jax_int8(act, flagship_variables):
             model(torch.from_numpy(calib))
         stats = quant_stats(model)
         assert len(stats) == 42
+    taps = {}
+    hook = model._backbone.register_forward_hook(
+        lambda mod, args, out: taps.update(out))
     with torch.no_grad():
         out = model(torch.from_numpy(x))
-        taps = model.backbone_taps(torch.from_numpy(x))
+    hook.remove()
     cls, masks = out.cls.float().numpy(), out.masks.float().numpy()
     jcls, jmasks, jtaps = _jax_int8(variables, x, stats)
     assert set(taps) == set(jtaps)
     for k, t in taps.items():
-        np.testing.assert_array_equal(t.float().numpy(), jtaps[k], k)
+        np.testing.assert_array_equal(
+            t.float().permute(0, 2, 3, 1).numpy(), jtaps[k], k)
     agree = float((masks.argmax(-1) == jmasks.argmax(-1)).mean())
     assert agree >= 0.98, agree
-    np.testing.assert_allclose(cls, jcls, atol=5e-2, rtol=0)
+    np.testing.assert_allclose(cls, jcls, atol=6e-2, rtol=0)
     assert float(np.abs(jcls).mean()) > 1.0
 
 
@@ -249,7 +257,7 @@ def _write_cfg(tmp_path, root):
           BATCH_SIZE: 2
           PAD_SIZE: [96, 96]
           PAD_ALIGN: 32
-          SCALES: [1, 0.5]
+          SCALES: [1]
           USE_GT_LABELS: False
           BG_POW: 3
           CRF_DTYPE: "float32"
