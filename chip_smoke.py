@@ -12,9 +12,11 @@ from the repository root.  Phases, each printing its own lines:
    plain versions at every distinct conv of the flagship's int8 forward
    on one bucket (16 views of 384x512), a VGG16 ``fc6`` at dilation 12
    and a ResNet-50 stride-2 3x3: xq and sx equal, int32 sums and bf16
-   outputs bit-equal (dynamic and static), the times summed over the
-   bucket's convs beside their bounds, ``F.unfold`` + ``torch._int_mm``
-   and the bf16 cuDNN convs;
+   outputs bit-equal (dynamic and static), each conv's host plan, the
+   kernels' device times and call times summed over the bucket's convs
+   beside their bounds and shares of them (the quantize's dynamic launch
+   beside its static pass, which splits off the |x| max), ``F.unfold`` +
+   ``torch._int_mm`` and the bf16 cuDNN convs;
 3. kernels vs plain: the bilateral-message kernel (21 classes and the
    C = 1 norm filter) and the Gaussian-blur kernel (the four filter
    shapes of a postprocess call, each without and with the valid mask)
@@ -3063,12 +3065,23 @@ QCONV_EXTRA = (("vgg16.fc6_d12", 8, 512, 48, 64, 1024, 3, 1, 12, True),
                 False))
 
 
-def conv_bound(b, cin, cp, h, w, cout, k, ho, wo) -> dict:
+def touched(n: int, k: int, stride: int, pad: int, dil: int,
+            out: int) -> int:
+    """Input rows (or columns) of n that a conv's taps read."""
+    return len({o * stride - pad + t * dil for o in range(out)
+                for t in range(k)} & set(range(n)))
+
+
+def conv_bound(b, cin, cp, h, w, cout, k, ho, wo, stride=1, pad=0,
+               dil=1) -> dict:
     """The least time of one w8a8 conv on the card: its int8 operations
-    (true input channels) at the int8 peak, or xq, wq and the bf16
-    output moved once at the HBM rate (ms each, and the operations)."""
+    (true input channels) at the int8 peak, or the xq pixels its taps
+    read, wq and the bf16 output moved once at the HBM rate (ms each,
+    and the operations)."""
     ops = 2.0 * b * ho * wo * cout * k * k * cin
-    nbytes = b * h * w * cp + cout * k * k * cp + 2 * b * ho * wo * cout
+    pixels = (touched(h, k, stride, pad, dil, ho)
+              * touched(w, k, stride, pad, dil, wo))
+    nbytes = b * pixels * cp + cout * k * k * cp + 2 * b * ho * wo * cout
     return {"t_ops": ops / INT8_OPS * 1e3,
             "t_bytes": nbytes / HBM_BYTES_PER_S * 1e3, "ops": ops}
 
@@ -3125,15 +3138,28 @@ def qconv_case(tag, x, weight, bias, stride, pad, dil, count, card) -> dict:
         ry = Q.dequantize_reference(racc, sx, sw, bias)
         check(torch.equal(y, ry), f"{tag}: bf16 output differs from plain "
               f"(static {static})")
-    # the served (dynamic) mode's times
+    # the served (dynamic) mode's times; static mode's quantize is the
+    # same pass without the |x| max and its wait, so the two split the
+    # dynamic launch
     wq, sw = Q.quantize_weight(weight)
     xq, sx = Q.quantize_act(x)
     acc = Q.qconv_s8(xq, wq, sx, sw, bias, stride, pad, dil, acc_only=True)
     ho, wo = acc.shape[2], acc.shape[3]
-    q_ms = cuda_median_ms(lambda: Q.quantize_act(x), reps=20)
+    plan = Q.qconv_plan(h, w, cp, cout, k, k, stride, pad, dil)
+    sc1 = Q.amax_scale(x.float().abs().amax(dim=(0, 2, 3)))
+    # call times (CUDA events: the wrapper's host work shows where a call
+    # is shorter than it) and the kernels' own device times (profiler)
+    q_call = cuda_median_ms(lambda: Q.quantize_act(x), reps=20)
+    q_ms = device_ms(lambda: Q.quantize_act(x), reps=20,
+                     match=Q.quantize_act.kernel_name)
+    q_static = device_ms(lambda: Q.quantize_act(x, sc1), reps=20,
+                         match=Q.quantize_act.kernel_name)
     q_plain = cuda_median_ms(lambda: Q.quantize_act_reference(x), reps=3)
-    c_ms = cuda_median_ms(
+    c_call = cuda_median_ms(
         lambda: Q.qconv_s8(xq, wq, sx, sw, bias, stride, pad, dil), reps=20)
+    c_ms = device_ms(
+        lambda: Q.qconv_s8(xq, wq, sx, sw, bias, stride, pad, dil), reps=20,
+        match=Q.qconv_s8.kernel_name)
     c_plain = cuda_median_ms(
         lambda: Q.qconv_s8_reference(xq, wq, sx, sw, bias, stride, pad, dil),
         reps=2, warmup=1)
@@ -3159,19 +3185,23 @@ def qconv_case(tag, x, weight, bias, stride, pad, dil, count, card) -> dict:
         lambda: F.conv2d(x, wb, bb, stride, pad, dil), reps=20)
     # bf16 x read once, xq written once
     q_bound = (2 * x.numel() + xq.numel()) / HBM_BYTES_PER_S * 1e3
-    cb = conv_bound(b, cin, cp, h, w, cout, k, ho, wo)
+    cb = conv_bound(b, cin, cp, h, w, cout, k, ho, wo, stride, pad, dil)
     c_bound = max(cb["t_ops"], cb["t_bytes"])
     c_by = "operations" if cb["t_ops"] >= cb["t_bytes"] else "bytes"
     print(f"qconv {tag} x{count}: ({b}, {cin}, {h}, {w}) -> {cout}, k{k} "
           f"s{stride} d{dil}{' +bias' if bias is not None else ''}: xq, sx "
           f"equal, int32 and bf16 bit-equal (dynamic and static); "
-          f"quantize_act {q_ms:.4f} ms (plain {q_plain:.4f}, bound "
-          f"{q_bound:.4f}); qconv_s8 {c_ms:.4f} ms = "
-          f"{cb['ops'] / c_ms / 1e9:.1f} TOPS (plain {c_plain:.3f}, bound "
-          f"{c_bound:.4f} {c_by}, unfold + _int_mm "
-          f"{'n/a' if lib_ms is None else f'{lib_ms:.4f}'}, bf16 cuDNN "
-          f"{cudnn_ms:.4f}) ({card})", flush=True)
-    return {"count": count, "q_ms": q_ms, "q_plain": q_plain,
+          f"quantize_act kernel {q_ms:.4f} ms = {q_bound / q_ms:.1%} of "
+          f"its bound (static pass alone {q_static:.4f}; call {q_call:.4f}; "
+          f"plain {q_plain:.4f}, bound {q_bound:.4f}); qconv_s8 kernel "
+          f"{c_ms:.4f} ms = {cb['ops'] / c_ms / 1e9:.1f} TOPS = "
+          f"{c_bound / c_ms:.1%} of its bound (call {c_call:.4f}; plan bn "
+          f"{plan.bn} bk {plan.bk} patch {plan.mh}x{plan.mw} stages "
+          f"{plan.stages}; plain {c_plain:.3f}, bound {c_bound:.4f} {c_by}, "
+          f"unfold + _int_mm {'n/a' if lib_ms is None else f'{lib_ms:.4f}'}"
+          f", bf16 cuDNN {cudnn_ms:.4f}) ({card})", flush=True)
+    return {"count": count, "q_ms": q_ms, "q_static": q_static,
+            "q_call": q_call, "c_call": c_call, "q_plain": q_plain,
             "q_bound": q_bound, "c_ms": c_ms, "c_plain": c_plain,
             "c_bound": c_bound, "c_ops": cb["ops"], "t_ops": cb["t_ops"],
             "t_bytes": cb["t_bytes"], "lib_ms": lib_ms,
@@ -3253,13 +3283,17 @@ def phase_qconv(card: str) -> list:
     n = sum(r["count"] for r in rows)
     c_by = "operations" if total("t_ops") >= total("t_bytes") else "bytes"
     print(f"qconv: one flagship bucket forward ({n} quantized convs): "
-          f"quantize_act {total('q_ms'):.3f} ms (plain "
-          f"{total('q_plain'):.3f}, bound {total('q_bound'):.3f}); "
-          f"qconv_s8 {total('c_ms'):.3f} ms = "
-          f"{total('c_ops') / total('c_ms') / 1e9:.1f} TOPS (plain "
-          f"{total('c_plain'):.3f}, bound {total('c_bound'):.3f}, "
-          f"unfold + _int_mm {lib}, bf16 cuDNN convs "
-          f"{total('cudnn_ms'):.3f}) ({card})", flush=True)
+          f"quantize_act kernel {total('q_ms'):.3f} ms = "
+          f"{total('q_bound') / total('q_ms'):.1%} of its bound (the "
+          f"static pass alone {total('q_static'):.3f}, so the |x| max and "
+          f"its wait {total('q_ms') - total('q_static'):.3f}; calls "
+          f"{total('q_call'):.3f}; plain {total('q_plain'):.3f}, bound "
+          f"{total('q_bound'):.3f}); qconv_s8 kernel {total('c_ms'):.3f} "
+          f"ms = {total('c_ops') / total('c_ms') / 1e9:.1f} TOPS = "
+          f"{total('c_bound') / total('c_ms'):.1%} of its bound (calls "
+          f"{total('c_call'):.3f}; plain {total('c_plain'):.3f}, bound "
+          f"{total('c_bound'):.3f}, unfold + _int_mm {lib}, bf16 cuDNN "
+          f"convs {total('cudnn_ms'):.3f}) ({card})", flush=True)
     source = "wseg_tpu_torch/csrc/qconv.cu"
     return [{"name": "quantize_act", "route": "cuda", "source": source,
              "replaces": "wseg_tpu/models/backbones/common.py:173",

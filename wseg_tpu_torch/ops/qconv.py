@@ -24,16 +24,17 @@ even, as ``jnp.round`` and the kernels' ``rintf``.
 Each wrapper dispatches on the tensor's device: a CPU tensor goes to
 the plain version beside it (``*_reference``), a CUDA tensor launches
 the kernel (building it on first use) or raises.  ``.launches`` counts
-kernel launches (``quantize_act`` launches two in dynamic mode: the
-|x| max and the quantize pass); ``.kernel_name`` is a name the
-profiler's records of the wrapper's kernels hold.
+kernel launches (one a call in both modes); ``.kernel_name`` is a name
+the profiler's records of the wrapper's kernel hold.  The host plans
+(``qconv_plan``, ``quantize_slots``) pick each launch's geometry in
+pure Python, so the CPU tests hold them to the kernels' limits.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -41,9 +42,24 @@ import torch.nn.functional as F
 from wseg_tpu_torch import _build
 
 CP_ALIGN = 32
+TILE_M = 128        # output pixels of a conv tile
+STAGE_K = 128       # K bytes of a ring stage
+THREADS = 384       # two consumer warpgroups and a producer warpgroup
+MAX_STAGES = 6
+SMEM_LIMIT = 232448  # dynamic shared memory a block may use
 # the kernels' fixed geometry (csrc/qconv.cu); ``_library`` checks it
-# against the built library's: {Cp alignment, tile M, tile N, threads}
-LIMITS = (CP_ALIGN, 128, 128, 256)
+# against the built library's
+LIMITS = (CP_ALIGN, TILE_M, STAGE_K, THREADS, MAX_STAGES, SMEM_LIMIT)
+TILE_N = (64, 128, 256)
+# (Mh, Mw): the M tile's patch of output rows x columns of one image
+PATCHES = ((1, 128), (2, 64), (4, 32), (8, 16), (16, 8))
+TMA_BOX = 256       # a TMA box dimension's most elements
+TMA_ELEM_STRIDE = 8  # a TMA traversal stride's most
+# bytes of bf16 images the dynamic quantize keeps in flight, so that its
+# second read of an image comes from the 50 MB L2 (the best of 1-16
+# images in flight at each input of the flagship bucket, H100 80GB HBM3
+# at 700 W: bench_int8_turns.py --sweep-slots)
+L2_BUDGET = 26_000_000
 # the largest int8 code of the symmetric grid, and the scales' floor
 QMAX = 127.0
 EPS = 1e-12
@@ -107,6 +123,15 @@ def quantize_act_reference(x: torch.Tensor,
     return xq, sx
 
 
+def quantize_slots(b: int, c: int, h: int, w: int, dynamic: bool) -> int:
+    """Images the quantize kernel works on at once: in dynamic mode as
+    many as ``L2_BUDGET`` holds of bf16 input (at least one), in static
+    mode all (no image waits for its |x| max)."""
+    if not dynamic:
+        return int(b)
+    return max(1, min(int(b), L2_BUDGET // (2 * c * h * w)))
+
+
 def _check_act(x: torch.Tensor, sc: Optional[torch.Tensor]) -> None:
     if x.dim() != 4:
         raise ValueError(f"expected (B, C, H, W), got {tuple(x.shape)}")
@@ -136,36 +161,104 @@ def quantize_act(x: torch.Tensor, sc: Optional[torch.Tensor] = None):
     b, c, h, w = x.shape
     cp = padded_channels(c)
     xq = torch.empty((b, h, w, cp), dtype=torch.int8, device=x.device)
-    sx = bits = None
+    sx = sync = None
     if sc is None:
-        bits = torch.zeros(b, dtype=torch.int32, device=x.device)
+        # |x| max bits, then arrival counts, a pair of words an image
+        sync = torch.zeros(2 * b, dtype=torch.int32, device=x.device)
         sx = torch.empty(b, dtype=torch.float32, device=x.device)
     else:
         sc = sc.contiguous()
-    vec = int(x.data_ptr() % 16 == 0 and (c * h * w) % 8 == 0)
-    # a dense NCHW or channels_last image is one run of C*H*W elements
-    _, sc_, sh, sw_ = x.stride()
-    sb = c * h * w
+    sb, sc_, sh, sw_ = x.stride()
     with torch.cuda.device(x.device):
         rc = lib.wseg_quantize_act(
             x.data_ptr(), sb, sc_, sh, sw_, b, c, h, w, cp,
             None if sc is None else sc.data_ptr(),
-            None if bits is None else bits.data_ptr(),
-            None if sx is None else sx.data_ptr(), xq.data_ptr(), vec,
+            None if sync is None else sync.data_ptr(),
+            None if sx is None else sx.data_ptr(), xq.data_ptr(),
+            quantize_slots(b, c, h, w, sc is None),
             torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"activation quantize kernel launch failed: "
                            f"CUDA error {rc}")
-    quantize_act.launches += 1 if sc is not None else 2
+    quantize_act.launches += 1
     return xq, sx
 
 
 quantize_act.launches = 0
-quantize_act.kernel_name = "quantize_kernel"  # and absmax_kernel
+quantize_act.kernel_name = "quantize_kernel"
 
 
 def out_size(n: int, k: int, stride: int, pad: int, dil: int) -> int:
     return (n + 2 * pad - dil * (k - 1) - 1) // stride + 1
+
+
+class QconvPlan(NamedTuple):
+    """One conv's launch geometry: tile channels ``bn``, bytes ``bk`` of
+    one tap's channels a TMA chunk (and its swizzle), the M tile's patch
+    ``mh`` x ``mw`` of output pixels, ring ``stages`` and the dynamic
+    shared memory ``smem`` they take."""
+
+    bn: int
+    bk: int
+    mh: int
+    mw: int
+    stages: int
+    smem: int
+
+
+def qconv_smem(bn: int, stages: int) -> int:
+    """Dynamic shared memory of a conv block (csrc/qconv.cu qconv_smem):
+    1 KB of alignment slack, the ring's A and B stages, the epilogue's
+    bf16 rows and the full and empty barriers."""
+    return (1024 + stages * (TILE_M + bn) * STAGE_K + TILE_M * bn * 2
+            + 2 * MAX_STAGES * 8)
+
+
+@functools.lru_cache(maxsize=None)
+def qconv_plan(h: int, w: int, cp: int, cout: int, kh: int, kw: int,
+               stride: int, pad: int, dil: int) -> QconvPlan:
+    """The conv kernel's plan for an (h, w, cp) int8 input: ``bk`` the
+    largest of 128, 64, 32 dividing Cp; ``bn`` the tile width of 64,
+    128, 256 that pads Cout least (the wider on a tie); the patch that
+    pads Ho x Wo least (the wider on a tie) within TMA's box of 256
+    elements (``mw * stride``, ``mh * stride``); as many stages as fit
+    in shared memory, at most ``MAX_STAGES``."""
+    if cp % CP_ALIGN or cp <= 0:
+        raise ValueError(f"Cp {cp} is not a positive multiple of "
+                         f"{CP_ALIGN}")
+    if not 1 <= stride <= TMA_ELEM_STRIDE:
+        raise ValueError(f"stride {stride} outside TMA's 1..."
+                         f"{TMA_ELEM_STRIDE}")
+    ho, wo = out_size(h, kh, stride, pad, dil), out_size(w, kw, stride, pad,
+                                                         dil)
+    if ho <= 0 or wo <= 0:
+        raise ValueError(f"empty output for a {h}x{w} input")
+    bk = next(k for k in (128, 64, 32) if cp % k == 0)
+    bn = min(TILE_N, key=lambda n: (-(-cout // n) * n, -n))
+    fits = [p for p in PATCHES if max(p) * stride <= TMA_BOX]
+    mh, mw = min(fits, key=lambda p: (-(-ho // p[0]) * p[0]
+                                      * (-(-wo // p[1]) * p[1]), -p[1]))
+    stages = min(MAX_STAGES, (SMEM_LIMIT - qconv_smem(bn, 0))
+                 // ((TILE_M + bn) * STAGE_K))
+    return QconvPlan(bn, bk, mh, mw, stages, qconv_smem(bn, stages))
+
+
+def qconv_tiles(plan: QconvPlan, b: int, ho: int, wo: int, cout: int):
+    """The (image, ho0, wo0, n0) origins of the conv kernel's tiles in
+    the order its persistent blocks walk them (N fastest)."""
+    for bi in range(b):
+        for ho0 in range(0, ho, plan.mh):
+            for wo0 in range(0, wo, plan.mw):
+                for n0 in range(0, cout, plan.bn):
+                    yield bi, ho0, wo0, n0
+
+
+def qconv_store_boxes(plan: QconvPlan, ho0: int, wo0: int):
+    """The two consumer warpgroups' TMA store boxes of a tile: (wo, ho,
+    columns, rows) each, 64 of the tile's row-major pixels apiece."""
+    w = min(plan.mw, 64)
+    return [(wo0 + r0 % plan.mw, ho0 + r0 // plan.mw, w, 64 // w)
+            for r0 in (0, 64)]
 
 
 def qconv_acc_reference(xq: torch.Tensor, wq: torch.Tensor, stride: int,
@@ -248,10 +341,9 @@ def qconv_s8(xq: torch.Tensor, wq: torch.Tensor, sx: Optional[torch.Tensor],
     xq, wq = xq.contiguous(), wq.contiguous()
     b, h, w, cp = xq.shape
     cout, kh, kw = wq.shape[:3]
+    plan = qconv_plan(h, w, cp, cout, kh, kw, stride, pad, dil)
     ho, wo = out_size(h, kh, stride, pad, dil), out_size(w, kw, stride, pad,
                                                          dil)
-    if ho <= 0 or wo <= 0:
-        raise ValueError(f"empty output for a {h}x{w} input")
     dtype = torch.int32 if acc_only else torch.bfloat16
     out = torch.empty((b, ho, wo, cout), dtype=dtype, device=xq.device)
     with torch.cuda.device(xq.device):
@@ -262,6 +354,7 @@ def qconv_s8(xq: torch.Tensor, wq: torch.Tensor, sx: Optional[torch.Tensor],
             None if acc_only else out.data_ptr(),
             out.data_ptr() if acc_only else None,
             b, h, w, cp, cout, kh, kw, stride, pad, dil, ho, wo,
+            plan.bn, plan.bk, plan.mh, plan.mw, plan.stages,
             torch.cuda.current_stream(xq.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"int8 conv kernel launch failed: CUDA error "
@@ -281,7 +374,7 @@ def _library():
     lib.wseg_quantize_act.argtypes = [p, ll, ll, ll, ll, i, i, i, i, i, p,
                                       p, p, p, i, p]
     lib.wseg_quantize_act.restype = i
-    lib.wseg_qconv_s8.argtypes = [p, p, p, p, p, p, p] + [i] * 12 + [p]
+    lib.wseg_qconv_s8.argtypes = [p, p, p, p, p, p, p] + [i] * 17 + [p]
     lib.wseg_qconv_s8.restype = i
     lib.wseg_qconv_limits.argtypes = [p]
     lib.wseg_qconv_limits.restype = i
