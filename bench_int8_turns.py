@@ -2,7 +2,7 @@
 """Two trees' int8 serving kernels on one card, in turns.
 
     python3 bench_int8_turns.py --parent DIR [--turns parent,change,...]
-    python3 bench_int8_turns.py --sweep-slots
+    python3 bench_int8_turns.py --sweep-slots | --sweep-cluster
 
 from the repository root, with DIR a checkout of the commit to compare
 against (``git archive``).  Each turn runs this file as a worker in a
@@ -15,7 +15,8 @@ profiler's device time of each kernel name they launch, then the tree's
 agreement).  The driver prints each turn's lines and a JSON summary; the
 workers' whole output goes to ``chiprun_out/int8_turns/``.
 ``--sweep-slots`` times this tree's dynamic quantize at each distinct
-input with 1-16 images in flight.
+input with 1-16 images in flight, ``--sweep-cluster`` its conv kernel
+with clusters of 1 and 2 blocks.
 """
 
 import argparse
@@ -54,8 +55,10 @@ def kernel_ms(fn, reps=REPS) -> dict:
     return {}
 
 
-def worker() -> None:
-    sys.path[0] = os.getcwd()  # this tree's package and chip_smoke
+def bucket():
+    """The card, and [(QuantConv, its bf16 input, count)] for each
+    distinct quantized conv of the flagship's int8 forward on one bucket
+    (16 views of 384x512), as ``chip_smoke.phase_qconv`` builds them."""
     import numpy as np
     import torch
 
@@ -67,7 +70,6 @@ def worker() -> None:
         load_cfg,
         synthetic_images,
     )
-    from wseg_tpu_torch.ops import qconv as Q
 
     card = cs.phase_env()
     cs.phase_build(card)
@@ -89,9 +91,22 @@ def worker() -> None:
         key = (tuple(inp.shape), mod.out_channels, mod.kernel_size[0],
                mod.stride[0], mod.dilation[0])
         distinct.setdefault(key, [mod, inp, 0])[2] += 1
+    reset_cfg()
+    return card, list(distinct.values())
+
+
+def worker() -> None:
+    sys.path[0] = os.getcwd()  # this tree's package and chip_smoke
+    import torch
+
+    import chip_smoke as cs
+    from wseg_tpu_torch.ops import qconv as Q
+
+    card, convs = bucket()
     rows = []
-    for (shape, cout, k, stride, dil), (mod, inp, count) in \
-            distinct.items():
+    for mod, inp, count in convs:
+        shape, cout = tuple(inp.shape), mod.out_channels
+        k, stride, dil = mod.kernel_size[0], mod.stride[0], mod.dilation[0]
         pad = mod.padding[0]
         wq, sw = Q.quantize_weight(mod.weight.detach())
         xq, sx = Q.quantize_act(inp)
@@ -118,9 +133,8 @@ def worker() -> None:
               f"static call {row['qs_call']:.4f} {row['qs_kernels']}; "
               f"qconv call {row['c_call']:.4f} {row['c_kernels']}",
               flush=True)
-    del distinct, server, x
+    del convs
     torch.cuda.empty_cache()
-    reset_cfg()
     cs.phase_int8_serve(card)
     print("ROWS " + json.dumps({"card": card, "rows": rows}), flush=True)
 
@@ -129,35 +143,10 @@ def sweep_slots() -> None:
     """This tree's dynamic quantize at each distinct input of the bucket
     with 1-16 images in flight (``ops/qconv.L2_BUDGET`` set per run):
     the profiler's device ms."""
-    import numpy as np
-    import torch
-
-    import chip_smoke as cs
-    from wseg_tpu_torch.config import cfg, reset_cfg
-    from wseg_tpu_torch.data.multiscale import MultiscaleViews
-    from wseg_tpu_torch.flagship import (
-        build_flagship_server,
-        load_cfg,
-        synthetic_images,
-    )
     from wseg_tpu_torch.ops import qconv as Q
 
-    card = cs.phase_env()
-    reset_cfg()
-    load_cfg("voc_resnet38.yaml")
-    cfg.NET.DTYPE = "int8"
-    server = build_flagship_server("cuda", seed=0)
-    server.close()
-    img, _ = synthetic_images([cs.QCONV_IMAGE])[0]
-    views = MultiscaleViews(cfg.TEST.SCALES, bool(cfg.TEST.FLIP),
-                            cfg.TEST.PAD_SIZE, bool(cfg.TEST.PAD_PER_SCALE),
-                            int(cfg.TEST.PAD_ALIGN))
-    vs, _, _ = views.build(img)
-    x = torch.from_numpy(np.stack(vs[:2] * cs.QCONV_SLOTS)).cuda()
-    inputs = {}
-    for mod, inp in cs.flagship_conv_inputs(server.model, x):
-        if mod.quantized:
-            inputs.setdefault(tuple(inp.shape), inp)
+    card, convs = bucket()
+    inputs = {tuple(inp.shape): inp for _, inp, _ in convs}
     budget = Q.L2_BUDGET
     for shape, inp in inputs.items():
         b, c, h, w = shape
@@ -170,6 +159,33 @@ def sweep_slots() -> None:
         print(f"slots sweep {shape}: planned "
               f"{Q.quantize_slots(b, c, h, w, True)}, device ms {got} "
               f"({card})", flush=True)
+
+
+def sweep_cluster() -> None:
+    """This tree's conv kernel at each distinct conv of the bucket with
+    clusters of 1 and 2 blocks (``ops/qconv.CLUSTER``): the profiler's
+    device ms, summed over the bucket."""
+    from wseg_tpu_torch.ops import qconv as Q
+
+    card, convs = bucket()
+    default, total = Q.CLUSTER, {}
+    for mod, inp, count in convs:
+        wq, sw = Q.quantize_weight(mod.weight.detach())
+        xq, sx = Q.quantize_act(inp)
+        got = {}
+        for cl in (1, 2):
+            Q.CLUSTER = cl
+            Q.qconv_plan.cache_clear()
+            got[cl] = round(sum(kernel_ms(lambda: Q.qconv_s8(
+                xq, wq, sx, sw, None, mod.stride[0], mod.padding[0],
+                mod.dilation[0])).values()), 4)
+            total[cl] = total.get(cl, 0.0) + got[cl] * count
+        print(f"cluster sweep {tuple(inp.shape)} -> {mod.out_channels} "
+              f"k{mod.kernel_size[0]} s{mod.stride[0]} d{mod.dilation[0]} "
+              f"x{count}: device ms {got} ({card})", flush=True)
+    Q.CLUSTER = default
+    Q.qconv_plan.cache_clear()
+    print(f"cluster sweep bucket: device ms {total} ({card})", flush=True)
 
 
 def summary(rows) -> dict:
@@ -199,12 +215,16 @@ def main() -> None:
     ap.add_argument("--turns", default="parent,change,change,parent")
     ap.add_argument("--worker", action="store_true")
     ap.add_argument("--sweep-slots", action="store_true")
+    ap.add_argument("--sweep-cluster", action="store_true")
     args = ap.parse_args()
     if args.worker:
         worker()
         return
     if args.sweep_slots:
         sweep_slots()
+        return
+    if args.sweep_cluster:
+        sweep_cluster()
         return
     here = os.path.dirname(os.path.abspath(__file__))
     trees = {"parent": os.path.abspath(args.parent), "change": here}
