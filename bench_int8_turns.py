@@ -2,7 +2,7 @@
 """Two trees' int8 serving kernels on one card, in turns.
 
     python3 bench_int8_turns.py --parent DIR [--turns parent,change,...]
-    python3 bench_int8_turns.py --sweep-slots | --sweep-cluster
+    python3 bench_int8_turns.py --sweep-slots
 
 from the repository root, with DIR a checkout of the commit to compare
 against (``git archive``).  Each turn runs this file as a worker in a
@@ -15,8 +15,7 @@ profiler's device time of each kernel name they launch, then the tree's
 agreement).  The driver prints each turn's lines and a JSON summary; the
 workers' whole output goes to ``chiprun_out/int8_turns/``.
 ``--sweep-slots`` times this tree's dynamic quantize at each distinct
-input with 1-16 images in flight, ``--sweep-cluster`` its conv kernel
-with clusters of 1 and 2 blocks.
+input with 1-16 images in flight.
 """
 
 import argparse
@@ -161,33 +160,6 @@ def sweep_slots() -> None:
               f"({card})", flush=True)
 
 
-def sweep_cluster() -> None:
-    """This tree's conv kernel at each distinct conv of the bucket with
-    clusters of 1 and 2 blocks (``ops/qconv.CLUSTER``): the profiler's
-    device ms, summed over the bucket."""
-    from wseg_tpu_torch.ops import qconv as Q
-
-    card, convs = bucket()
-    default, total = Q.CLUSTER, {}
-    for mod, inp, count in convs:
-        wq, sw = Q.quantize_weight(mod.weight.detach())
-        xq, sx = Q.quantize_act(inp)
-        got = {}
-        for cl in (1, 2):
-            Q.CLUSTER = cl
-            Q.qconv_plan.cache_clear()
-            got[cl] = round(sum(kernel_ms(lambda: Q.qconv_s8(
-                xq, wq, sx, sw, None, mod.stride[0], mod.padding[0],
-                mod.dilation[0])).values()), 4)
-            total[cl] = total.get(cl, 0.0) + got[cl] * count
-        print(f"cluster sweep {tuple(inp.shape)} -> {mod.out_channels} "
-              f"k{mod.kernel_size[0]} s{mod.stride[0]} d{mod.dilation[0]} "
-              f"x{count}: device ms {got} ({card})", flush=True)
-    Q.CLUSTER = default
-    Q.qconv_plan.cache_clear()
-    print(f"cluster sweep bucket: device ms {total} ({card})", flush=True)
-
-
 def summary(rows) -> dict:
     """Bucket sums (each distinct conv times its count), kernel device
     ms summed by the name parts that tell the kernels apart."""
@@ -215,16 +187,12 @@ def main() -> None:
     ap.add_argument("--turns", default="parent,change,change,parent")
     ap.add_argument("--worker", action="store_true")
     ap.add_argument("--sweep-slots", action="store_true")
-    ap.add_argument("--sweep-cluster", action="store_true")
     args = ap.parse_args()
     if args.worker:
         worker()
         return
     if args.sweep_slots:
         sweep_slots()
-        return
-    if args.sweep_cluster:
-        sweep_cluster()
         return
     here = os.path.dirname(os.path.abspath(__file__))
     trees = {"parent": os.path.abspath(args.parent), "change": here}

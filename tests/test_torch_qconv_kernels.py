@@ -62,34 +62,26 @@ def test_plan_covers_every_output_once(shape):
     assert plan.smem == Q.qconv_smem(plan.bn, plan.stages) <= Q.SMEM_LIMIT
     assert Q.qconv_smem(plan.bn, plan.stages + 1) > Q.SMEM_LIMIT or \
         plan.stages == Q.MAX_STAGES
-    # TMA boxes: A (bk, mw*stride, mh*stride, 1), B (bk, bn / cluster)
-    # at a 1024-byte aligned offset in the stage, the store
+    # TMA boxes: A (bk, mw*stride, mh*stride, 1), B (bk, bn), the store
     # (64, w, 64 // w, 1); element strides <= 8; swizzled inner boxes no
     # wider than their swizzle (bk bytes, 128 bytes of bf16)
     assert max(plan.mw * stride, plan.mh * stride, plan.bn) <= Q.TMA_BOX
     assert stride <= Q.TMA_ELEM_STRIDE
     assert (plan.bk * plan.mw * plan.mh) % 16 == 0
-    assert plan.bn // plan.cluster * plan.bk % 1024 == 0
     # the N tiles split [0, Cout) once
     cols = np.zeros(-(-cout // plan.bn) * plan.bn, np.int32)
     for n0 in range(0, cout, plan.bn):
         cols[n0:n0 + plan.bn] += 1
     assert (cols == 1).all()
-    # tiles in walk order: units of plan.cluster M tiles at one N tile,
-    # N fastest; past the last M tile (image index b) nothing is stored;
-    # the warpgroups' store boxes clipped to the plane cover each output
-    # pixel of an image once
-    assert plan.cluster in (1, 2)
+    # tiles in walk order, N fastest; the warpgroups' store boxes clipped
+    # to the plane cover each output pixel of an image once
     tiles = list(Q.qconv_tiles(plan, b, ho, wo, cout))
     nt = -(-cout // plan.bn)
-    m = b * -(-ho // plan.mh) * -(-wo // plan.mw)
-    assert len(tiles) == -(-m // plan.cluster) * plan.cluster * nt
-    assert all(t[3] == (i // plan.cluster % nt) * plan.bn
-               for i, t in enumerate(tiles))
-    assert sum(t[0] >= b for t in tiles) == (-m % plan.cluster) * nt
+    assert len(tiles) == b * -(-ho // plan.mh) * -(-wo // plan.mw) * nt
+    assert all(t[3] == (i % nt) * plan.bn for i, t in enumerate(tiles))
     seen = np.zeros((b, ho, wo), np.int32)
     for bi, ho0, wo0, n0 in tiles:
-        if n0 or bi >= b:
+        if n0:
             continue
         for x0, y0, bw, bh in Q.qconv_store_boxes(plan, ho0, wo0):
             assert bw * bh == 64

@@ -103,8 +103,7 @@ constexpr long long kHangCycles = 4000000000LL;  // ~2 s at 1.98 GHz
 struct Geom {
   int B, H, W, Cp, Cout, kh, kw, stride, pad, dil, Ho, Wo;
   int bk, mh, mw, stages;              // the host plan
-  int tiles_w, tiles_h, tiles_n;       // patches across, down; N tiles
-  int tiles_m, units;  // M tiles; work units (a cluster's M tiles x N)
+  int tiles_w, tiles_h, tiles_n, tiles;  // patches across, down; N tiles
   int cpb, chunks, nks;  // BK chunks a tap, a tile; ring stages a tile
 };
 
@@ -170,45 +169,6 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       ".mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
       : "memory");
-}
-
-// the same box into the same shared memory offset of every CTA in
-// `mask`, each CTA's barrier at `bar` counting its bytes
-__device__ __forceinline__ void tma_load_2d_multicast(uint32_t dst,
-                                                      const CUtensorMap* map,
-                                                      uint32_t bar, int c0,
-                                                      int c1,
-                                                      uint16_t mask) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.tile"
-      ".mbarrier::complete_tx::bytes.multicast::cluster"
-      " [%0], [%1, {%2, %3}], [%4], %5;\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar),
-      "h"(mask)
-      : "memory");
-}
-
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-// arrive on the barrier at shared offset `bar` of cluster CTA `rank`
-__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar,
-                                                    uint32_t rank) {
-  uint32_t remote;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(remote)
-               : "r"(bar), "r"(rank));
-  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(remote)
-               : "memory");
-}
-
-// every thread of every CTA of the cluster (threads may arrive apart)
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
-  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
@@ -396,25 +356,18 @@ __device__ __forceinline__ void wgmma<256>(int (&d)[128], uint64_t a,
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
-// work unit u of cluster CTA `rank`: M tile (u / tiles_n) * CL + rank
-// (past the last M tile: an image index >= B, whose loads are zeros and
-// whose stores TMA drops), N tile u % tiles_n
-template <int CL>
-__device__ __forceinline__ void decode_unit(const Geom& g, int bn, int u,
-                                            int rank, int& b, int& ho0,
-                                            int& wo0, int& n0) {
-  const int mp = u / g.tiles_n;
-  n0 = (u - mp * g.tiles_n) * bn;
-  const int mt = mp * CL + rank;
+__device__ __forceinline__ void decode_tile(const Geom& g, int bn, int t,
+                                            int& b, int& ho0, int& wo0,
+                                            int& n0) {
+  const int mt = t / g.tiles_n;
+  n0 = (t - mt * g.tiles_n) * bn;
   const int r = mt / g.tiles_w;
   wo0 = (mt - r * g.tiles_w) * g.mw;
   b = r / g.tiles_h;
   ho0 = (r - b * g.tiles_h) * g.mh;
 }
 
-// CL: CTAs of a cluster, along M; with 2 each loads half of a stage's B
-// rows and multicasts it to both, halving the weights' L2 traffic
-template <int BN, int CL>
+template <int BN>
 __global__ void __launch_bounds__(kThreads, 1)
 qconv_kernel(const __grid_constant__ CUtensorMap map_a,
              const __grid_constant__ CUtensorMap map_b,
@@ -432,18 +385,14 @@ qconv_kernel(const __grid_constant__ CUtensorMap map_a,
   const uint32_t full = staging + kBM * BN * 2;  // full[s], then empty[s]
   const uint32_t empty = full + 8 * kMaxStages;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int rank = CL > 1 ? static_cast<int>(cluster_rank()) : 0;
-  const int unit0 = blockIdx.x / CL, units_step = gridDim.x / CL;
   if (tid == 0) {
     for (int s = 0; s < g.stages; ++s) {
       mbar_init(full + 8 * s, 1);
-      // the consumer warps of every CTA the stage's B reaches
-      mbar_init(empty + 8 * s, 8 * CL);
+      mbar_init(empty + 8 * s, 8);  // the consumers' eight warps
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  if (CL > 1) cluster_sync();  // the peer's barriers are initialized
 
   if (warp >= 8) {
     // producer warpgroup: one thread issues every TMA load
@@ -452,9 +401,9 @@ qconv_kernel(const __grid_constant__ CUtensorMap map_a,
       const int per_stage = kStageK / g.bk;
       const uint32_t chunk_tx = (kBM + BN) * g.bk;
       int it = 0;
-      for (int u = unit0; u < g.units; u += units_step) {
+      for (int t = blockIdx.x; t < g.tiles; t += gridDim.x) {
         int b, ho0, wo0, n0;
-        decode_unit<CL>(g, BN, u, rank, b, ho0, wo0, n0);
+        decode_tile(g, BN, t, b, ho0, wo0, n0);
         const int hi0 = ho0 * g.stride - g.pad, wi0 = wo0 * g.stride - g.pad;
         for (int ks = 0; ks < g.nks; ++ks, ++it) {
           const int s = it % g.stages;
@@ -474,21 +423,12 @@ qconv_kernel(const __grid_constant__ CUtensorMap map_a,
             }
             tma_load_4d(ring_a + s * kStageA + q * kBM * g.bk, &map_a,
                         full + 8 * s, c, wi, hi, b);
-            if (CL == 1) {
-              tma_load_2d(ring_b + s * kStageB + q * BN * g.bk, &map_b,
-                          full + 8 * s, j * g.bk, n0);
-            } else {
-              tma_load_2d_multicast(
-                  ring_b + s * kStageB + q * BN * g.bk +
-                      rank * (BN / CL) * g.bk,
-                  &map_b, full + 8 * s, j * g.bk, n0 + rank * (BN / CL),
-                  static_cast<uint16_t>((1u << CL) - 1));
-            }
+            tma_load_2d(ring_b + s * kStageB + q * BN * g.bk, &map_b,
+                        full + 8 * s, j * g.bk, n0);
           }
         }
       }
     }
-    if (CL > 1) cluster_sync();  // no peer arrives here after we exit
   } else {
     // consumer warpgroup cw: the tile's rows cw * 64 .. cw * 64 + 63
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
@@ -504,9 +444,9 @@ qconv_kernel(const __grid_constant__ CUtensorMap map_a,
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
     int it = 0;
-    for (int u = unit0; u < g.units; u += units_step) {
+    for (int t = blockIdx.x; t < g.tiles; t += gridDim.x) {
       int b, ho0, wo0, n0;
-      decode_unit<CL>(g, BN, u, rank, b, ho0, wo0, n0);
+      decode_tile(g, BN, t, b, ho0, wo0, n0);
       int prev = 0;
       for (int ks = 0; ks < g.nks; ++ks, ++it) {
         const int s = it % g.stages;
@@ -525,28 +465,14 @@ qconv_kernel(const __grid_constant__ CUtensorMap map_a,
         wgmma_commit();
         wgmma_wait<1>();  // the previous stage's products are done
         fence_acc(acc);
-        if (ks > 0 && lane == 0) {  // stage prev is read: every producer
-          if (CL == 1) {
-            mbar_arrive(empty + 8 * prev);
-          } else {
-            mbar_arrive_cluster(empty + 8 * prev, 0);
-            mbar_arrive_cluster(empty + 8 * prev, 1);
-          }
-        }
+        if (ks > 0 && lane == 0) mbar_arrive(empty + 8 * prev);
         prev = s;
       }
       wgmma_wait<0>();
       fence_acc(acc);
-      if (lane == 0) {
-        if (CL == 1) {
-          mbar_arrive(empty + 8 * prev);
-        } else {
-          mbar_arrive_cluster(empty + 8 * prev, 0);
-          mbar_arrive_cluster(empty + 8 * prev, 1);
-        }
-      }
+      if (lane == 0) mbar_arrive(empty + 8 * prev);
 
-      const float sxb = sx != nullptr && b < g.B ? sx[b] : 0.0f;
+      const float sxb = sx != nullptr ? sx[b] : 0.0f;
       if (tma_store) {
         if (leader) bulk_wait_read();  // the last tile's stores are out
         named_sync(1 + cw, 128);
@@ -597,7 +523,7 @@ qconv_kernel(const __grid_constant__ CUtensorMap map_a,
           for (int half = 0; half < 2; ++half) {
             const int r = cw * 64 + row_w + 8 * half;
             const int ho = ho0 + r / g.mw, wo = wo0 + r % g.mw;
-            if (b >= g.B || ho >= g.Ho || wo >= g.Wo) continue;
+            if (ho >= g.Ho || wo >= g.Wo) continue;
             const long long o =
                 ((static_cast<long long>(b) * g.Ho + ho) * g.Wo + wo) *
                     g.Cout + n;
@@ -620,7 +546,6 @@ qconv_kernel(const __grid_constant__ CUtensorMap map_a,
       }
     }
     if (tma_store && leader) bulk_wait();
-    if (CL > 1) cluster_sync();
   }
 }
 
@@ -930,41 +855,22 @@ int qconv_smem(int bn, int stages) {
          2 * kMaxStages * 8;
 }
 
-// a persistent grid: as many clusters of CL blocks (one an SM) as the
-// card holds at once, or fewer where there are fewer work units
-template <int BN, int CL>
+template <int BN>
 cudaError_t launch_qconv(const CUtensorMap& ma, const CUtensorMap& mb,
                          const CUtensorMap& mo, const float* sx,
                          const float* sw, const float* bias,
                          __nv_bfloat16* out, int* acc_out, int tma_store,
-                         const Geom& g, cudaStream_t s) {
-  static int resident = 0;  // clusters at once, once per instance
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = CL;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = qconv_smem(BN, g.stages);
-  cfg.stream = s;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  if (resident == 0) {
-    cudaError_t e = cudaFuncSetAttribute(
-        qconv_kernel<BN, CL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         const Geom& g, int grid, cudaStream_t s) {
+  static bool ready = false;
+  if (!ready) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        qconv_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         kSmemLimit);
     if (e != cudaSuccess) return e;
-    cfg.gridDim = dim3(CL);
-    e = cudaOccupancyMaxActiveClusters(&resident, qconv_kernel<BN, CL>, &cfg);
-    if (e != cudaSuccess) return e;
-    if (resident <= 0) return cudaErrorInvalidConfiguration;
+    ready = true;
   }
-  cfg.gridDim = dim3((g.units < resident ? g.units : resident) * CL);
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, qconv_kernel<BN, CL>, ma,
-                                           mb, mo, sx, sw, bias, out,
-                                           acc_out, tma_store, g);
-  if (e != cudaSuccess) return e;
+  qconv_kernel<BN><<<grid, kThreads, qconv_smem(BN, g.stages), s>>>(
+      ma, mb, mo, sx, sw, bias, out, acc_out, tma_store, g);
   return cudaGetLastError();
 }
 
@@ -1067,7 +973,7 @@ extern "C" int wseg_qconv_s8(const void* xq, const void* wq, const float* sx,
                              void* acc_out, int B, int H, int W, int Cp,
                              int Cout, int kh, int kw, int stride, int pad,
                              int dil, int Ho, int Wo, int bn, int bk, int mh,
-                             int mw, int stages, int cluster, void* stream) {
+                             int mw, int stages, void* stream) {
   if (xq == nullptr || wq == nullptr || sw == nullptr ||
       (out == nullptr && acc_out == nullptr) || B <= 0 || H <= 0 ||
       W <= 0 || Cp <= 0 || Cp % kCpAlign != 0 || Cout <= 0 || kh <= 0 ||
@@ -1080,8 +986,7 @@ extern "C" int wseg_qconv_s8(const void* xq, const void* wq, const float* sx,
       (bk != 32 && bk != 64 && bk != 128) || Cp % bk != 0 ||
       mh * mw != kBM || mw < 8 || (mw & (mw - 1)) != 0 ||
       mw * stride > 256 || mh * stride > 256 || stages < 2 ||
-      stages > kMaxStages || qconv_smem(bn, stages) > kSmemLimit ||
-      (cluster != 1 && cluster != 2)) {
+      stages > kMaxStages || qconv_smem(bn, stages) > kSmemLimit) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Geom g{};
@@ -1091,13 +996,10 @@ extern "C" int wseg_qconv_s8(const void* xq, const void* wq, const float* sx,
   g.tiles_w = (Wo + mw - 1) / mw;
   g.tiles_h = (Ho + mh - 1) / mh;
   g.tiles_n = (Cout + bn - 1) / bn;
-  const long long tiles_m = static_cast<long long>(B) * g.tiles_h * g.tiles_w;
-  const long long units = (tiles_m + cluster - 1) / cluster * g.tiles_n;
-  if (units * cluster > 0x7fffffffLL) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  g.tiles_m = static_cast<int>(tiles_m);
-  g.units = static_cast<int>(units);
+  const long long tiles =
+      static_cast<long long>(B) * g.tiles_h * g.tiles_w * g.tiles_n;
+  if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  g.tiles = static_cast<int>(tiles);
   g.cpb = Cp / bk;
   g.chunks = kh * kw * g.cpb;
   g.nks = (g.chunks * bk + kStageK - 1) / kStageK;
@@ -1127,9 +1029,8 @@ extern "C" int wseg_qconv_s8(const void* xq, const void* wq, const float* sx,
     const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K),
                                 static_cast<cuuint64_t>(Cout)};
     const cuuint64_t strides[1] = {static_cast<cuuint64_t>(K)};
-    // a cluster's CTAs each load bn / cluster of the tile's rows
     const cuuint32_t box[2] = {static_cast<cuuint32_t>(bk),
-                               static_cast<cuuint32_t>(bn / cluster)};
+                               static_cast<cuuint32_t>(bn)};
     const cuuint32_t elem[2] = {1, 1};
     if (!encode(&mb, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, wq, dims, strides, box,
                 elem, swz)) {
@@ -1158,23 +1059,21 @@ extern "C" int wseg_qconv_s8(const void* xq, const void* wq, const float* sx,
       return static_cast<int>(cudaErrorInvalidValue);
     }
   }
+  const int sms = sm_count();
+  if (sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
+  const int grid = g.tiles < sms ? g.tiles : sms;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
   int* a = static_cast<int*>(acc_out);
-  const int t = tma_store;
   cudaError_t e;
-  if (cluster == 1) {
-    e = bn == 64    ? launch_qconv<64, 1>(ma, mb, mo, sx, sw, bias, o, a, t, g, s)
-        : bn == 128 ? launch_qconv<128, 1>(ma, mb, mo, sx, sw, bias, o, a, t, g,
-                                           s)
-                    : launch_qconv<256, 1>(ma, mb, mo, sx, sw, bias, o, a, t, g,
-                                           s);
+  if (bn == 64) {
+    e = launch_qconv<64>(ma, mb, mo, sx, sw, bias, o, a, tma_store, g, grid, s);
+  } else if (bn == 128) {
+    e = launch_qconv<128>(ma, mb, mo, sx, sw, bias, o, a, tma_store, g, grid,
+                          s);
   } else {
-    e = bn == 64    ? launch_qconv<64, 2>(ma, mb, mo, sx, sw, bias, o, a, t, g, s)
-        : bn == 128 ? launch_qconv<128, 2>(ma, mb, mo, sx, sw, bias, o, a, t, g,
-                                           s)
-                    : launch_qconv<256, 2>(ma, mb, mo, sx, sw, bias, o, a, t, g,
-                                           s);
+    e = launch_qconv<256>(ma, mb, mo, sx, sw, bias, o, a, tma_store, g, grid,
+                          s);
   }
   return static_cast<int>(e);
 }

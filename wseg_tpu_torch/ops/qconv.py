@@ -53,7 +53,6 @@ LIMITS = (CP_ALIGN, TILE_M, STAGE_K, THREADS, MAX_STAGES, SMEM_LIMIT)
 TILE_N = (64, 128, 256)
 # (Mh, Mw): the M tile's patch of output rows x columns of one image
 PATCHES = ((1, 128), (2, 64), (4, 32), (8, 16), (16, 8))
-CLUSTER = 2         # blocks of a cluster sharing B stages
 TMA_BOX = 256       # a TMA box dimension's most elements
 TMA_ELEM_STRIDE = 8  # a TMA traversal stride's most
 # bytes of bf16 images the dynamic quantize keeps in flight, so that its
@@ -196,9 +195,8 @@ def out_size(n: int, k: int, stride: int, pad: int, dil: int) -> int:
 class QconvPlan(NamedTuple):
     """One conv's launch geometry: tile channels ``bn``, bytes ``bk`` of
     one tap's channels a TMA chunk (and its swizzle), the M tile's patch
-    ``mh`` x ``mw`` of output pixels, ring ``stages``, the dynamic
-    shared memory ``smem`` they take, and the ``cluster`` of blocks
-    (along M) that share each stage's B rows by multicast."""
+    ``mh`` x ``mw`` of output pixels, ring ``stages`` and the dynamic
+    shared memory ``smem`` they take."""
 
     bn: int
     bk: int
@@ -206,7 +204,6 @@ class QconvPlan(NamedTuple):
     mw: int
     stages: int
     smem: int
-    cluster: int
 
 
 def qconv_smem(bn: int, stages: int) -> int:
@@ -243,24 +240,17 @@ def qconv_plan(h: int, w: int, cp: int, cout: int, kh: int, kw: int,
                                       * (-(-wo // p[1]) * p[1]), -p[1]))
     stages = min(MAX_STAGES, (SMEM_LIMIT - qconv_smem(bn, 0))
                  // ((TILE_M + bn) * STAGE_K))
-    return QconvPlan(bn, bk, mh, mw, stages, qconv_smem(bn, stages),
-                     CLUSTER)
+    return QconvPlan(bn, bk, mh, mw, stages, qconv_smem(bn, stages))
 
 
 def qconv_tiles(plan: QconvPlan, b: int, ho: int, wo: int, cout: int):
     """The (image, ho0, wo0, n0) origins of the conv kernel's tiles in
-    the order its persistent clusters walk them: a work unit is
-    ``plan.cluster`` neighbouring M tiles at one N tile, N fastest; past
-    the last M tile a unit's tile has image index b (zeros in, nothing
-    out)."""
-    th, tw = -(-ho // plan.mh), -(-wo // plan.mw)
-    mp = -(-(b * th * tw) // plan.cluster)
-    for u in range(mp * -(-cout // plan.bn)):
-        pair, nt = divmod(u, -(-cout // plan.bn))
-        for rank in range(plan.cluster):
-            r, pw = divmod(pair * plan.cluster + rank, tw)
-            bi, ph = divmod(r, th)
-            yield bi, ph * plan.mh, pw * plan.mw, nt * plan.bn
+    the order its persistent blocks walk them (N fastest)."""
+    for bi in range(b):
+        for ho0 in range(0, ho, plan.mh):
+            for wo0 in range(0, wo, plan.mw):
+                for n0 in range(0, cout, plan.bn):
+                    yield bi, ho0, wo0, n0
 
 
 def qconv_store_boxes(plan: QconvPlan, ho0: int, wo0: int):
@@ -364,7 +354,7 @@ def qconv_s8(xq: torch.Tensor, wq: torch.Tensor, sx: Optional[torch.Tensor],
             None if acc_only else out.data_ptr(),
             out.data_ptr() if acc_only else None,
             b, h, w, cp, cout, kh, kw, stride, pad, dil, ho, wo,
-            plan.bn, plan.bk, plan.mh, plan.mw, plan.stages, plan.cluster,
+            plan.bn, plan.bk, plan.mh, plan.mw, plan.stages,
             torch.cuda.current_stream(xq.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"int8 conv kernel launch failed: CUDA error "
@@ -384,7 +374,7 @@ def _library():
     lib.wseg_quantize_act.argtypes = [p, ll, ll, ll, ll, i, i, i, i, i, p,
                                       p, p, p, i, p]
     lib.wseg_quantize_act.restype = i
-    lib.wseg_qconv_s8.argtypes = [p, p, p, p, p, p, p] + [i] * 18 + [p]
+    lib.wseg_qconv_s8.argtypes = [p, p, p, p, p, p, p] + [i] * 17 + [p]
     lib.wseg_qconv_s8.restype = i
     lib.wseg_qconv_limits.argtypes = [p]
     lib.wseg_qconv_limits.restype = i
