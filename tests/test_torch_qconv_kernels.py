@@ -58,7 +58,7 @@ def test_plan_covers_every_output_once(shape):
     assert plan.bn in Q.TILE_N and plan.bk in (32, 64, 128)
     assert cp % plan.bk == 0
     assert plan.mh * plan.mw == Q.TILE_M and (plan.mh, plan.mw) in Q.PATCHES
-    assert 3 <= plan.stages <= Q.MAX_STAGES
+    assert 4 <= plan.stages <= Q.MAX_STAGES
     assert plan.smem == Q.qconv_smem(plan.bn, plan.stages) <= Q.SMEM_LIMIT
     assert Q.qconv_smem(plan.bn, plan.stages + 1) > Q.SMEM_LIMIT or \
         plan.stages == Q.MAX_STAGES
@@ -95,7 +95,7 @@ def test_plan_picks_wide_tiles_for_wide_convs():
     p = Q.qconv_plan(192, 256, 128, 128, 3, 3, 1, 1, 1)
     assert (p.bn, p.bk, p.mh, p.mw, p.stages) == (128, 128, 1, 128, 6)
     p = Q.qconv_plan(48, 64, 1024, 2048, 3, 3, 1, 4, 4)
-    assert (p.bn, p.mh, p.mw, p.stages) == (256, 2, 64, 3)
+    assert (p.bn, p.mh, p.mw, p.stages) == (256, 2, 64, 4)
     p = Q.qconv_plan(384, 512, 64, 128, 1, 1, 2, 0, 1)
     assert (p.bk, p.mh, p.mw) == (64, 1, 128)
     assert Q.qconv_plan(7, 5, 96, 130, 3, 3, 1, 24, 24).bk == 32

@@ -94,6 +94,7 @@ constexpr int kBM = 128;          // output pixels of a tile
 constexpr int kStageK = 128;      // K bytes a ring stage
 constexpr int kThreads = 384;     // consumer warpgroups 0-1, producer 2
 constexpr int kMaxStages = 6;
+constexpr int kStageCols = 128;   // output channels staged at a time
 constexpr int kSmemLimit = 232448;  // dynamic shared memory of a block
 constexpr int kQThreads = 256;    // quantize blocks
 constexpr int kMaxStaticC = 12288;  // static RN(1/sc) in shared memory
@@ -381,8 +382,9 @@ qconv_kernel(const __grid_constant__ CUtensorMap map_a,
   constexpr int kStageB = BN * kStageK;
   const uint32_t ring_a = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t ring_b = ring_a + g.stages * kStageA;
-  const uint32_t staging = ring_b + g.stages * kStageB;  // 128 x BN bf16
-  const uint32_t full = staging + kBM * BN * 2;  // full[s], then empty[s]
+  constexpr int kStaged = BN < kStageCols ? BN : kStageCols;
+  const uint32_t staging = ring_b + g.stages * kStageB;  // 128 x kStaged
+  const uint32_t full = staging + kBM * kStaged * 2;  // full[s], empty[s]
   const uint32_t empty = full + 8 * kMaxStages;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   if (tid == 0) {
@@ -438,7 +440,7 @@ qconv_kernel(const __grid_constant__ CUtensorMap map_a,
                                          : (3ull << 62);
     const int row_w = (warp & 3) * 16 + (lane >> 2);  // + 8 * half
     const int col_t = (lane & 3) * 2;                 // + 8 * j
-    const uint32_t stage_rows = staging + cw * 64 * BN * 2;
+    const uint32_t stage_rows = staging + cw * 64 * kStaged * 2;
     const bool leader = (tid & 127) == 0;
     int acc[BN / 2];
 #pragma unroll
@@ -474,46 +476,55 @@ qconv_kernel(const __grid_constant__ CUtensorMap map_a,
 
       const float sxb = sx != nullptr ? sx[b] : 0.0f;
       if (tma_store) {
-        if (leader) bulk_wait_read();  // the last tile's stores are out
-        named_sync(1 + cw, 128);
+        // kStageCols channels at a time (BN 256: two passes, so that the
+        // ring keeps a fourth stage)
+        constexpr int kCols = BN < kStageCols ? BN : kStageCols;
 #pragma unroll
-        for (int j = 0; j < BN / 8; ++j) {
-          const int col = j * 8 + col_t;
-          const int n = min(n0 + col, g.Cout - 2);  // TMA clips n >= Cout
-          const float s0 = sx != nullptr ? __fmul_rn(sxb, sw[n]) : sw[n];
-          const float s1 =
-              sx != nullptr ? __fmul_rn(sxb, sw[n + 1]) : sw[n + 1];
-          const float b0 = bias != nullptr ? bias[n] : 0.0f;
-          const float b1 = bias != nullptr ? bias[n + 1] : 0.0f;
+        for (int pass = 0; pass < BN / kCols; ++pass) {
+          if (leader) bulk_wait_read();  // the staged rows are out
+          named_sync(1 + cw, 128);
 #pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            float y0 = __fmul_rn(__int2float_rn(acc[4 * j + 2 * half]), s0);
-            float y1 =
-                __fmul_rn(__int2float_rn(acc[4 * j + 2 * half + 1]), s1);
-            if (bias != nullptr) {
-              y0 = __fadd_rn(y0, b0);
-              y1 = __fadd_rn(y1, b1);
+          for (int jj = 0; jj < kCols / 8; ++jj) {
+            const int j = pass * (kCols / 8) + jj;
+            const int col = j * 8 + col_t;
+            const int n = min(n0 + col, g.Cout - 2);  // TMA clips n >= Cout
+            const float s0 = sx != nullptr ? __fmul_rn(sxb, sw[n]) : sw[n];
+            const float s1 =
+                sx != nullptr ? __fmul_rn(sxb, sw[n + 1]) : sw[n + 1];
+            const float b0 = bias != nullptr ? bias[n] : 0.0f;
+            const float b1 = bias != nullptr ? bias[n + 1] : 0.0f;
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+              float y0 = __fmul_rn(__int2float_rn(acc[4 * j + 2 * half]), s0);
+              float y1 =
+                  __fmul_rn(__int2float_rn(acc[4 * j + 2 * half + 1]), s1);
+              if (bias != nullptr) {
+                y0 = __fadd_rn(y0, b0);
+                y1 = __fadd_rn(y1, b1);
+              }
+              const __nv_bfloat162 v = __halves2bfloat162(
+                  __float2bfloat16_rn(y0), __float2bfloat16_rn(y1));
+              const int row = row_w + 8 * half;
+              const int c64 = col & 63;
+              st_shared_u32(stage_rows + ((col % kCols) >> 6) * 8192 +
+                                row * 128 +
+                                ((((c64 >> 3) ^ (row & 7))) << 4) +
+                                (c64 & 7) * 2,
+                            *reinterpret_cast<const uint32_t*>(&v));
             }
-            const __nv_bfloat162 v = __halves2bfloat162(
-                __float2bfloat16_rn(y0), __float2bfloat16_rn(y1));
-            const int row = row_w + 8 * half;
-            const int c64 = col & 63;
-            st_shared_u32(stage_rows + (col >> 6) * 8192 + row * 128 +
-                              ((((c64 >> 3) ^ (row & 7))) << 4) +
-                              (c64 & 7) * 2,
-                          *reinterpret_cast<const uint32_t*>(&v));
           }
-        }
-        fence_proxy_async();
-        named_sync(1 + cw, 128);
-        if (leader) {
-          const int r0 = cw * 64;
+          fence_proxy_async();
+          named_sync(1 + cw, 128);
+          if (leader) {
+            const int r0 = cw * 64;
 #pragma unroll
-          for (int sub = 0; sub < BN / 64; ++sub) {
-            tma_store_4d(&map_out, stage_rows + sub * 8192, n0 + sub * 64,
-                         wo0 + r0 % g.mw, ho0 + r0 / g.mw, b);
+            for (int sub = 0; sub < kCols / 64; ++sub) {
+              tma_store_4d(&map_out, stage_rows + sub * 8192,
+                           n0 + pass * kCols + sub * 64, wo0 + r0 % g.mw,
+                           ho0 + r0 / g.mw, b);
+            }
+            bulk_commit();
           }
-          bulk_commit();
         }
       } else {
 #pragma unroll
@@ -851,8 +862,8 @@ int sm_count() {
 }
 
 int qconv_smem(int bn, int stages) {
-  return 1024 + stages * (kBM + bn) * kStageK + kBM * bn * 2 +
-         2 * kMaxStages * 8;
+  return 1024 + stages * (kBM + bn) * kStageK +
+         kBM * (bn < kStageCols ? bn : kStageCols) * 2 + 2 * kMaxStages * 8;
 }
 
 template <int BN>

@@ -46,6 +46,7 @@ TILE_M = 128        # output pixels of a conv tile
 STAGE_K = 128       # K bytes of a ring stage
 THREADS = 384       # two consumer warpgroups and a producer warpgroup
 MAX_STAGES = 6
+STAGE_COLS = 128    # output channels the epilogue stages at a time
 SMEM_LIMIT = 232448  # dynamic shared memory a block may use
 # the kernels' fixed geometry (csrc/qconv.cu); ``_library`` checks it
 # against the built library's
@@ -209,9 +210,10 @@ class QconvPlan(NamedTuple):
 def qconv_smem(bn: int, stages: int) -> int:
     """Dynamic shared memory of a conv block (csrc/qconv.cu qconv_smem):
     1 KB of alignment slack, the ring's A and B stages, the epilogue's
-    bf16 rows and the full and empty barriers."""
-    return (1024 + stages * (TILE_M + bn) * STAGE_K + TILE_M * bn * 2
-            + 2 * MAX_STAGES * 8)
+    bf16 rows (at most ``STAGE_COLS`` channels at a time) and the full
+    and empty barriers."""
+    return (1024 + stages * (TILE_M + bn) * STAGE_K
+            + TILE_M * min(bn, STAGE_COLS) * 2 + 2 * MAX_STAGES * 8)
 
 
 @functools.lru_cache(maxsize=None)
