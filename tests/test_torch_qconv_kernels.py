@@ -250,6 +250,8 @@ QUANT_CASES = [
     (3, 64, 17, 23, True, "channels_last"),
     (2, 40, 9, 31, False, "channels_last"),
     (2, 40, 9, 31, True, "channels_last"),
+    (3, 96, 12, 10, False, "channels_last"),  # 6 groups: (pixel, group)
+    (2, 96, 9, 7, True, "channels_last"),     # items, not a fixed group
     (3, 48, 11, 13, False, "nchw"),
     (2, 256, 6, 5, True, "nchw"),
     (4, 96, 8, 8, False, "unaligned"),

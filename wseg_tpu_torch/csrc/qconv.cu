@@ -28,28 +28,35 @@
 // bounds it: bytes, one bf16 read and one int8 write.  One launch in
 // both modes.  A block owns a fixed run of each image's pixels; a thread
 // takes 16 channels of a pixel (two 16-byte loads on channels_last
-// inputs, one 16-byte store) with 32-bit indices.  Dynamic mode needs
-// an image's |x| max before its first code: the blocks of an image
-// reduce their runs, publish the maxima (atomicMax on the float's bits,
-// exact for non-negative values) and an arrival count, wait for the
-// image's last block, and then quantize the same runs, which the image
-// (3-25 MB at the flagship's planes) left in the 50 MB L2: each input
-// byte comes from device memory once.  The grid is co-resident (a
-// cooperative launch sized by the occupancy calculator) and is split
-// into `slots` groups that walk the images, so while one group waits
-// another reads; the host plan (ops/qconv.py quantize_slots) keeps the
-// images in flight within an L2 budget.  The division: x * RN(1/s)
-// rounded to an integer equals rint(RN(x / s)) unless the product lies
-// within 2^-12 of a half-integer (its error is below 2^-22 at the codes
-// that survive the clip), and only those values take __fdiv_rn; the
-// plain versions divide, and tests/test_torch_qconv_kernels.py checks
-// the rule against IEEE division over every bfloat16 value.
+// inputs, one 16-byte store), keeps one channel group where the groups
+// divide the block (static mode's RN(1/sc) then sit in registers), and
+// indexes in 32 bits; 64 registers, four blocks an SM, keep enough loads
+// in flight.  Dynamic mode needs an image's |x| max before its first
+// code: the blocks of an image reduce their runs, publish the maxima
+// (atomicMax on the float's bits, exact for non-negative values) and an
+// arrival count, wait for the image's last block, and quantize the same
+// runs again from L2 (the reads mark their lines evict_last, the second
+// read and the xq stores evict_first), so each input byte comes from
+// device memory once while the image fits.  Per-image counters rather
+// than a grid barrier: the co-resident grid (a cooperative launch sized
+// by the occupancy calculator) splits into `slots` groups that walk the
+// images, so while one group waits for an image's last block, another
+// reads; the host plan (ops/qconv.py quantize_slots) keeps about 26 MB of
+// images in flight, the best of 1-16 at each input of the flagship
+// bucket.  A whole image staged in shared memory (one bulk copy, both
+// passes there) measured slower: an image's wait then idles every SM.
+// The division: x * RN(1/s) rounded to an integer equals rint(RN(x / s))
+// unless the product lies within 2^-12 of a half-integer (its error is
+// below 2^-22 at the codes that survive the clip), and only those values
+// take __fdiv_rn; the plain versions divide, and
+// tests/test_torch_qconv_kernels.py checks the rule against IEEE
+// division over every finite bfloat16 value at many scales.
 //
 // qconv_s8: implicit GEMM, M = B * Ho * Wo output pixels, N = Cout,
 // K = kh * kw * Cp, both operands K-major int8 as wgmma takes them: xq
 // (pixels x Cp) and wq (Cout x kh*kw*Cp, packed by the wrapper once per
 // weight set).  What bounds it: int8 operations at 1,979 TOPS on the
-// wide convs, the bf16 output's bytes on the 1x1 and stride-2 ones.  A
+// wide convs, the bf16 output's bytes on the 1x1 stride-2 ones.  A
 // persistent block per SM walks (M, N) tiles of 128 pixels x BN
 // channels (BN 64, 128 or 256, host plan), N fastest, so the N tiles of
 // one input patch run on neighbouring blocks and share it in L2.  The
@@ -59,26 +66,34 @@
 // stride, Mh * stride, 1) at (c, wo0 * stride - pad + kx * dil, ho0 *
 // stride - pad + ky * dil, b); TMA zero-fills what falls outside the
 // image, negative coordinates included, which is the conv's padding at
-// any dilation.  B is a 2-D map over wq.  A ring stage holds 128 bytes
-// of K as 128/BK chunks of one tap each (BK = 128, 64 or 32 by Cp,
-// swizzled 128, 64 or 32 bytes to match), up to 6 stages deep within
-// the 227 KB of shared memory, guarded by full and empty mbarriers.  One
-// producer thread issues the loads; two consumer warpgroups (setmaxnreg
-// 232 against the producer's 40) each run wgmma.mma_async
+// any dilation (a tiled map per tap rather than TMA's im2col mode: the
+// patch keeps an M tile inside one image, so a tile has one sx).  B is
+// a 2-D map over wq.  A ring stage holds 128 bytes of K as 128/BK
+// chunks of one tap each (BK = 128, 64 or 32 by Cp, swizzled 128, 64
+// or 32 bytes to match; a short last stage loads boxes wholly outside
+// the tensors, zeros, so every wgmma issues unconditionally), as many
+// stages as fit in the 227 KB of shared memory (4 at BN 256, 6 below),
+// guarded by full and empty mbarriers.  The ring's depth is what the
+// TMA latency asks for: a fourth stage at BN 256 took the flagship
+// bucket's convs from 10.49 to 9.74 ms (NVIDIA H100 80GB HBM3, 700.00
+// W), where clusters of two blocks sharing each B stage by multicast,
+// which halve the weights' L2 traffic, were 6% slower.  One producer
+// thread issues the loads; two consumer warpgroups (setmaxnreg 232
+// against the producer's 40) each run wgmma.mma_async
 // m64nBNk32.s32.s8.s8 on their 64 rows from shared memory, keeping one
 // stage's group in flight.  The epilogue keeps the plain arithmetic
 // (__fmul_rn(__int2float_rn(acc), sx[b] * sw[o]), __fadd_rn of the
-// bias, one rounding to bf16), stages the bf16 rows in 128-byte
-// swizzled shared memory (conflict-free) and leaves by TMA stores,
-// which clip the ragged Ho, Wo and Cout edges; they run while the
-// warpgroup starts its next tile, and the producer already filled that
-// tile's ring during the epilogue.  Cout not a multiple of 8 (no 16-byte
-// row pitch for TMA) and `acc_out` (the int32 check) store from
+// bias, one rounding to bf16), stages the bf16 rows 128 channels at a
+// time in 128-byte swizzled shared memory (conflict-free) and leaves by
+// TMA stores, which clip the ragged Ho, Wo and Cout edges and run while
+// the warpgroup starts its next tile; the producer already filled that
+// tile's ring during the epilogue.  Cout not a multiple of 8 (no
+// 16-byte row pitch for TMA) and `acc_out` (the int32 check) store from
 // registers.  int32 cannot overflow: 9 * 4096 * 127^2 < 2^31.
 //
 // Launches on the caller's stream, allocates nothing, and returns
 // cudaGetLastError().  Every mbarrier and arrival wait traps after about
-// two seconds, so a fault shows as a launch failure and not a hang.
+// five seconds, so a fault shows as a launch failure and not a hang.
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes from
                    // cudaGetDriverEntryPointByVersion, so no -lcuda
@@ -99,7 +114,7 @@ constexpr int kSmemLimit = 232448;  // dynamic shared memory of a block
 constexpr int kQThreads = 256;    // quantize blocks
 constexpr int kMaxStaticC = 12288;  // static RN(1/sc) in shared memory
 constexpr float kTieTol = 2.44140625e-4f;  // 2^-12
-constexpr long long kHangCycles = 4000000000LL;  // ~2 s at 1.98 GHz
+constexpr long long kHangCycles = 10000000000LL;  // ~5 s at 1.98 GHz
 
 struct Geom {
   int B, H, W, Cp, Cout, kh, kw, stride, pad, dil, Ho, Wo;
@@ -151,7 +166,8 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map,
                                             uint32_t bar, int c0, int c1,
                                             int c2, int c3) {
   asm volatile(
@@ -163,7 +179,8 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
+__device__ __forceinline__ void tma_load_2d(uint32_t dst,
+                                            const CUtensorMap* map,
                                             uint32_t bar, int c0, int c1) {
   asm volatile(
       "cp.async.bulk.tensor.2d.shared::cluster.global.tile"
@@ -905,6 +922,7 @@ cudaError_t launch_quantize(const __nv_bfloat16* x, QGeom g, const float* sc,
     if (per_sm < 1) return cudaErrorInvalidConfiguration;
   }
   const int blocks = per_sm * sm_count();
+  if (g.slots > blocks) g.slots = blocks;  // images wait their turn
   g.per = blocks / g.slots;
   if (g.per < 1) return cudaErrorInvalidValue;
   const dim3 grid(g.per * g.slots), block(kQThreads);
@@ -948,7 +966,8 @@ extern "C" int wseg_quantize_act(const void* x, long long sB, long long sC,
   if (x == nullptr || xq == nullptr || B <= 0 || C <= 0 || H <= 0 ||
       W <= 0 || Cp < C || Cp % kCpAlign != 0 || slots < 1 || slots > B ||
       (sc == nullptr) == (sync == nullptr) ||
-      (sync != nullptr && sx == nullptr) || (sc != nullptr && C > kMaxStaticC) ||
+      (sync != nullptr && sx == nullptr) ||
+      (sc != nullptr && C > kMaxStaticC) ||
       hw * (Cp / 16) > 0x7fffffffLL || hw * C > 0x7fffffffLL ||
       reinterpret_cast<uintptr_t>(xq) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
