@@ -214,13 +214,12 @@ def cuda_median_ms(fn, reps: int, warmup: int = 2) -> float:
     return times[len(times) // 2]
 
 
-def device_ms(fn, reps: int, match: str = "", per_call: int = 0) -> float:
-    """Kernel time on the card per call of ``fn``: the profiler's device
-    time of every kernel (or those whose name holds ``match``) over
-    ``reps`` calls, divided by ``reps`` (no host gaps counted).  With
-    ``per_call`` (the matching launches of one call), the mean time of
-    the launches the profiler recorded times ``per_call``: a window can
-    drop some of a run's kernel records."""
+def _kernel_window(fn, reps: int, matches) -> tuple:
+    """The profiler's CUDA kernel records of a window of calls of ``fn``,
+    one list for each of ``matches`` (parts of kernel names; "" takes
+    every kernel), and the window's calls.  A window now and then records
+    no kernel, so up to five windows, each ``reps`` calls longer than the
+    last, until every match has device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -229,20 +228,45 @@ def device_ms(fn, reps: int, match: str = "", per_call: int = 0) -> float:
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # a profiler window now and then records no kernel
+    for window in range(1, 6):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
+            for _ in range(reps * window):
                 fn()
             torch.cuda.synchronize()
-        evts = [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and match in e.key
-                and not getattr(e, "is_user_annotation", False)]
-        us = sum(_dev_us(e, self_only=True) for e in evts)
-        if us > 0:
-            break
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)]
+        groups = [[e for e in kernels if m in e.key] for m in matches]
+        if all(sum(_dev_us(e, self_only=True) for e in g) > 0
+               for g in groups):
+            return groups, reps * window
+    raise RuntimeError(f"the profiler recorded no kernel named like "
+                       f"{matches} in five windows")
+
+
+def device_ms(fn, reps: int, match: str = "", per_call: int = 0) -> float:
+    """Kernel time on the card per call of ``fn``: the profiler's device
+    time of every kernel (or those whose name holds ``match``) over a
+    window of ``reps`` calls or more, divided by its calls (no host gaps
+    counted).  With ``per_call`` (the matching launches of one call), the
+    mean time of the launches the profiler recorded times ``per_call``: a
+    window can drop some of a run's kernel records."""
+    from wseg_tpu_torch.profile_slice import _dev_us
+
+    (evts,), calls = _kernel_window(fn, reps, (match,))
+    us = sum(_dev_us(e, self_only=True) for e in evts)
     if per_call:
         return us / 1e3 / sum(e.count for e in evts) * per_call
-    return us / 1e3 / reps
+    return us / 1e3 / calls
+
+
+def device_ms_each(fn, reps: int, matches) -> list:
+    """``device_ms`` of each of ``matches``, from one window."""
+    from wseg_tpu_torch.profile_slice import _dev_us
+
+    groups, calls = _kernel_window(fn, reps, matches)
+    return [sum(_dev_us(e, self_only=True) for e in g) / 1e3 / calls
+            for g in groups]
 
 
 def bound(nbytes: float, flops: float) -> dict:
@@ -3148,18 +3172,23 @@ def qconv_case(tag, x, weight, bias, stride, pad, dil, count, card) -> dict:
     plan = Q.qconv_plan(h, w, cp, cout, k, k, stride, pad, dil)
     sc1 = Q.amax_scale(x.float().abs().amax(dim=(0, 2, 3)))
     # call times (CUDA events: the wrapper's host work shows where a call
-    # is shorter than it) and the kernels' own device times (profiler)
+    # is shorter than it) and the kernels' own device times (profiler,
+    # one window for the three: the quantize kernel's first template
+    # argument tells its dynamic launch from its static one)
     q_call = cuda_median_ms(lambda: Q.quantize_act(x), reps=20)
-    q_ms = device_ms(lambda: Q.quantize_act(x), reps=20,
-                     match=Q.quantize_act.kernel_name)
-    q_static = device_ms(lambda: Q.quantize_act(x, sc1), reps=20,
-                         match=Q.quantize_act.kernel_name)
     q_plain = cuda_median_ms(lambda: Q.quantize_act_reference(x), reps=3)
     c_call = cuda_median_ms(
         lambda: Q.qconv_s8(xq, wq, sx, sw, bias, stride, pad, dil), reps=20)
-    c_ms = device_ms(
-        lambda: Q.qconv_s8(xq, wq, sx, sw, bias, stride, pad, dil), reps=20,
-        match=Q.qconv_s8.kernel_name)
+
+    def three():
+        Q.quantize_act(x)
+        Q.quantize_act(x, sc1)
+        Q.qconv_s8(xq, wq, sx, sw, bias, stride, pad, dil)
+
+    q_ms, q_static, c_ms = device_ms_each(
+        three, reps=20, matches=(Q.quantize_act.kernel_name + "<true",
+                                 Q.quantize_act.kernel_name + "<false",
+                                 Q.qconv_s8.kernel_name))
     c_plain = cuda_median_ms(
         lambda: Q.qconv_s8_reference(xq, wq, sx, sw, bias, stride, pad, dil),
         reps=2, warmup=1)
