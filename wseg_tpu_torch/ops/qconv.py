@@ -57,9 +57,9 @@ PATCHES = ((1, 128), (2, 64), (4, 32), (8, 16), (16, 8))
 TMA_BOX = 256       # a TMA box dimension's most elements
 TMA_ELEM_STRIDE = 8  # a TMA traversal stride's most
 # bytes of bf16 images the dynamic quantize keeps in flight, so that its
-# second read of an image comes from the 50 MB L2 (the best of 1-16
-# images in flight at each input of the flagship bucket, H100 80GB HBM3
-# at 700 W: bench_int8_turns.py --sweep-slots)
+# second read of an image comes from the 50 MB L2: the best of 1-16
+# images in flight at each input of the flagship bucket (NVIDIA H100
+# 80GB HBM3, 700.00 W; PERF.md section 6)
 L2_BUDGET = 26_000_000
 # the largest int8 code of the symmetric grid, and the scales' floor
 QMAX = 127.0
