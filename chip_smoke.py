@@ -81,7 +81,14 @@ from the repository root.  Phases, each printing its own lines:
    step, median step and host issue ms, the refined masks of both
    scales from the kernels against the plain path, and both kernels
    against their plain versions and timed at the half-scale plane
-   (8, 21, 24, 24);
+   (8, 21, 24, 24); then data parallelism (``phase_ddp``): both PAMR
+   kernels against their plain versions and timed at the per-rank
+   planes (4, 21, 48, 48) and (1, 21, 48, 48) of the global batch of 8,
+   ``torchrun --standalone --nproc_per_node 1`` (NCCL) running
+   ``wseg_tpu_torch.train`` and ``infer_val``, two flagship steps in
+   an NCCL group of one bit-equal to the same steps without a group,
+   and two ``gloo`` ranks on the card (4 rows each) against one process
+   on the whole batch (float32);
 7. exact-CRF kernels vs plain: the four lattice kernels (norm folding,
    the split splat, the all-axes blur, slice) against their plain
    versions on the Gaussian and bilateral lattices of a photo-like
@@ -129,8 +136,8 @@ from the repository root.  Phases, each printing its own lines:
    static (refused without statistics) and in int8 dynamic with the
    exact CRF, multicrop and the per-image path, each scored;
 10. the card line, the kernel JSON line (launch counts summed over the
-    flagship's, the ``ae``, the zoo's, multicrop, host-view, the SEAM
-    and the int8 main paths), and last ``{"ok":
+    flagship's, the ``ae``, the zoo's, multicrop, host-view, the SEAM,
+    the NCCL group of one's and the int8 main paths), and last ``{"ok":
     true, ...}``.  Each phase prints its wall seconds.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -3078,6 +3085,342 @@ def phase_cam_entry(card: str, seam) -> None:
 INT8_OPS = 1979e12
 # phase_qconv's bucket: the flagship's scale-1.0 views of a 500x375
 # image, 8 slots with flip, as a served group runs them
+# global batch, crop and steps of the data-parallel phase (the flagship
+# trainer's); two ranks against one process (float32): each tensor's
+# update within a share of its largest update, plus two float32
+# spacings, that is the larger of DDP_REL_TOL and DDP_NOISE_FACTOR times
+# what that update moves in one process when the batch's halves are
+# swapped (the same function summed in another order: the ranks'
+# batch-4 convs also sum otherwise than the batch-8 ones; the residual
+# branches' zeroed last convs get updates of ~2e-6 that the swap alone
+# moves by ~100%)
+DDP_BATCH, DDP_CROP, DDP_STEPS = 8, 384, 2
+DDP_REL_TOL = 1e-3
+DDP_NOISE_FACTOR = 2.0
+DDP_TIMEOUT_S = 600
+
+
+def ddp_steps(batches, dtype: str, seed: int = 0):
+    """``DDP_STEPS`` train steps of the flagship trainer's model (float32
+    parameters, ``NET.DTYPE`` ``dtype``) on this process's rows of each
+    global batch (``parallel.dist.rank_rows``; all of them without a
+    group).  Returns (model, each parameter's update, metrics, LR
+    labels, the float32 spacing of each parameter's largest start
+    value)."""
+    import numpy as np
+    import torch
+
+    from wseg_tpu_torch.config import cfg, reset_cfg
+    from wseg_tpu_torch.engine.train_loop import train_step
+    from wseg_tpu_torch.engine.trainer import build_train_model
+    from wseg_tpu_torch.flagship import load_cfg
+    from wseg_tpu_torch.optim import make_optimizer
+    from wseg_tpu_torch.parallel import dist
+
+    reset_cfg()
+    load_cfg("voc_resnet38.yaml")
+    cfg.NET.DTYPE = dtype
+    model = build_train_model(
+        torch.device("cuda", torch.cuda.current_device()), seed)
+    opt, labels = make_optimizer(cfg.NET, model)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    kw = dict(device_jitter=True, loss_name=str(cfg.NET.LOSS),
+              mask_loss_bce=float(cfg.NET.MASK_LOSS_BCE))
+    metrics = []
+    for batch in batches:
+        rows = {k: dist.rank_rows(v) for k, v in batch.items()}
+        metrics.append({k: float(v) for k, v in
+                        train_step(model, opt, rows, 1.0, **kw).items()})
+    with torch.no_grad():
+        deltas = {n: p - before[n] for n, p in model.named_parameters()}
+        ulp = {n: float(np.spacing(b.abs().max().cpu().numpy()))
+               for n, b in before.items()}
+    return model, deltas, metrics, labels, ulp
+
+
+def update_gaps(got, want, labels, ulp) -> dict:
+    """{name: max(|got - want| - 2 spacings) / max |want|} over the
+    trained tensors' updates; fails if a frozen tensor moved or a
+    trained one did not."""
+    from wseg_tpu_torch.optim import FROZEN
+
+    gaps = {}
+    for name, d1 in want.items():
+        d2 = got[name]
+        scale = float(d1.abs().max())
+        if labels[name] == FROZEN:
+            check(scale == 0 and float(d2.abs().max()) == 0,
+                  f"frozen {name} moved")
+            continue
+        check(scale > 0, f"trained {name} did not move")
+        gaps[name] = float(((d2 - d1).abs() - 2 * ulp[name]).max()) / scale
+    return gaps
+
+
+def ddp_rank(rank: int, world: int, tmp: str) -> None:
+    """One rank of the phase's ``gloo`` group on card 0: the float32
+    steps on its rows of ``tmp/batches.pt``; rank 0 saves its updates
+    and metrics, rank 1 its metrics and whether its parameters equal
+    rank 0's bit for bit (``tmp/rank<r>.pt``)."""
+    import torch
+
+    from wseg_tpu_torch.parallel import dist
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init(rank, world, "gloo", device="cuda:0",
+              init_method="file://" + os.path.join(tmp, "rendezvous"))
+    try:
+        batches = [{k: v.cuda() for k, v in b.items()} for b in torch.load(
+            os.path.join(tmp, "batches.pt"), weights_only=True)]
+        model, deltas, metrics, _, _ = ddp_steps(batches, "float32")
+        res = {"metrics": metrics}
+        same = True
+        for p in model.parameters():
+            t = p.detach().clone()
+            torch.distributed.broadcast(t, src=0)
+            same = same and torch.equal(t, p.detach())
+        if rank == 0:
+            res["deltas"] = {n: d.cpu() for n, d in deltas.items()}
+        else:
+            res["same_as_rank0"] = same
+        torch.save(res, os.path.join(tmp, f"rank{rank}.pt"))
+    finally:
+        dist.destroy()
+
+
+def start_torchrun(module: str, argv, log: str):
+    """``python -m torch.distributed.run --standalone --nproc_per_node 1
+    -m -- <module> <argv>`` from the repository root, its output into
+    ``log``; returns (process, log file).  The ``--`` keeps torchrun's
+    parser off the module's flags (Python 3.12.3's argparse reads
+    ``--run`` as an abbreviation of torchrun's ``--run-path``)."""
+    from wseg_tpu_torch.flagship import REPO
+
+    out = open(log, "w")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "1", "-m", "--", module, *argv],
+        cwd=REPO, env=env, stdout=out, stderr=subprocess.STDOUT)
+    return proc, out
+
+
+def finish_torchrun(proc, out, log: str, what: str) -> str:
+    """Wait for a ``start_torchrun`` process; fails (with the end of its
+    output) unless it exits with 0.  Returns its output."""
+    try:
+        code = proc.wait(DDP_TIMEOUT_S)
+    finally:
+        out.close()
+    with open(log) as f:
+        text = f.read()
+    check(code == 0, f"torchrun {what} exited with {code}:\n{text[-4000:]}")
+    return text
+
+
+def phase_ddp(card: str) -> dict:
+    """Data parallelism (``wseg_tpu_torch/parallel``) on the one card.
+
+    In this process, ``DDP_STEPS`` flagship steps (bfloat16 autocast,
+    crop 384, batch 8) without a group, and both PAMR kernels against
+    their plain versions at the per-rank planes of that global batch
+    ((4, C, 48, 48) at 2 ranks, (1, C, 48, 48) at 8), timed alone.  Then
+    at once: ``torchrun --standalone --nproc_per_node 1`` (NCCL) running
+    ``wseg_tpu_torch.train`` (one epoch of 16 synthetic images +
+    validation) and ``wseg_tpu_torch.infer_val`` (seeded weights); two
+    ``gloo`` ranks (spawned, both on card 0, CUDA tensors) each taking 4
+    rows of every global batch of 8 (float32); and here the same
+    bfloat16 steps in an NCCL group of one, which must be bit-equal to
+    those without a group (cuDNN deterministic for both), and one
+    process on the whole float32 batch, against which the two ranks are
+    held (``DDP_REL_TOL``, ``DDP_NOISE_FACTOR``).  Returns the PAMR
+    launch counts of the group-of-one steps."""
+    import multiprocessing
+
+    import numpy as np
+    import torch
+
+    from wseg_tpu_torch.engine.train_loop import normalise_batch_image
+    from wseg_tpu_torch.flagship import (
+        FLAGSHIP_CFG,
+        synthetic_train_batch,
+        write_synthetic_voc,
+    )
+    from wseg_tpu_torch.models.stage_net import _clean_only
+    from wseg_tpu_torch.ops.pamr_cuda import (
+        pamr_affinity_cm,
+        pamr_propagate_cm,
+    )
+    from wseg_tpu_torch.parallel import dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    tmp = tempfile.mkdtemp(prefix="wseg_smoke_ddp_")
+    procs, runs = [], []
+    try:
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        rng = np.random.RandomState(7)
+        batches = [synthetic_train_batch(rng, DDP_BATCH, DDP_CROP)
+                   for _ in range(DDP_STEPS)]
+        torch.save([{k: v.cpu() for k, v in b.items()} for b in batches],
+                   os.path.join(tmp, "batches.pt"))
+        model, alone, m_alone, _, _ = ddp_steps(batches, "bfloat16")
+
+        # the per-rank PAMR planes, timed with nothing else on the card
+        model.eval()
+        with torch.no_grad():
+            image, raw = normalise_batch_image(batches[0]["image"],
+                                               batches[0]["jitter"])
+            with torch.autocast("cuda", dtype=model.amp_dtype):
+                logits, _ = model._features(image)
+            masks = _clean_only(torch.softmax(logits.float(), dim=-1),
+                                batches[0]["labels"])
+        del model
+        for world in (2, 8):
+            rows = DDP_BATCH // world
+            pamr_plane_report(raw[:rows].contiguous(),
+                              masks[:rows].contiguous(), card,
+                              f"rank 0's plane of {world} ranks")
+        del image, raw, masks, logits
+        torch.cuda.empty_cache()
+
+        # the entry points under torchrun and the gloo ranks, at once
+        t0 = time.perf_counter()
+        root = write_synthetic_voc(os.path.join(tmp, "data"), n_train=16,
+                                   n_val=4)
+        common = ["--dataset", "pascal_voc", "--cfg", FLAGSHIP_CFG,
+                  "--exp", "smoke_ddp", "--run", "r0",
+                  "--snapshot-dir", os.path.join(tmp, "snap"),
+                  "--logdir", os.path.join(tmp, "logs"), "--workers", "2",
+                  "--device", "cuda", "--set", "DATASET.ROOT", root,
+                  "TEST.DATA_ROOT", root, "TRAIN.NUM_EPOCHS", "0",
+                  "TRAIN.PRETRAIN", "0"]
+        masks_out = os.path.join(tmp, "masks")
+        logs = {what: os.path.join(tmp, what + ".log")
+                for what in ("train", "infer_val")}
+        runs.append(start_torchrun("wseg_tpu_torch.train", common,
+                                   logs["train"]))
+        runs.append(start_torchrun(
+            "wseg_tpu_torch.infer_val",
+            common + ["--infer-list", os.path.join(root, "val_voc.txt"),
+                      "--mask-output-dir", masks_out], logs["infer_val"]))
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=ddp_rank, args=(r, 2, tmp))
+                 for r in range(2)]
+        for p in procs:
+            p.start()
+
+        # an NCCL group of one: bit for bit the steps without a group
+        pamr_affinity_cm.launches = 0
+        pamr_propagate_cm.launches = 0
+        dist.init(0, 1, "nccl", device="cuda:0",
+                  init_method="file://" + os.path.join(tmp, "nccl1"))
+        try:
+            check(dist.world_size() == 1
+                  and torch.distributed.get_backend() == "nccl",
+                  "no NCCL group of one")
+            _, grouped, m_grouped, _, _ = ddp_steps(batches, "bfloat16")
+        finally:
+            dist.destroy()
+        launches = {"pamr_affinity_cm": pamr_affinity_cm.launches,
+                    "pamr_propagate_cm": pamr_propagate_cm.launches}
+        check(launches == {"pamr_affinity_cm": DDP_STEPS,
+                           "pamr_propagate_cm": DDP_STEPS},
+              f"NCCL group of one: PAMR launches {launches}")
+        unequal = [n for n, d in alone.items()
+                   if not torch.equal(grouped[n], d)]
+        print(f"DDP: {DDP_STEPS} flagship steps (bfloat16, batch "
+              f"{DDP_BATCH}, crop {DDP_CROP}) in an NCCL group of one vs "
+              f"no group: {len(alone) - len(unequal)} of {len(alone)} "
+              f"parameter updates bit-equal, metrics equal "
+              f"{m_grouped == m_alone}; losses {m_grouped[-1]}; PAMR "
+              f"launches {launches} ({card})", flush=True)
+        check(not unequal and m_grouped == m_alone,
+              f"NCCL group of one differs from no group: {unequal[:5]}, "
+              f"{m_grouped} vs {m_alone}")
+        del alone, grouped
+
+        # two gloo ranks against one process on the whole batch
+        _, solo, m_solo, labels, ulp = ddp_steps(batches, "float32")
+        # the yardstick: one process on the same batches with their
+        # halves swapped (the same function, summed in another order)
+        half = DDP_BATCH // 2
+        _, swapped, _, _, _ = ddp_steps(
+            [{k: torch.cat([v[half:], v[:half]]) for k, v in b.items()}
+             for b in batches], "float32")
+        for p in procs:
+            p.join(DDP_TIMEOUT_S)
+        codes = [p.exitcode for p in procs]
+        check(codes == [0, 0], f"gloo ranks exited with {codes}")
+        r0, r1 = (torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                             weights_only=True) for r in range(2))
+        check(r1["same_as_rank0"], "rank 1's parameters differ from rank 0's")
+        two = {n: d.cuda() for n, d in r0["deltas"].items()}
+        gap_ranks = update_gaps(two, solo, labels, ulp)
+        gap_swap = update_gaps(swapped, solo, labels, ulp)
+        tol = {n: max(DDP_REL_TOL, DDP_NOISE_FACTOR * g)
+               for n, g in gap_swap.items()}
+        over = [n for n, g in gap_ranks.items() if g > tol[n]]
+        worst = sorted(gap_ranks, key=gap_ranks.get, reverse=True)[:3]
+        rel_metrics = max(abs(m2[k] - m1[k]) / max(1.0, abs(m1[k]))
+                          for res in (r0, r1)
+                          for m2, m1 in zip(res["metrics"], m_solo)
+                          for k in m1)
+        print(f"DDP: 2 gloo ranks on card 0 (4 rows each of every batch of "
+              f"{DDP_BATCH}, float32, crop {DDP_CROP}, {DDP_STEPS} steps) "
+              f"vs one process on the batch, {len(gap_ranks)} trained "
+              f"tensors: update difference beyond 2 float32 spacings, as a "
+              f"share of the tensor's largest update (tol: the larger of "
+              f"{DDP_REL_TOL:g} and {DDP_NOISE_FACTOR:g}x the one process's "
+              f"own with the batch's halves swapped), worst three "
+              + ", ".join(f"{n} {gap_ranks[n]:.3e} (swapped {gap_swap[n]:.3e}"
+                          f", largest update {float(solo[n].abs().max()):.3e})"
+                          for n in worst)
+              + f"; {len(over)} over; metrics within {rel_metrics:.3e} (tol "
+              f"1e-4); rank 1 bit-equal to rank 0; losses {m_solo[-1]} "
+              f"({card})", flush=True)
+        check(not over and rel_metrics <= 1e-4,
+              f"two ranks vs one process: updates of {over}, metrics "
+              f"{rel_metrics}")
+
+        train_out = finish_torchrun(*runs[0], logs["train"], "train")
+        snap = os.path.join(tmp, "snap", "pascal_voc", "smoke_ddp", "r0")
+        saved = sorted(f for f in os.listdir(snap)
+                       if f.startswith("model_enc_"))
+        check(saved and "mAP:" in train_out and "Im/Sec" in train_out,
+              f"torchrun train saved {saved}:\n{train_out[-2000:]}")
+        finish_torchrun(*runs[1], logs["infer_val"], "infer_val")
+        runs.clear()
+        n = {sub: len(os.listdir(os.path.join(masks_out + "_0", sub)))
+             for sub in ("no_crf", "crf")}
+        check(n == {"no_crf": 4, "crf": 4}, f"torchrun infer_val wrote {n}")
+        print(f"DDP entry points: torchrun --nproc_per_node 1 (NCCL) "
+              f"wseg_tpu_torch.train (1 epoch of 16 + validation of 4, "
+              f"checkpoint {saved[-1]}) and wseg_tpu_torch.infer_val "
+              f"(seeded weights, {n} PNGs at threshold 0.0), beside the "
+              f"gloo ranks and this process's steps: "
+              f"{time.perf_counter() - t0:.2f} s ({card})", flush=True)
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = det
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+        for proc, out in runs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(10)
+            out.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return launches
+
+
 QCONV_IMAGE = (500, 375)
 QCONV_SLOTS = 8
 # (name, B, cin, H, W, cout, k, stride, dilation, bias) beside the
@@ -3608,13 +3951,16 @@ def main() -> int:
     ae_launches = timed(phase_ae_train, card)
     zoo_launches = timed(phase_zoo_train, card)
     seam_launches = timed(phase_seam_train, card)
+    ddp_launches = timed(phase_ddp, card)
     for entry in pamr_kernels:
         name = entry["name"]
         check(launches[name] > 0 and ae_launches[name] > 0
-              and zoo_launches[name] > 0 and seam_launches[name] > 0,
+              and zoo_launches[name] > 0 and seam_launches[name] > 0
+              and ddp_launches[name] > 0,
               f"a train slice never launched {name}")
         entry["launches"] = (launches[name] + ae_launches[name]
-                             + zoo_launches[name] + seam_launches[name])
+                             + zoo_launches[name] + seam_launches[name]
+                             + ddp_launches[name])
     print(f"main-path launches: fast CRF kernels {slice_launches} (flagship "
           f"slice) + {ae_serve_launches} (ae serving) + "
           f"{zoo_serve_launches} (zoo serving) + {crop_launches} (multicrop) "
@@ -3622,7 +3968,8 @@ def main() -> int:
           f"{exact_launches} (exact slice) + {crop_lattice} (multicrop "
           f"exact); PAMR kernels {launches} "
           f"(flagship steps) + {ae_launches} (ae steps) + {zoo_launches} "
-          f"(zoo steps) + {seam_launches} (SEAM steps)", flush=True)
+          f"(zoo steps) + {seam_launches} (SEAM steps) + {ddp_launches} "
+          f"(NCCL group of one)", flush=True)
     timed(phase_entry, card)
     timed(phase_ae_entry, card)
     timed(phase_zoo_entry, card)

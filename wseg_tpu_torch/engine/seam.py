@@ -17,7 +17,9 @@ forward's mask loss is folded into the logged ``loss_mask`` once the
 ER phase starts, and never optimised (as in the reference).  The live
 BatchNorms' running statistics come from the first forward alone: the
 second normalises with its batch's statistics and leaves them as they
-are (JAX keeps the first forward's ``batch_stats``).
+are (JAX keeps the first forward's ``batch_stats``).  In a process
+group the step shares ``backward_and_step``'s gradient average and its
+metrics are means over the ranks, as ``train_step``'s.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from wseg_tpu_torch.engine.train_loop import (
     backward_and_step,
     check_batch,
     expected_batch_keys,
+    global_metrics,
     normalise_batch_image,
 )
 from wseg_tpu_torch.losses import (
@@ -95,4 +98,4 @@ def seam_train_step(model, optimizer, batch: Dict[str, torch.Tensor],
             metrics["loss_mask"] = l_mask + er_on * l_mask2.mean()
         metrics["loss"] = loss
     backward_and_step(optimizer, loss, grad_clip)
-    return {k: v.detach() for k, v in metrics.items()}
+    return global_metrics(metrics)

@@ -29,7 +29,10 @@ the merged maps too, and each image's exact CRF runs as a job on a pool
 of two host threads (host lattice build, mean field on the device); at
 most four jobs are in flight.
 
-Left out against the JAX server: the device mesh (ROADMAP A10).
+A server owns one device (the model's) and has no ``mesh`` argument:
+where the JAX server shards one slot batch over the devices, the port
+runs one replica per device, each in a process of its own that serves
+its share of the images (``infer_val`` under ``torchrun``).
 """
 
 from __future__ import annotations

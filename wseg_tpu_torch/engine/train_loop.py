@@ -13,6 +13,11 @@ those the configuration implies, so a dropped key (e.g. the colour
 jitter of ``DATASET.DEVICE_JITTER``) raises instead of training without
 it.  Metrics come back as detached 0-d tensors so the caller decides
 when to synchronise.
+
+In a process group (``parallel/dist.py``) each rank steps on its rows
+of the global batch: the gradients are averaged over the ranks before
+the clip and the step, and the metrics come back as the means over the
+ranks, i.e. over the global batch.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from wseg_tpu_torch.losses import (
     self_supervision_loss,
 )
 from wseg_tpu_torch.ops.jitter import apply_colour_jitter
+from wseg_tpu_torch.parallel import dist
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -102,13 +108,22 @@ def train_step(model, optimizer, batch: Dict[str, torch.Tensor],
         loss, metrics = _losses(out, labels, criterion, attn_loss_weight,
                                 mask_loss_bce, float(mask_loss_on))
     backward_and_step(optimizer, loss, grad_clip)
-    return {k: v.detach() for k, v in metrics.items()}
+    return global_metrics(metrics)
+
+
+def global_metrics(metrics: Dict[str, torch.Tensor]):
+    """``metrics`` detached, as means over the ranks (one collective)."""
+    keys = sorted(metrics)
+    vals = dist.all_reduce_mean([metrics[k].detach() for k in keys])
+    return dict(zip(keys, vals))
 
 
 def backward_and_step(optimizer, loss: torch.Tensor,
                       grad_clip: float = 0.0) -> None:
     """Backward of ``loss`` and one ``optimizer`` step, in the
-    ``train.backward`` and ``train.optim`` ranges."""
+    ``train.backward`` and ``train.optim`` ranges; in a process group
+    the gradients are averaged over the ranks (one flat buffer) before
+    the clip, which then sees the global gradient."""
     with record_function("train.backward"):
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
@@ -120,6 +135,8 @@ def backward_and_step(optimizer, loss: torch.Tensor,
             for p in g["params"]:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
+        dist.all_reduce_grads(
+            [p for g in optimizer.param_groups for p in g["params"]])
         if grad_clip > 0.0:
             torch.nn.utils.clip_grad_norm_(
                 [p for g in optimizer.param_groups for p in g["params"]],

@@ -7,8 +7,19 @@ compute under autocast; ``int8`` is inference-only and raises), the
 validation-mAP / checkpoint-best cycle with a loss line every 10 steps.
 ``--profile-dir`` traces steps 10-20 of the first epoch with
 ``torch.profiler`` and writes a Chrome trace there.  Left out (absent,
-see ROADMAP.md queue A): the device mesh (one device per process) and
-the fixed-batch TensorBoard panels and scalars.  The ``ae``
+see ROADMAP.md queue A): the fixed-batch TensorBoard panels and
+scalars.
+
+Under ``torchrun`` (``parallel/dist.py``; the entry points make the
+process group) each rank trains on its rows of every global batch of
+``TRAIN.BATCH_SIZE`` on its own device, with the gradients averaged and
+the live BatchNorms' statistics taken over the ranks; a world size that
+does not divide the batch raises (JAX idles the devices left over).
+Rank 0 builds the kernels first, and alone prints and writes
+checkpoints; every rank validates its share and the metrics, scores and
+targets are gathered, so the mAP and the checkpoint score are one
+process's.  ``--resume`` loads on every rank onto its device, and
+``--profile-dir`` writes one trace per rank.  The ``ae``
 decoder's live BatchNorms update their running statistics in the train
 epoch and normalise with them in validation (``.eval()``); they are
 buffers of the model's state_dict, so checkpoints and ``--resume``
@@ -38,6 +49,7 @@ from wseg_tpu_torch.models.backbones.common import (
 )
 from wseg_tpu_torch.optim import make_optimizer
 from wseg_tpu_torch.opts import get_device
+from wseg_tpu_torch.parallel import dist
 from wseg_tpu_torch.utils.checkpoints import (
     Checkpoint,
     make_suffix,
@@ -55,18 +67,21 @@ def build_train_model(device, seed: int = 64):
     with the residual branches' last convs zeroed (SkipInit, as the JAX
     trainer's ``stabilize_scratch_init``); dropout, channel dropout and
     the stochastic gate draw from one generator on ``device`` seeded
-    with ``seed``."""
+    with ``seed`` + the process's rank (the weights are the same on
+    every rank, the draws are not)."""
     model = get_model(cfg.NET, num_classes=21, train=True)
     seeded_init_(model, torch.Generator().manual_seed(seed))
     pre = str(cfg.NET.PRE_WEIGHTS_PATH)
     if pre and os.path.isfile(pre):
         load_pretrained_backbone(model, pre)
     else:
-        print("WARNING: no pretrained weights at %r; applying scratch-init "
-              "stabilisation (zero residual-branch output convs)" % pre)
+        dist.print_main(
+            "WARNING: no pretrained weights at %r; applying scratch-init "
+            "stabilisation (zero residual-branch output convs)" % pre)
         stabilize_scratch_init(model, 0.0)
     model = model.to(device)
-    set_generator(model, torch.Generator(device=device).manual_seed(seed))
+    set_generator(model, torch.Generator(device=device).manual_seed(
+        seed + dist.rank()))
     return model
 
 
@@ -93,10 +108,51 @@ def write_profile(prof, device, profile_dir: str, epoch: int) -> str:
         torch.cuda.synchronize(device)
     prof.stop()
     os.makedirs(profile_dir, exist_ok=True)
-    path = os.path.join(profile_dir, f"trace_epoch{epoch}.json")
+    rank = f"_rank{dist.rank()}" if dist.initialized() else ""
+    path = os.path.join(profile_dir, f"trace_epoch{epoch}{rank}.json")
     prof.export_chrome_trace(path)
-    print("Profiler trace written to", profile_dir, flush=True)
+    print("Profiler trace written to", path, flush=True)
     return path
+
+
+def batch_divisor_error(batch_size: int, world: int) -> str:
+    """The refusal of a world size that does not divide the batch."""
+    divisors = [d for d in range(1, batch_size + 1) if batch_size % d == 0]
+    return (f"TRAIN.BATCH_SIZE {batch_size} (the global batch) is not "
+            f"divisible by the world size {world}: launch a number of "
+            f"processes that divides it ({', '.join(map(str, divisors))})")
+
+
+def merge_rank_validation(parts):
+    """One process's validation from every rank's share.
+
+    ``parts[r]`` is rank ``r``'s (rows of each validation batch, the
+    metric rows of its non-empty batches, sigmoid scores, targets).
+    Returns (``StatManager`` with one row a batch, each metric the mean
+    over the global batch's rows, scores, targets) with the rows in one
+    process's order: rank ``r``'s rows of batch ``j`` follow rank
+    ``r - 1``'s.  One part gives its own rows back exactly (n v / n is
+    v for a float32 metric v and a batch's n rows)."""
+    stat = StatManager()
+    preds, targets = [], []
+    row_at = [0] * len(parts)
+    off = [0] * len(parts)
+    for j in range(len(parts[0][0])):
+        sums, total = {}, 0
+        for r, (n_rows, rows, p, t) in enumerate(parts):
+            n = n_rows[j]
+            if not n:
+                continue
+            for k, v in rows[row_at[r]].items():
+                sums[k] = sums.get(k, 0.0) + n * v
+            row_at[r] += 1
+            total += n
+            preds.append(p[off[r]:off[r] + n])
+            targets.append(t[off[r]:off[r] + n])
+            off[r] += n
+        for k, v in sums.items():
+            stat.update_stats(k, v / total)
+    return stat, np.concatenate(preds), np.concatenate(targets)
 
 
 class DecTrainer:
@@ -107,12 +163,18 @@ class DecTrainer:
             # would learn while the backbone silently receives nothing
             raise ValueError(INT8_TRAIN_ERROR)
         self.device = get_device(args)
+        world = dist.world_size()
+        if int(cfg.TRAIN.BATCH_SIZE) % world:
+            raise ValueError(batch_divisor_error(int(cfg.TRAIN.BATCH_SIZE),
+                                                 world))
         self.start_epoch = int(getattr(args, "start_epoch", 0))
 
         self.trainloader = get_dataloader(args, cfg, cfg.DATASET.FILENAME)
         self.valloader = get_dataloader(args, cfg, "val_voc")
         self.model = build_train_model(self.device,
                                        int(getattr(args, "random_seed", 64)))
+        # the train step's PAMR kernels, built once for all ranks
+        dist.build_first(["pamr"], self.device)
         self.optimizer, self.param_labels = make_optimizer(cfg.NET,
                                                            self.model)
         self.device_jitter = bool(cfg.DATASET.DEVICE_JITTER)
@@ -127,12 +189,14 @@ class DecTrainer:
         self.checkpoint = Checkpoint(args.snapshot_dir, max_n=5)
         self.best_score = -1e16
         if getattr(args, "resume", None):
-            if self.checkpoint.load(args.resume, self.model, self.optimizer):
+            dist.barrier()
+            if self.checkpoint.load(args.resume, self.model, self.optimizer,
+                                    map_location=self.device):
                 epoch, score = parse_suffix(args.resume)
                 self.best_score = score
                 if self.start_epoch == 0:
                     self.start_epoch = epoch
-                print(f"Resumed from {args.resume} (epoch {epoch})")
+                dist.print_main(f"Resumed from {args.resume} (epoch {epoch})")
 
     def _device_batch(self, batch, train: bool):
         """The keys the configuration implies, moved to the device (the
@@ -142,21 +206,28 @@ class DecTrainer:
                 for k in keys if k in batch}
 
     @staticmethod
-    def _flush(pending, stat):
-        """One device-to-host transfer for the pending metric rows;
-        returns the last row."""
+    def _fetch(pending):
+        """One device-to-host transfer for the pending metric rows,
+        returned as dicts of floats."""
         if not pending:
-            return {}
+            return []
         keys = sorted(pending[0])
         vals = torch.stack([m[k].float() for m in pending
                             for k in keys]).cpu().tolist()
-        row = {}
-        for j in range(len(pending)):
-            row = {k: vals[j * len(keys) + i] for i, k in enumerate(keys)}
+        rows = [{k: vals[j * len(keys) + i] for i, k in enumerate(keys)}
+                for j in range(len(pending))]
+        pending.clear()
+        return rows
+
+    @staticmethod
+    def _flush(pending, stat):
+        """``_fetch`` the pending metric rows into ``stat``; returns the
+        last row."""
+        rows = DecTrainer._fetch(pending)
+        for row in rows:
             for k, v in row.items():
                 stat.update_stats(k, v)
-        pending.clear()
-        return row
+        return rows[-1] if rows else {}
 
     def _train_step(self, batch, epoch: int):
         """One step on device ``batch``: the mask loss off while ``epoch
@@ -169,7 +240,7 @@ class DecTrainer:
     def train_epoch(self, epoch: int):
         self.model.train()
         stat = StatManager()
-        timer = Timer("New Epoch: ")
+        timer = Timer("New Epoch: " if dist.is_main() else "")
         bs = int(cfg.TRAIN.BATCH_SIZE)
         pending = []
         profile_dir = (getattr(self.args, "profile_dir", "")
@@ -188,43 +259,58 @@ class DecTrainer:
                 msg = "Epoch[{}] Loss [{:04d}]: ".format(epoch, i)
                 for k in sorted(last):
                     msg += "{}: {:.4f} | ".format(k, last[k])
+                # bs is the global batch: images a second of all ranks
                 ips = (i + 1) * bs / timer.get_stage_elapsed()
-                print(msg + " | Im/Sec: {:.1f}".format(ips), flush=True)
+                dist.print_main(msg + " | Im/Sec: {:.1f}".format(ips),
+                                flush=True)
         if prof is not None:  # an epoch shorter than the traced steps
             write_profile(prof, self.device, profile_dir, epoch)
         self._flush(pending, stat)
         for k in stat.vals:
-            print("{}: {:4.3f}".format(k, stat.summarize_key(k)))
+            dist.print_main("{}: {:4.3f}".format(k, stat.summarize_key(k)))
 
     def validation(self, epoch: int, checkpoint: bool = False) -> float:
+        """The validation losses and mAP (over every rank's rows); with
+        ``checkpoint``, ``checkpoint_best`` of 1 - the loss."""
         self.model.eval()
-        stat = StatManager()
-        pending, scores, targets = [], [], []
+        n_rows, rows, pending, scores, targets = [], [], [], [], []
         for i, batch in enumerate(self.valloader):
+            if batch is None:   # no row of a ragged last batch here
+                n_rows.append(0)
+                continue
             db = self._device_batch(batch, train=False)
             metrics, cls = eval_step(self.model, db, **self.loss_kw)
+            n_rows.append(len(batch["name"]))
             pending.append(metrics)
             scores.append(cls.float())
             targets.append(batch["labels"].numpy())
             if (i + 1) % 10 == 0:
-                self._flush(pending, stat)
-        self._flush(pending, stat)
+                rows += self._fetch(pending)
+        rows += self._fetch(pending)
         self.model.train()
 
-        preds = torch.sigmoid(torch.cat(scores)).cpu().numpy()
-        targets = np.concatenate(targets)
+        nc = int(cfg.TEST.NUM_CLASSES) - 1
+        preds = (torch.sigmoid(torch.cat(scores)).cpu().numpy() if scores
+                 else np.zeros((0, nc), np.float32))
+        targets = (np.concatenate(targets) if targets
+                   else np.zeros((0, nc), np.float32))
+        stat, preds, targets = merge_rank_validation(
+            dist.all_gather_objects((n_rows, rows, preds, targets)))
         mean_ap = float(np.mean(average_precision(targets, preds)))
-        print("mAP: {:4.3f}".format(mean_ap))
+        dist.print_main("mAP: {:4.3f}".format(mean_ap))
         if checkpoint and epoch >= int(cfg.TRAIN.PRETRAIN):
             self.checkpoint_best(1.0 - stat.summarize_key("loss"), epoch)
         return mean_ap
 
     def checkpoint_best(self, score: float, epoch: int) -> bool:
-        """Save when the proxy score (1 - validation loss) improves."""
+        """Save when the proxy score (1 - validation loss) improves; in a
+        process group rank 0 alone writes (every rank keeps the best
+        score)."""
         if score <= self.best_score:
             return False
         self.best_score = score
-        suffix = make_suffix(epoch, score)
-        self.checkpoint.checkpoint(suffix, self.model, self.optimizer)
-        print("Saved checkpoint", suffix)
+        if dist.is_main():
+            suffix = make_suffix(epoch, score)
+            self.checkpoint.checkpoint(suffix, self.model, self.optimizer)
+            print("Saved checkpoint", suffix)
         return True

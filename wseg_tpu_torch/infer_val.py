@@ -23,6 +23,13 @@ permutohedral mean field).  Otherwise each image goes through the
 per-image ``InferenceEngine`` (the model on ``--device``, the merge on
 the host or the device) and ``ResultWriter.save`` with the host C++
 dense CRF.
+
+Under ``torchrun`` (``python -m torch.distributed.run --nproc_per_node
+N``) each rank is one serving replica on its own device
+(``cuda:$LOCAL_RANK``): it serves ``entries[rank::N]`` with its own
+server of ``TEST.BATCH_SIZE`` slots and writes those images' PNGs
+(labels are per image, so the ranks' files together are one process's).
+Rank 0 builds the kernels first and prints the progress.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ import torch
 
 from wseg_tpu_torch.config import cfg, cfg_from_file, cfg_from_list
 from wseg_tpu_torch.opts import get_arguments, get_device
+from wseg_tpu_torch.parallel import dist
 
 # (prospect_thresh, heatmap, scoremap, crf) per writer; the first
 # TEST_ID entries are active
@@ -109,6 +117,28 @@ def main(argv):
     if args.set_cfgs:
         cfg_from_list(args.set_cfgs)
 
+    device = get_device(args)
+    with dist.process_group(device):
+        _serve(args, device)
+
+
+def kernel_sources(batched: bool) -> list:
+    """The native libraries a serving run of ``cfg`` loads: the fast or
+    the exact CRF's on the batched path, the host C++ CRF's on the
+    per-image one, and the int8 convs'."""
+    if not batched:
+        names = ["permutohedral_host"]
+    elif str(cfg.TEST.CRF_MODE) == "exact":
+        names = ["crf_lattice", "permutohedral_host"]
+    else:
+        names = ["crf_bilateral", "crf_gauss"]
+    if str(cfg.NET.DTYPE) == "int8":
+        names.append("qconv")
+    return names
+
+
+def _serve(args, device):
+    """This rank's share of ``--infer-list``, served and written."""
     from wseg_tpu_torch.data.pascal_voc import (
         check_split_integrity,
         labels_from_mask,
@@ -116,11 +146,19 @@ def main(argv):
     )
 
     nc = int(cfg.TEST.NUM_CLASSES)
-    model = load_serving_model(args, get_device(args))
+    rank, world = dist.rank(), dist.world_size()
     entries = read_filelist(args.infer_list, cfg.TEST.DATA_ROOT)
     check_split_integrity(
         os.path.splitext(os.path.basename(args.infer_list))[0], len(entries))
     n_total = len(entries)
+    entries = entries[rank::world]
+    method = str(cfg.TEST.METHOD)
+    batched = (method in ("multiscale", "multicrop")
+               and bool(cfg.TEST.DEVICE_MERGE)
+               and bool(cfg.TEST.UINT8_TRANSFER)
+               and not any(HEATMAPS[i] or SCOREMAPS[i] for i in TEST_ID))
+    dist.build_first(kernel_sources(batched), device)
+    model = load_serving_model(args, device)
 
     def read_entry(img_path, mask_path):
         from PIL import Image
@@ -137,21 +175,19 @@ def main(argv):
         return image, gt_mask, gt_labels
 
     def progress(i):
+        # rank 0's i-th image is about the (i * world)-th of the list
         if i % 100 == 0:
-            print(f"[{i}/{n_total}]", flush=True)
+            dist.print_main(f"[{i * world}/{n_total}]", flush=True)
 
-    method = str(cfg.TEST.METHOD)
     n_workers = max(1, int(args.workers or 4))
     with ThreadPoolExecutor(n_workers) as pool:
-        if (method in ("multiscale", "multicrop")
-                and bool(cfg.TEST.DEVICE_MERGE)
-                and bool(cfg.TEST.UINT8_TRANSFER)
-                and not any(HEATMAPS[i] or SCOREMAPS[i] for i in TEST_ID)):
+        if batched:
             _serve_batched(args, model, method, entries, read_entry, pool,
                            n_workers, progress)
         else:
             _serve_per_image(args, model, entries, read_entry, pool,
                              n_workers, progress)
+    dist.barrier()
 
 
 def _serve_batched(args, model, method, entries, read_entry, pool,

@@ -39,6 +39,7 @@ from wseg_tpu_torch.ops.qconv import (
     quantize_act,
     quantize_weight,
 )
+from wseg_tpu_torch.parallel import dist
 
 # backbone quantization modes of the int8 serving mode (NET.DTYPE int8):
 # per-image dynamic activation scales, or calibrated per-input-channel
@@ -133,6 +134,16 @@ class BatchNorm(nn.Module):
     leaves the running ones as they are (the SEAM step's second
     forward, whose statistics Flax discards).
     ``affine=False`` has no weight and bias.
+
+    In a process group of more than one rank (``parallel/dist.py``) a
+    ``.train()`` forward normalises with the statistics of the global
+    batch, as GSPMD computes them under JAX's sharded ``jit``: the
+    per-channel sum, sum of squares and count are all-reduced over the
+    ranks (``dist.all_reduce_sum``: the backward sums their gradients
+    over the ranks too)
+    and the variance is Flax's E[x^2] - E[x]^2, both sums accumulated in
+    float64 (in float32 the difference cancels to ~1e-6 of the
+    statistics); the running averages take the same global statistics.
     """
 
     update_running = True
@@ -154,14 +165,38 @@ class BatchNorm(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
+        if dist.world_size() > 1:
+            return self._global_forward(x)
         if self.update_running:
-            self._update_running(x)
+            with torch.no_grad():
+                var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
+                                           correction=0)
+            self._update_running(mean, var)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                             self.eps)
 
+    def _global_forward(self, x: torch.Tensor) -> torch.Tensor:
+        c = x.shape[1]
+        xf = x.float()
+        f64 = torch.float64
+        count = torch.full((1,), float(x.numel() // c), dtype=f64,
+                           device=x.device)
+        total = dist.all_reduce_sum(torch.cat([
+            xf.sum(dim=(0, 2, 3), dtype=f64),
+            (xf * xf).sum(dim=(0, 2, 3), dtype=f64), count]))
+        mean = total[:c] / total[-1]
+        var = (total[c:2 * c] / total[-1] - mean * mean).clamp_min(0.0)
+        mean, var = mean.float(), var.float()
+        if self.update_running:
+            self._update_running(mean.detach(), var.detach())
+        shape = (1, c, 1, 1)
+        y = (xf - mean.view(shape)) * torch.rsqrt(var + self.eps).view(shape)
+        if self.weight is not None:
+            y = y * self.weight.view(shape) + self.bias.view(shape)
+        return y.to(x.dtype)
+
     @torch.no_grad()
-    def _update_running(self, x: torch.Tensor) -> None:
-        var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), correction=0)
+    def _update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
         m = self.momentum
         self.running_mean.mul_(m).add_(mean.to(self.running_mean.dtype),
                                        alpha=1.0 - m)

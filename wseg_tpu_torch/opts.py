@@ -68,14 +68,41 @@ def check_global_arguments(args):
 
 def get_device(args):
     """The ``--device`` of ``args`` as a torch.device; raises if it is a
-    CUDA device and no card is present (no fallback to the CPU)."""
+    CUDA device and no card is present (no fallback to the CPU).
+
+    Under ``torchrun`` (``LOCAL_RANK`` in the environment) ``--device
+    cuda`` means ``cuda:$LOCAL_RANK``; it raises when that card does not
+    exist (no fallback to another card) and when a world of several
+    processes names one card for all of them.  A CUDA device becomes
+    the process's current device, on which the kernels build and
+    launch."""
     import torch
 
+    from wseg_tpu_torch.parallel.dist import launch_env
+
     device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
+    if device.type != "cuda":
+        return device
+    if not torch.cuda.is_available():
         raise RuntimeError(
             f"--device {args.device}: torch.cuda.is_available() is False; "
             "pass --device cpu to run on the CPU")
+    env = launch_env()
+    if env is not None:
+        _, world, local = env
+        if device.index is not None and world > 1:
+            raise ValueError(
+                f"--device {args.device} under torchrun with {world} "
+                "processes: pass --device cuda, which is cuda:$LOCAL_RANK")
+        if device.index is None:
+            n = torch.cuda.device_count()
+            if local >= n:
+                raise RuntimeError(
+                    f"LOCAL_RANK {local} but torch.cuda.device_count() is "
+                    f"{n}: launch at most {n} processes a node")
+            device = torch.device("cuda", local)
+    if device.index is not None:
+        torch.cuda.set_device(device)
     return device
 
 

@@ -23,7 +23,8 @@ import torch
 from wseg_tpu_torch.config import cfg, cfg_from_file, cfg_from_list
 from wseg_tpu_torch.engine.seam import seam_train_step
 from wseg_tpu_torch.engine.trainer import DecTrainer
-from wseg_tpu_torch.opts import get_arguments
+from wseg_tpu_torch.opts import get_arguments, get_device
+from wseg_tpu_torch.parallel import dist
 from wseg_tpu_torch.utils.timer import Timer
 
 
@@ -46,25 +47,27 @@ def main(argv):
     cfg_from_file(args.cfg_file)
     if args.set_cfgs:
         cfg_from_list(args.set_cfgs)
-    print("Config:\n", cfg)
+    dist.print_main("Config:\n", cfg)
     # float32 products stay float32 (bfloat16 compute is autocast's)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    trainer = SEAMTrainer(args)
-    timer = Timer()
+    with dist.process_group(get_device(args)):
+        trainer = SEAMTrainer(args)
+        timer = Timer()
 
-    def time_call(func, msg, *a, **kw):
-        timer.reset_stage()
-        func(*a, **kw)
-        print(msg + " {:3.2f}m".format(timer.get_stage_elapsed() / 60.0))
+        def time_call(func, msg, *a, **kw):
+            timer.reset_stage()
+            func(*a, **kw)
+            dist.print_main(msg + " {:3.2f}m".format(
+                timer.get_stage_elapsed() / 60.0))
 
-    for epoch in range(trainer.start_epoch,
-                       int(cfg.TRAIN.NUM_EPOCHS) + 1):
-        print("Epoch >>> ", epoch, flush=True)
-        time_call(trainer.validation, "Validation /   Val: ", epoch,
-                  checkpoint=True)
-        time_call(trainer.train_epoch, "Train epoch: ", epoch)
+        for epoch in range(trainer.start_epoch,
+                           int(cfg.TRAIN.NUM_EPOCHS) + 1):
+            dist.print_main("Epoch >>> ", epoch, flush=True)
+            time_call(trainer.validation, "Validation /   Val: ", epoch,
+                      checkpoint=True)
+            time_call(trainer.train_epoch, "Train epoch: ", epoch)
     return trainer
 
 

@@ -71,19 +71,20 @@ class Checkpoint:
         return removed
 
     def load(self, suffix: str, model: torch.nn.Module,
-             optimizer: torch.optim.Optimizer) -> bool:
+             optimizer: torch.optim.Optimizer, map_location) -> bool:
         """Load ``suffix`` into ``model`` (strict) and, when its file
-        exists, ``optimizer``.  False if the model file is missing."""
+        exists, ``optimizer``, reading the tensors onto ``map_location``.
+        False if the model file is missing."""
         mf = model_file(self.path, suffix)
         if not os.path.isfile(mf):
             print("File not found:", mf)
             return False
-        model.load_state_dict(torch.load(mf, map_location="cpu",
+        model.load_state_dict(torch.load(mf, map_location=map_location,
                                          weights_only=True), strict=True)
         of = opt_file(self.path, suffix)
         if os.path.isfile(of):
-            optimizer.load_state_dict(torch.load(of, map_location="cpu",
-                                                 weights_only=True))
+            optimizer.load_state_dict(torch.load(
+                of, map_location=map_location, weights_only=True))
         if suffix not in self.checkpoints:
             self.checkpoints.insert(0, suffix)
         return True
