@@ -281,39 +281,45 @@ def _flax_batchnorm(spec):
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """The directory of the processes' results, the spec and the JAX
-    references; the checkpoints and PNGs are removed afterwards."""
+    references; the directory (checkpoints, PNGs, ~0.4 GB result files)
+    is removed afterwards, also when the processes fail."""
     from wseg_tpu.parallel import make_mesh
     from wseg_tpu_torch.utils.convert import state_dict_from_jax
 
     out = str(tmp_path_factory.mktemp("parallel"))
-    procs = ranks.launch(out)     # they start up while the spec is made
     try:
-        jm, variables, flagship = _flagship_spec()
-        jdec, dvars, decoder = _decoder_spec()
-        spec = {"flagship": flagship, "decoder": decoder,
-                "batchnorm": _batchnorm_spec(), "cli": _cli_spec(out)}
-        ranks.publish(spec, out)
-    except BaseException:
-        ranks.stop(procs)
-        raise
-    try:
-        mesh = make_mesh(n_data=2, devices=jax.devices()[:2])
-        with pytest.MonkeyPatch.context() as mp:
-            _no_jax_dropout(mp)
-            jax_params, jax_metrics = _jax_flagship_on_mesh(
-                jm, variables, flagship["batch"])
-            refs = {"decoder": (_jax_decoder(jdec, dvars, decoder),
-                                _jax_decoder(jdec, dvars, decoder, mesh),
-                                _jax_decoder_f64(jdec, dvars, decoder)),
-                    "batchnorm": _flax_batchnorm(spec["batchnorm"])}
-        after = state_dict_from_jax({"params": jax_params})
-        before = flagship["state_dict"]
-        refs["flagship"] = ({k: v - before[k] for k, v in after.items()},
-                            jax_metrics)
+        procs = ranks.launch(out)     # they start while the spec is made
+        try:
+            spec = {"batchnorm": _batchnorm_spec(), "cli": _cli_spec(out)}
+            ranks.publish(spec, out, "spec_cli")
+            jm, variables, flagship = _flagship_spec()
+            jdec, dvars, decoder = _decoder_spec()
+            models = {"flagship": flagship, "decoder": decoder}
+            ranks.publish(models, out, "spec_models")
+            spec.update(models)
+        except BaseException:
+            ranks.stop(procs)
+            raise
+        try:
+            mesh = make_mesh(n_data=2, devices=jax.devices()[:2])
+            with pytest.MonkeyPatch.context() as mp:
+                _no_jax_dropout(mp)
+                jax_params, jax_metrics = _jax_flagship_on_mesh(
+                    jm, variables, flagship["batch"])
+                refs = {"decoder": (
+                            _jax_decoder(jdec, dvars, decoder),
+                            _jax_decoder(jdec, dvars, decoder, mesh),
+                            _jax_decoder_f64(jdec, dvars, decoder)),
+                        "batchnorm": _flax_batchnorm(spec["batchnorm"])}
+            after = state_dict_from_jax({"params": jax_params})
+            before = flagship["state_dict"]
+            refs["flagship"] = ({k: v - before[k] for k, v in after.items()},
+                                jax_metrics)
+        finally:
+            ranks.collect(procs)
+        yield {"spec": spec, "ref": refs, "out": out}
     finally:
-        ranks.collect(procs)
-    yield {"spec": spec, "ref": refs, "out": out}
-    shutil.rmtree(out, ignore_errors=True)
+        shutil.rmtree(out, ignore_errors=True)
 
 
 def _results(runs, case):

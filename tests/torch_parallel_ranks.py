@@ -5,8 +5,8 @@ test module's helpers would pull JAX in).  ``launch`` starts four
 processes at once (``PROCESSES``): two ranks of a ``gloo`` group
 (``file://`` rendezvous, so concurrent test workers never share a
 port), one process without a group and a group of one, each with two
-threads.  They wait for the spec that the test then writes
-(``publish``), run its cases and save each case's results as
+threads.  They wait for the spec's two parts that the test then
+writes (``publish``), run its cases and save each case's results as
 ``<case>_<tag>.pt`` (``load`` reads one).  ``collect`` joins them.
 A rank takes its rows of each global batch with
 ``parallel.dist.rank_rows``, as the loader's sampler does.
@@ -248,25 +248,27 @@ def case_infer_val(spec):
     return {}
 
 
-def _wait_for(path: str) -> None:
+def _spec(out: str, part: str) -> dict:
+    """``out/<part>.pt`` once ``publish`` has written it."""
+    path = os.path.join(out, part + ".pt")
     deadline = time.monotonic() + TIMEOUT_S
     while not os.path.exists(path):
         if time.monotonic() > deadline:
             raise TimeoutError(f"no {path}")
         time.sleep(0.05)
+    return torch.load(path, weights_only=False)
 
 
 def run(rank: int, world: int, out: str, group: bool) -> None:
-    """One process: wait for ``out/spec.pt``, join a ``gloo`` group of
-    ``world`` if ``group``, run the cases and save each one's results as
-    ``<case>_<tag>.pt`` under ``out``.  A group of one runs the flagship
-    steps only (tag ``group1``)."""
+    """One process: join a ``gloo`` group of ``world`` if ``group``, run
+    the cases of the spec's two parts as ``publish`` writes them (the
+    CLI and BatchNorm cases first, while the test still builds the
+    models' part) and save each one's results as ``<case>_<tag>.pt``
+    under ``out``.  A group of one runs the flagship steps only (tag
+    ``group1``)."""
     torch.set_num_threads(THREADS)
     from wseg_tpu_torch.parallel import dist
 
-    spec_path = os.path.join(out, "spec.pt")
-    _wait_for(spec_path)
-    spec = torch.load(spec_path, weights_only=False)
     tag = f"w{world}_r{rank}" if world > 1 or not group else "group1"
 
     def save(case, res):
@@ -275,6 +277,12 @@ def run(rank: int, world: int, out: str, group: bool) -> None:
     if group:
         dist.init(rank, world, "gloo", init_method="file://" + os.path.join(
             out, f"rendezvous_{world}"))
+    if tag != "group1":
+        first = _spec(out, "spec_cli")
+        save("validation", case_validation(first["cli"]))
+        save("infer_val", case_infer_val(first["cli"]))
+        save("batchnorm", case_batchnorm(first["batchnorm"]))
+    spec = _spec(out, "spec_models")
     save("flagship", case_steps(spec["flagship"], "CAM_CASA_WGAP_tf",
                                 margins=not group))
     if tag != "group1":
@@ -282,10 +290,7 @@ def run(rank: int, world: int, out: str, group: bool) -> None:
                                margins=False))
         save("seam", case_steps(spec["flagship"], "CAM_CASA_WGAP_tf",
                                 seam=True, margins=False))
-        save("batchnorm", case_batchnorm(spec["batchnorm"]))
         save("decoder", case_decoder(spec["decoder"]))
-        save("validation", case_validation(spec["cli"]))
-        save("infer_val", case_infer_val(spec["cli"]))
     dist.destroy()
 
 
@@ -296,7 +301,7 @@ PROCESSES = ((0, 2, True), (1, 2, True), (0, 1, False), (0, 1, True))
 
 def launch(out: str):
     """Start the processes of ``PROCESSES``; they wait for ``publish``
-    to write the spec.  Returns the processes."""
+    to write the spec's parts.  Returns the processes."""
     ctx = multiprocessing.get_context("spawn")
     procs = [ctx.Process(target=run, args=(r, w, out, g))
              for r, w, g in PROCESSES]
@@ -305,11 +310,13 @@ def launch(out: str):
     return procs
 
 
-def publish(spec: dict, out: str) -> None:
-    """Write the spec the processes wait for (whole, then renamed)."""
-    tmp = os.path.join(out, "spec.pt.tmp")
-    torch.save(spec, tmp)
-    os.replace(tmp, os.path.join(out, "spec.pt"))
+def publish(part: dict, out: str, name: str) -> None:
+    """Write the spec's part ``name`` (``spec_cli``: ``cli`` and
+    ``batchnorm``; ``spec_models``: ``flagship`` and ``decoder``) that
+    the processes wait for, whole, then renamed."""
+    tmp = os.path.join(out, name + ".pt.tmp")
+    torch.save(part, tmp)
+    os.replace(tmp, os.path.join(out, name + ".pt"))
 
 
 def stop(procs) -> None:

@@ -139,11 +139,11 @@ class BatchNorm(nn.Module):
     ``.train()`` forward normalises with the statistics of the global
     batch, as GSPMD computes them under JAX's sharded ``jit``: the
     per-channel sum, sum of squares and count are all-reduced over the
-    ranks (``dist.all_reduce_sum``: the backward sums their gradients
-    over the ranks too)
-    and the variance is Flax's E[x^2] - E[x]^2, both sums accumulated in
-    float64 (in float32 the difference cancels to ~1e-6 of the
-    statistics); the running averages take the same global statistics.
+    ranks (``dist.all_reduce_sum``, whose backward sums the gradients
+    over the ranks too) and the variance is Flax's E[x^2] - E[x]^2,
+    both sums accumulated in float64 (in float32 the difference cancels
+    to ~1e-6 of the statistics); the running averages take the same
+    global statistics.
     """
 
     update_running = True
@@ -176,6 +176,7 @@ class BatchNorm(nn.Module):
                             self.eps)
 
     def _global_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The train-mode forward on the statistics over every rank."""
         c = x.shape[1]
         xf = x.float()
         f64 = torch.float64
