@@ -32,10 +32,12 @@ from the repository root.  Phases, each printing its own lines:
    (``ae``) model serves the same images under ``voc_resnet50.yaml``'s
    TEST settings (scales 1/0.75/1.25/1.5 + flip on the 768 canvas):
    label maps, finite scores, the CRF kernels' launch counts, images/s;
-   then the zoo's classic-CAM ``bsl`` (ResNet-50, ``voc_resnet50.yaml``)
-   and multi-level ``CAM_MF`` (WRN38, ``voc_resnet38.yaml``) the same
-   way, each with the fast CRF on one image's merged map, kernels on the
-   card against the plain versions on the CPU (float32, max |dQ|); then
+   then the zoo's classic-CAM ``bsl`` and two-window ``tf_v10``
+   (ResNet-50, ``voc_resnet50.yaml``), multi-level ``CAM_MF`` and
+   cross-query talking-heads ``tf_v9`` (WRN38, ``voc_resnet38.yaml``)
+   the same way, each with the fast CRF on one image's merged map,
+   kernels on the card against the plain versions on the CPU (float32,
+   max |dQ|); then
    the flagship in int8 (``NET.DTYPE int8``), dynamic and static (the
    statistics from ``quant_calibrate``'s CLI on the same images and
    weights), each in turns with bf16: images/s, the int8 kernels'
@@ -64,10 +66,12 @@ from the repository root.  Phases, each printing its own lines:
    BatchNorms' running statistics moved (float32, finite), one launch of
    each PAMR kernel a step, the (B, 81, 81, 21) refined masks of the
    kernels against the plain path; median step ms and host issue ms;
-   then the model zoo (``ZOO_TRAIN``): each ported head on the backbone
+   then the model zoo (``ZOO_TRAIN``): each registry head on the backbone
    ``tests/test_reference_parity.py`` pairs it with at that backbone's
-   config, plus ``CAM_CASA_WGAP_v6`` on ResNet-101, ``v5`` on VGG16 and
-   ``ae`` on WRN38, 2 warm-up and 2 timed steps each (the attention loss
+   config (``tf_v3``, ``tf_v9``, ``tf_v9_2`` on WRN38, ``tf_v4``-``tf_v8``
+   and ``tf_v10`` on ResNet-50 among them), plus ``CAM_CASA_WGAP_v6`` on
+   ResNet-101, ``v5`` on VGG16 and ``ae`` on WRN38, 2 warm-up and 2
+   timed steps each (the attention loss
    at weight 20 where the head has one; ``v4``'s (B, C-1) labels
    refused, as ROADMAP C2 records): step and host issue ms, peak memory,
    losses, trained tensors moved; for the PAMR heads the refined masks
@@ -125,8 +129,9 @@ from the repository root.  Phases, each printing its own lines:
    and with ``TEST.DEVICE_MERGE False`` (the per-image path), the last
    two scored by ``eval_seg``; then the same ``train`` ->
    ``infer_val`` -> ``wseg_tpu_torch.eval_seg`` on ``voc_resnet50.yaml``,
-   whose mIoU line must be printed and finite, and on
-   ``voc_resnet38.yaml`` with ``NET.MODEL CAM_CASA_WGAP_v6``; then
+   whose mIoU line must be printed and finite, on ``voc_resnet38.yaml``
+   with ``NET.MODEL CAM_CASA_WGAP_v6`` and on ``voc_resnet50.yaml`` with
+   ``NET.MODEL CAM_CASA_WGAP_tf_v7``; then
    ``wseg_tpu_torch.train_SEAM`` (validation, then one epoch) writes a
    checkpoint, from which ``wseg_tpu_torch.infer_cam`` (GradCAM) writes
    the 4 validation images' PNGs, the float32 GradCAM and FullGrad maps
@@ -2332,21 +2337,29 @@ def phase_ae_train(card: str) -> dict:
     return launches
 
 
-# the model zoo (ROADMAP A5(b)): each spec trained on the backbone that
-# tests/test_reference_parity.py pairs it with, at that backbone's
+# the model zoo (ROADMAP A5(b), A5(c)): each spec trained on the backbone
+# that tests/test_reference_parity.py pairs it with, at that backbone's
 # shipped config; then CAM_CASA_WGAP_v6 on ResNet-101, v5 on VGG16 and
 # ae on WRN38
 ZOO_TRAIN = [(name, "voc_resnet50.yaml") for name in (
-    "bsl", "CAM_SA", "CAM_SA_WGAP", "CAM_WGAP_v3", "CAM_CASA_WGAP_tf_v2")] + [
+    "bsl", "CAM_SA", "CAM_SA_WGAP", "CAM_WGAP_v3", "CAM_CASA_WGAP_tf_v2",
+    "CAM_CASA_WGAP_tf_v4", "CAM_CASA_WGAP_tf_v5", "CAM_CASA_WGAP_tf_v6",
+    "CAM_CASA_WGAP_tf_v7", "CAM_CASA_WGAP_tf_v8",
+    "CAM_CASA_WGAP_tf_v10")] + [
     (name, "voc_resnet38.yaml") for name in (
         "CAM_CASA", "CAM_CASA_WGAP", "CAM_MF", "CAM_MF_v2",
         "CAM_CASA_WGAP_v2", "CAM_CASA_WGAP_v3", "CAM_CASA_WGAP_v4",
-        "CAM_CASA_WGAP_v5", "CAM_CASA_WGAP_v6", "CAM_CASA_WGAP_PCM")] + [
+        "CAM_CASA_WGAP_v5", "CAM_CASA_WGAP_v6", "CAM_CASA_WGAP_PCM",
+        "CAM_CASA_WGAP_tf_v3", "CAM_CASA_WGAP_tf_v9",
+        "CAM_CASA_WGAP_tf_v9_2")] + [
     ("CAM_CASA_WGAP_v6", "voc_resnet101.yaml"),
     ("CAM_CASA_WGAP_v5", "voc_vgg16.yaml"), ("ae", "voc_resnet38.yaml")]
 ZOO_WARMUP_STEPS, ZOO_TIMED_STEPS = 2, 2
-# the classic-CAM and multi-level models served through the fast CRF
-ZOO_SERVE = (("bsl", "voc_resnet50.yaml"), ("CAM_MF", "voc_resnet38.yaml"))
+# served through the fast CRF: the classic-CAM and multi-level models,
+# the cross-query talking-heads tf_v9 and the two-window tf_v10
+ZOO_SERVE = (("bsl", "voc_resnet50.yaml"), ("CAM_MF", "voc_resnet38.yaml"),
+             ("CAM_CASA_WGAP_tf_v9", "voc_resnet38.yaml"),
+             ("CAM_CASA_WGAP_tf_v10", "voc_resnet50.yaml"))
 # the fast CRF's Q, float32 kernels on the card against the plain
 # versions on the CPU, 10 mean-field iterations
 CRF_Q_TOL = 1e-4
@@ -2709,10 +2722,12 @@ def phase_ae_serve(card: str) -> dict:
 
 
 def phase_zoo_serve(card: str) -> dict:
-    """The classic-CAM ``bsl`` on ResNet-50 (``voc_resnet50.yaml``) and
-    the multi-level ``CAM_MF`` on WRN38 (``voc_resnet38.yaml``) serve the
-    8 images through the fast CRF, each CRF also held against its plain
-    version on one image's merged map; returns the summed launches."""
+    """The ``ZOO_SERVE`` models (the classic-CAM ``bsl`` and the
+    two-window ``tf_v10`` on ResNet-50 under ``voc_resnet50.yaml``, the
+    multi-level ``CAM_MF`` and the cross-query talking-heads ``tf_v9`` on
+    WRN38 under ``voc_resnet38.yaml``) serve the 8 images through the
+    fast CRF, each CRF also held against its plain version on one
+    image's merged map; returns the summed launches."""
     total = {}
     for name, cfg_name in ZOO_SERVE:
         got = serve_slice(name, cfg_name, card, model_name=name,
@@ -2800,9 +2815,11 @@ def phase_ae_entry(card: str) -> None:
 
 
 def phase_zoo_entry(card: str) -> None:
-    """``CAM_CASA_WGAP_v6`` on ``voc_resnet38.yaml``."""
-    entry_journey("CAM_CASA_WGAP_v6", "voc_resnet38.yaml", card,
-                  ("NET.MODEL", "CAM_CASA_WGAP_v6"))
+    """``CAM_CASA_WGAP_v6`` on ``voc_resnet38.yaml`` and the talking-heads
+    ``CAM_CASA_WGAP_tf_v7`` on ``voc_resnet50.yaml``."""
+    for name, cfg_name in (("CAM_CASA_WGAP_v6", "voc_resnet38.yaml"),
+                           ("CAM_CASA_WGAP_tf_v7", "voc_resnet50.yaml")):
+        entry_journey(name, cfg_name, card, ("NET.MODEL", name))
 
 
 SEAM_WARMUP_STEPS, SEAM_TIMED_STEPS = 2, 6

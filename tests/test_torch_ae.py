@@ -745,12 +745,20 @@ def test_get_model_builds_ae_and_raises_elsewhere():
         m = get_model(cfg.NET)
         assert isinstance(m, StageNet) and not m.training
         assert m.sg.psi == 0.25
-    for model, bb in (("CAM_CASA_WGAP_tf_v4", "resnet50"),
-                      ("CAM_CASA_WGAP_tf_v5", "resnet38"),
-                      ("CAM_CASA_WGAP_tf_v9", "resnet38")):
+    # the transformer heads build too, with the reference's modules
+    for model, bb, names in (
+            ("CAM_CASA_WGAP_tf_v4", "resnet50", {"selfattn.q.weight"}),
+            ("CAM_CASA_WGAP_tf_v5", "resnet38", {"selfattn.qkv.weight"}),
+            ("CAM_CASA_WGAP_tf_v9", "resnet38",
+             {"fc6.weight", "selfattn.pre_softmax_proj.weight"})):
         cfg.NET.MODEL, cfg.NET.BACKBONE = model, bb
-        with pytest.raises(NotImplementedError, match=r"A5\(c\)"):
-            get_model(cfg.NET)
+        m = get_model(cfg.NET)
+        assert m.spec.name == model and not m.training
+        assert names <= set(m.state_dict()), model
+    # and a key outside wseg_tpu's registry raises
+    cfg.NET.MODEL = "CAM_CASA_WGAP_tf_v11"
+    with pytest.raises(NotImplementedError, match="Unknown model"):
+        get_model(cfg.NET)
 
 
 def test_scratch_init_zeroes_resnet_conv3_only():

@@ -63,11 +63,21 @@ def test_bfloat16_model_runs_in_bfloat16():
                                        ("MODEL", "CAM_CASA_WGAP_tf_v10"),
                                        ("MODEL", "CAM_CASA_WGAP_tf_v3")])
 def test_unported_configurations_raise(key, value):
+    """These configurations of the flagship's WRN38 build and serve: a
+    test-mode forward at 64 px gives (1, 20) scores and softmax masks
+    of the image's size."""
     from wseg_tpu_torch.config import cfg
     from wseg_tpu_torch.models import get_model
 
     cfg.NET.MODEL = "CAM_CASA_WGAP_tf"
     cfg.NET.BACKBONE = "resnet38"
     cfg.NET[key] = value
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        get_model(cfg.NET)
+    model = get_model(cfg.NET)
+    assert model.spec.name == value
+    x = torch.from_numpy(
+        np.random.RandomState(5).randn(1, 64, 64, 3).astype(np.float32))
+    with torch.no_grad():
+        out = model(x)
+    assert out.cls.shape == (1, 20) and out.masks.shape == (1, 64, 64, 21)
+    assert bool(torch.isfinite(out.cls).all())
+    torch.testing.assert_close(out.masks.sum(-1), torch.ones(1, 64, 64))

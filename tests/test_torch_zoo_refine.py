@@ -7,14 +7,20 @@ package (float32, CPU).
 * units: ``GlobalSRA`` at sr 1 and 3, ``adaptive_max_pool``, ``FPN``
   and ``_pcm_refine`` on random inputs;
 * the heads that read WRN38-only taps refuse other backbones, where the
-  JAX forward fails too, and ``tf_v3``-``tf_v10`` raise naming A5(c).
+  JAX forward fails too, and ``tf_v3``, ``tf_v9_2`` and ``tf_v10`` build
+  with the module names of ``wseg_tpu``'s reference head map.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from tests.torch_zoo import check, check_spec
+from tests.torch_zoo import (
+    check,
+    check_spec,
+    jax_module_variables,
+    port_module_from_jax,
+)
 
 
 @pytest.fixture(autouse=True)
@@ -40,18 +46,6 @@ def test_zoo_model_matches_jax(name, tmp_path, monkeypatch, no_jax_dropout):
     check_spec(name, "resnet38", 64, tmp_path, monkeypatch)
 
 
-def _jax_module_vars(module, seed, *inputs):
-    import jax
-    import jax.numpy as jnp
-
-    from tests.torch_parity import random_variables
-
-    key = jax.random.PRNGKey(0)
-    shapes = jax.eval_shape(lambda: module.init(
-        key, *jax.tree_util.tree_map(jnp.asarray, inputs)))
-    return random_variables(shapes, seed, ())
-
-
 @pytest.mark.parametrize("sr,hw", [(1, (5, 7)), (3, (7, 9))])
 def test_global_sra_matches_jax(sr, hw):
     """GlobalSRA (dim 64, 8 heads) on (2, h, w, 64): rel 1e-5.  At sr 3
@@ -61,16 +55,12 @@ def test_global_sra_matches_jax(sr, hw):
 
     from wseg_tpu.models.heads.attention import GlobalSRA as JaxSRA
     from wseg_tpu_torch.models.heads.attention import GlobalSRA
-    from wseg_tpu_torch.utils.convert import state_dict_from_jax
 
     x = np.random.RandomState(0).randn(2, *hw, 64).astype(np.float32)
     jm = JaxSRA(64, 8, sr)
-    v = _jax_module_vars(jm, 1, x)
+    v = jax_module_variables(jm, 1, x)
     want = jm.apply(v, jnp.asarray(x))
-    port = GlobalSRA(64, 8, sr)
-    sd = state_dict_from_jax({"params": {"selfattn": v["params"]}})
-    port.load_state_dict({k[len("selfattn."):]: t for k, t in sd.items()},
-                         strict=True)
+    port = port_module_from_jax(GlobalSRA(64, 8, sr), v)
     assert (sr > 1) == ("norm.weight" in port.state_dict())
     if sr > 1:
         assert port.norm.eps == 1e-6
@@ -110,7 +100,7 @@ def test_fpn_matches_jax():
                                     16 if k == "conv3" else 8, c), 0)
             .astype(np.float32) for k, c in chans.items()}
     jm = JaxFPN(32)
-    v = _jax_module_vars(jm, 3, taps)
+    v = jax_module_variables(jm, 3, taps)
     want = jm.apply(v, {k: jnp.asarray(t) for k, t in taps.items()})
     port = FPN(chans, 32)
     port.load_state_dict(state_dict_from_jax(v), strict=True)
@@ -198,9 +188,20 @@ def test_wrn38_taps_heads_refuse_other_backbones(name, backbone):
                                   "CAM_CASA_WGAP_tf_v9_2",
                                   "CAM_CASA_WGAP_tf_v10"])
 def test_waiting_heads_raise_naming_a5c(name):
+    """``get_model`` builds the head on WRN38 with the reference's
+    module names: every head prefix of ``wseg_tpu``'s ``get_head_map``
+    (which ``load_reference_checkpoint`` reads) has its tensors, and no
+    head tensor lies outside them."""
+    from wseg_tpu.utils.torch_convert import get_head_map
     from wseg_tpu_torch.config import cfg
     from wseg_tpu_torch.models import get_model
 
     cfg.NET.MODEL, cfg.NET.BACKBONE = name, "resnet38"
-    with pytest.raises(NotImplementedError, match=r"A5\(c\).*C1"):
-        get_model(cfg.NET)
+    model = get_model(cfg.NET)
+    prefixes = [p for p, _, _ in get_head_map(name)]
+    head = {n for n in model.state_dict()
+            if n not in model._backbone.state_dict()}
+    for p in prefixes:
+        assert any(n.startswith(p + ".") for n in head), p
+    assert all(n.rsplit(".", 1)[0] in prefixes for n in head), head
+    assert ("fc8_2" in prefixes) == name.endswith("tf_v3")

@@ -197,7 +197,7 @@ def port_zoo_model_from_jax(variables, name: str, backbone: str,
     net.MODEL, net.BACKBONE, net.DTYPE = name, backbone, "float32"
     net.SG_PSI = sg_psi
     model = get_model(net, num_classes=21, train=train)
-    model.load_state_dict(state_dict_from_jax(variables), strict=True)
+    model.load_state_dict(state_dict_from_jax(variables, name), strict=True)
     return model
 
 

@@ -1,7 +1,10 @@
 """Shared cases of the model-zoo parity tests (tests/test_torch_zoo*.py).
 
 ``check_spec`` holds one registry key on one backbone against the JAX
-package, float32 on the CPU: the port's model carries the JAX model's
+package, float32 on the CPU (its parts ``zoo_case``,
+``check_round_trip``, ``check_test_mode`` and ``check_train_mode`` let
+a module share one case between tests): the port's model carries the
+JAX model's
 numpy-seeded weights (``state_dict_from_jax``, strict), its saved
 ``.pth`` loads back into JAX through ``load_reference_checkpoint``
 (strict) onto an all-zero tree and gives every leaf back bit for bit,
@@ -66,6 +69,32 @@ class CamScale:
         assert err <= REL * float(z.max()), (name, err)
 
 
+def jax_module_variables(module, seed: int, *inputs) -> dict:
+    """Numpy-seeded variables of a JAX module (shapes from tracing its
+    ``init`` on ``inputs``, ``tests/torch_parity.random_variables``)."""
+    import jax
+    import jax.numpy as jnp
+
+    from tests.torch_parity import random_variables
+
+    key = jax.random.PRNGKey(0)
+    shapes = jax.eval_shape(lambda: module.init(
+        key, *jax.tree_util.tree_map(jnp.asarray, inputs)))
+    return random_variables(shapes, seed, ())
+
+
+def port_module_from_jax(module, variables: dict, model: str = ""):
+    """``module`` (a port head module) carrying a JAX module's
+    ``variables`` (strict), converted as a head named ``selfattn``."""
+    from wseg_tpu_torch.utils.convert import state_dict_from_jax
+
+    sd = state_dict_from_jax({"params": {"selfattn": variables["params"]}},
+                             model)
+    module.load_state_dict({k[len("selfattn."):]: t for k, t in sd.items()},
+                           strict=True)
+    return module
+
+
 def train_batch(name: str, seed: int, size: int, b: int = 2):
     """uint8 images, 1-2 labelled classes each (the background first for
     ``labels_with_bg``), colour-jitter parameters."""
@@ -84,32 +113,38 @@ def train_batch(name: str, seed: int, size: int, b: int = 2):
     return {"image": image, "labels": labels, "jitter": jitter}
 
 
-def check_spec(name: str, backbone: str, size: int, tmp_path, monkeypatch,
-               seed: int = 0) -> None:
-    import flax.traverse_util as trav
-    import jax
-    import jax.numpy as jnp
-
+def zoo_case(name: str, backbone: str, size: int, seed: int = 0) -> dict:
+    """One registry key on one backbone: the JAX model and its
+    numpy-seeded variables, and the port's train model (float32)
+    carrying them (``state_dict_from_jax``, strict)."""
     from tests.torch_parity import (
         jax_zoo_model_and_random_variables,
-        no_port_dropout,
         port_zoo_model_from_jax,
     )
-    from wseg_tpu.engine.train_loop import _normalise_batch_image
-    from wseg_tpu.utils.torch_convert import load_reference_checkpoint
-    from wseg_tpu_torch.engine.train_loop import normalise_batch_image
 
     psi = 0.0 if name == "ae" else 0.3
-    cam = CamScale(monkeypatch)
     jm, variables = jax_zoo_model_and_random_variables(
         name, backbone, seed=seed, size=size, sg_psi=psi)
     model = port_zoo_model_from_jax(variables, name, backbone, train=True,
                                     sg_psi=psi)
+    return {"name": name, "backbone": backbone, "size": size, "seed": seed,
+            "jm": jm, "variables": variables, "model": model}
 
+
+def check_round_trip(case: dict, tmp_path) -> dict:
+    """The port model's saved ``.pth`` loads into JAX through
+    ``load_reference_checkpoint`` (strict) onto an all-zero tree and
+    gives every leaf back bit for bit; returns the loaded tree."""
+    import flax.traverse_util as trav
+    import jax
+
+    from wseg_tpu.utils.torch_convert import load_reference_checkpoint
+
+    name, variables = case["name"], case["variables"]
     path = str(tmp_path / f"{name}.pth")
-    torch.save(model.state_dict(), path)
+    torch.save(case["model"].state_dict(), path)
     zeros = jax.tree_util.tree_map(np.zeros_like, variables)
-    loaded = load_reference_checkpoint(zeros, path, name, backbone,
+    loaded = load_reference_checkpoint(zeros, path, name, case["backbone"],
                                        strict=True)
     for col, tree in variables.items():
         back = trav.flatten_dict(loaded[col])
@@ -117,31 +152,56 @@ def check_spec(name: str, backbone: str, size: int, tmp_path, monkeypatch,
         assert set(back) == set(flat), col
         for k, v in flat.items():
             np.testing.assert_array_equal(back[k], v, err_msg=str(k))
-    del zeros
+    return loaded
 
+
+def check_test_mode(case: dict, cam=None, variables=None) -> None:
+    """Test-mode ``cls`` and ``masks`` of the port against JAX's on
+    ``variables`` (the case's by default); ``cam`` a ``CamScale`` for
+    the classic CAM masks."""
+    import jax.numpy as jnp
+
+    size, seed, model = case["size"], case["seed"], case["model"]
     x = np.random.RandomState(seed + 1).randn(2, size, size, 3).astype(
         np.float32)
-    want = jm.apply(loaded, jnp.asarray(x), train=False)
-    del loaded
+    want = case["jm"].apply(variables or case["variables"], jnp.asarray(x),
+                            train=False)
     model.eval()
     with torch.no_grad():
         got = model(torch.from_numpy(x))
     c = 21 if model.spec.cls_all_channels else 20
     assert got.cls.shape == (2, c) and got.masks.shape == (2, size, size, 21)
     check(got.cls.numpy(), want.cls, "test cls")
-    cam.check_masks(got.masks.numpy(), want.masks, "test masks")
+    if cam is None:
+        check(got.masks.numpy(), want.masks, "test masks")
+    else:
+        cam.check_masks(got.masks.numpy(), want.masks, "test masks")
     # the seeded weights give non-trivial masks (not one flat class)
     assert float(np.asarray(want.masks).std()) > 1e-3
 
-    batch = train_batch(name, seed + 2, size)
+
+def check_train_mode(case: dict, cam=None) -> None:
+    """Train-mode outputs of the port against JAX's, dropout off in both
+    (the caller patches JAX's) and the plain PAMR."""
+    import jax
+    import jax.numpy as jnp
+
+    from tests.torch_parity import no_port_dropout
+    from wseg_tpu.engine.train_loop import _normalise_batch_image
+    from wseg_tpu_torch.engine.train_loop import normalise_batch_image
+
+    name, model = case["name"], case["model"]
+    batch = train_batch(name, case["seed"] + 2, case["size"])
     img, raw = _normalise_batch_image(jnp.asarray(batch["image"]),
                                       jnp.asarray(batch["jitter"]))
     key = jax.random.PRNGKey(1)
-    want, _ = jm.apply(variables, img, raw, jnp.asarray(batch["labels"]),
-                       train=True, rngs={"dropout": key, "sg": key},
-                       mutable=["batch_stats"])
+    want, _ = case["jm"].apply(case["variables"], img, raw,
+                               jnp.asarray(batch["labels"]), train=True,
+                               rngs={"dropout": key, "sg": key},
+                               mutable=["batch_stats"])
     model.train()
-    assert no_port_dropout(model) >= (1 if backbone == "resnet38" else 0)
+    assert no_port_dropout(model) >= (
+        1 if case["backbone"] == "resnet38" else 0)
     image, raw_t = normalise_batch_image(torch.from_numpy(batch["image"]),
                                          torch.from_numpy(batch["jitter"]))
     with torch.no_grad():
@@ -150,10 +210,22 @@ def check_spec(name: str, backbone: str, size: int, tmp_path, monkeypatch,
                 "attn_map"):
         g, w = getattr(got, key), getattr(want, key)
         assert (g is None) == (w is None), key
-        if key == "masks":
+        if key == "masks" and cam is not None:
             cam.check_masks(g.numpy(), w, "train masks")
         elif g is not None:
             check(g.numpy(), w, f"train {key}")
     spec = model.spec
     assert (got.masks_dec is None) == (not spec.refine)
     assert (got.attn_map is None) == (not spec.loss_at)
+
+
+def check_spec(name: str, backbone: str, size: int, tmp_path, monkeypatch,
+               seed: int = 0) -> None:
+    """The ``.pth`` round trip, test mode on the round-tripped tree and
+    train mode of one registry key on one backbone."""
+    cam = CamScale(monkeypatch)
+    case = zoo_case(name, backbone, size, seed)
+    loaded = check_round_trip(case, tmp_path)
+    check_test_mode(case, cam, loaded)
+    del loaded
+    check_train_mode(case, cam)

@@ -1,10 +1,10 @@
 """StageNet: backbone + spec-driven head.
 
 Mirror of ``wseg_tpu/models/stage_net.py``: one module driven by a
-``HeadSpec`` and a registry mapping ``cfg.NET.MODEL`` strings to specs.
-Ported: the paper's SoftMaxAE ``ae`` and every CAM head but
-``CAM_CASA_WGAP_tf_v3``-``tf_v10`` (ROADMAP.md A5(c)), on any of the
-four backbones where the head's taps exist:
+``HeadSpec`` and a registry mapping ``cfg.NET.MODEL`` strings to specs,
+the same 26 keys as ``wseg_tpu``'s: the paper's SoftMaxAE ``ae`` and
+every CAM head, on any of the four backbones where the head's taps
+exist:
 
 * classic CAM scoring (``bsl``, ``CAM_SA``/``CAM_CASA`` [``_WGAP``],
   ``CAM_MF_v2``): a shared ``fc8`` scores the pooled features (GAP, or
@@ -12,10 +12,23 @@ four backbones where the head's taps exist:
   ReLU'd, max-normalised image-size masks get a constant ``bg_score``
   background;
 * multi-level CAM (``CAM_MF``): per-level ``fc8_6`` ... ``fc8_3``;
-* nGWP softmax scoring (``v2``-``v6``, ``CAM_WGAP_v3``, PCM, ``tf``,
-  ``tf_v2``, ``ae``): softmax masks with a learned or constant-one
-  background, nGWP + focal scores, refined by PAMR or PCM in the train
-  path.
+* nGWP softmax scoring (``v2``-``v6``, ``CAM_WGAP_v3``, PCM, ``ae``
+  and the transformer heads ``tf``, ``tf_v2``-``tf_v10``): softmax masks
+  with a learned or constant-one background, nGWP + focal scores,
+  refined by PAMR or PCM in the train path.  The transformer heads
+  follow ``wseg_tpu``'s forward: window attention (``tf``; talking heads
+  ``tf_v7``; a cross query from ``conv3_pre`` through the strided
+  ``fc6``, ``tf_v9`` with talking heads and ``tf_v9_2`` without; window
+  3 unpadded ``tf_v5``; window 7 with the reference's swapped full pad
+  ``tf_v6``), global attention (``tf_v2`` at sr 3, ``tf_v4`` at sr 1),
+  a 3 x 3 grid of windows (``tf_v8``), one attention shared by windows 2
+  and 4 and joined by ``attn_conv`` + residual + LayerNorm (``tf_v10``,
+  softmax over the queries), and ``tf_v3``'s residual CA/SA on the raw
+  backbone features before ``fc7`` with its attention projecting to
+  C x 8 channels.  Where ``wseg_tpu``'s forward fails (an unpadded
+  window that does not divide the features; ``tf_v6``'s swapped pad
+  on features whose height and width differ mod 7) the port raises a
+  ``ValueError`` naming the head, the window and the size.
 
 Public layout is NHWC.  ``forward(image (B, H, W, 3))`` (test mode)
 returns a ``ModelOutput`` with ``cls`` and ``masks`` (B, H, W, C).
@@ -35,7 +48,9 @@ The backbone's and the head's layers are registered on the model
 itself, as in the reference (whose model classes subclass the
 backbone), so state_dict keys are the reference's: ``conv1a.weight``,
 ``fc7.weight``, ``selfattn.qkv.weight``, ``selfattn.norm.bias``,
+``selfattn.pre_softmax_proj.weight``, ``fc6.weight``, ``attn_conv.weight``,
 ``fc8_6.weight``, ``f9.weight``, ``aspp.aspp1.atrous_conv.weight``, ...
+(``tf_v3`` names its attention ``fc8`` and its classifier ``fc8_2``).
 """
 
 from __future__ import annotations
@@ -56,6 +71,7 @@ from wseg_tpu_torch.models.backbones.common import (
 from wseg_tpu_torch.models.heads.attention import (
     ChannelAttention,
     GlobalSRA,
+    GridAttention,
     SpatialAttention,
     WindowAttention,
     matmul_f32,
@@ -78,15 +94,28 @@ from wseg_tpu_torch.ops.resize import (
 
 @dataclasses.dataclass(frozen=True)
 class HeadSpec:
-    """Static architecture switches (the fields the ported specs use;
-    names and defaults as ``wseg_tpu``'s HeadSpec)."""
+    """Static architecture switches (names and defaults as
+    ``wseg_tpu``'s HeadSpec)."""
     name: str = ""
     kind: str = "cam"              # "ae" | "cam"
+    # attention pipeline (self_attn -> CA -> SA, or CA -> SA -> fc7 ->
+    # self_attn with attn_before_fc7)
     channel_attn: bool = False
     spatial_attn: bool = False
-    self_attn: str = ""            # "" | "window" | "global"
-    self_attn_ws: Any = 2
+    residual_attn: bool = False    # tf_v3: x = x + x * attn
+    attn_before_fc7: bool = False  # tf_v3: CA/SA on the raw features
+    # "" | "window" | "global" | "grid" | "multiwindow"
+    self_attn: str = ""
+    self_attn_ws: Any = 2          # int; a tuple for "multiwindow"; the
+                                   # grid's g for "grid"
+    self_attn_out_mult: int = 0    # attention width = mult * classes
+                                   # (tf_v3: 8); 0 = keep
     sr_ratio: int = 1              # for "global"
+    talking: bool = False          # talking-heads mixers
+    cross_query: bool = False      # q, k from conv3 through fc6
+    attn_fullpad_bug: bool = False  # tf_v6's swapped full-window pad
+    attn_nopad: bool = False       # tf_v3, tf_v5: no pad (sizes divide)
+    multi_window_norm: bool = False  # tf_v10: concat, 1x1, residual, LN
     fc7: bool = False              # 1x1 conv6 -> sa_dim before attention
     sa_dim: int = 0                # 0 = the model's (1024)
     scoring: str = "cam"           # "cam" | "softmax"
@@ -135,8 +164,9 @@ def _conv_nhwc(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
 
 _CASA = dict(channel_attn=True, spatial_attn=True)
 _NGWP = dict(scoring="softmax", bg="learned")
-_TF = dict(fc7=True, **_CASA, **_NGWP, mask_branch_relu=True,
-           refine="pamr", clean_before_refine=True)
+_TF_SCORE = dict(**_NGWP, mask_branch_relu=True, refine="pamr",
+                 clean_before_refine=True)
+_TF = dict(fc7=True, **_CASA, **_TF_SCORE)
 
 MODEL_SPECS = {
     # the CVPR-2020 paper model (reference models/SoftMaxAE.py)
@@ -178,18 +208,60 @@ MODEL_SPECS = {
                                  self_attn="window", self_attn_ws=2),
     "CAM_CASA_WGAP_tf_v2": HeadSpec(name="CAM_CASA_WGAP_tf_v2", **_TF,
                                     self_attn="global", sr_ratio=3),
+    # tf_v3: CA/SA residually on the raw backbone features, then fc7 ->
+    # the window attention as ``fc8`` (1024 -> C * 8, unpadded) -> the
+    # 1x1 ``fc8_2`` (reference models/CAM_CASA_WGAP_tf_v3.py:205-254)
+    "CAM_CASA_WGAP_tf_v3": HeadSpec(name="CAM_CASA_WGAP_tf_v3", **_TF,
+                                    self_attn="window", self_attn_ws=2,
+                                    self_attn_out_mult=8, attn_nopad=True,
+                                    residual_attn=True,
+                                    attn_before_fc7=True),
+    # tf_v4 = tf_v2 at sr 1 (full-resolution keys and values)
+    "CAM_CASA_WGAP_tf_v4": HeadSpec(name="CAM_CASA_WGAP_tf_v4", **_TF,
+                                    self_attn="global", sr_ratio=1),
+    "CAM_CASA_WGAP_tf_v5": HeadSpec(name="CAM_CASA_WGAP_tf_v5", **_TF,
+                                    self_attn="window", self_attn_ws=3,
+                                    attn_nopad=True),
+    "CAM_CASA_WGAP_tf_v6": HeadSpec(name="CAM_CASA_WGAP_tf_v6", **_TF,
+                                    self_attn="window", self_attn_ws=7,
+                                    attn_fullpad_bug=True),
+    "CAM_CASA_WGAP_tf_v7": HeadSpec(name="CAM_CASA_WGAP_tf_v7", **_TF,
+                                    self_attn="window", self_attn_ws=2,
+                                    talking=True),
+    "CAM_CASA_WGAP_tf_v8": HeadSpec(name="CAM_CASA_WGAP_tf_v8", **_TF,
+                                    self_attn="grid", self_attn_ws=3),
+    "CAM_CASA_WGAP_tf_v9": HeadSpec(name="CAM_CASA_WGAP_tf_v9", **_TF,
+                                    self_attn="window", self_attn_ws=2,
+                                    conv3_tap="conv3_pre", talking=True,
+                                    cross_query=True),
+    "CAM_CASA_WGAP_tf_v9_2": HeadSpec(name="CAM_CASA_WGAP_tf_v9_2", **_TF,
+                                      self_attn="window", self_attn_ws=2,
+                                      conv3_tap="conv3_pre",
+                                      cross_query=True),
+    # tf_v10: fc7 to 512, one window attention at windows 2 and 4 (its
+    # softmax over the query axis, tf_v10.py:118), no CA/SA
+    "CAM_CASA_WGAP_tf_v10": HeadSpec(name="CAM_CASA_WGAP_tf_v10", fc7=True,
+                                     sa_dim=512, self_attn="multiwindow",
+                                     self_attn_ws=(2, 4),
+                                     multi_window_norm=True, **_TF_SCORE),
 }
 
-# registry keys of wseg_tpu that wait for ROADMAP.md C1 (A5(c))
-WAITING = tuple(f"CAM_CASA_WGAP_tf_v{v}"
-                for v in ("3", "4", "5", "6", "7", "8", "9", "9_2", "10"))
+
+def query_tap(spec: HeadSpec, taps) -> str:
+    """The tap a cross-query head's ``fc6`` reads: ``spec.conv3_tap``
+    where the backbone has it, else ``conv3`` (``wseg_tpu``'s
+    ``d.get(spec.conv3_tap, d["conv3"])``)."""
+    return spec.conv3_tap if spec.conv3_tap in taps else "conv3"
 
 
-def required_taps(spec: HeadSpec) -> set:
-    """The backbone taps the head reads."""
+def required_taps(spec: HeadSpec, backbone_taps) -> set:
+    """The taps of a backbone with ``backbone_taps`` that the head
+    reads."""
     if spec.kind == "ae":
         return {"conv3", "conv6"}
     taps = {"conv6"}
+    if spec.cross_query:
+        taps.add(query_tap(spec, backbone_taps))
     if spec.multilevel == "sum":
         taps |= {"conv5", "conv4", spec.conv3_tap}
     elif spec.multilevel == "concat":
@@ -235,7 +307,7 @@ class StageNet(nn.Module):
         # the head stays in ``dtype``
         self.backbone_dtype = quant
         bb = get_backbone(backbone, quant)
-        missing = sorted(required_taps(spec) - set(bb.TAPS))
+        missing = sorted(required_taps(spec, bb.TAPS) - set(bb.TAPS))
         if missing:
             raise ValueError(
                 f"NET.MODEL '{spec.name}' reads the backbone taps "
@@ -264,6 +336,7 @@ class StageNet(nn.Module):
         dim = taps["conv6"]
         if spec.multilevel == "concat":
             dim += taps[spec.conv3_tap] + taps["conv4"]
+        raw_dim = dim
         if spec.fc7:
             if "fc7" in self._modules:
                 raise ValueError(
@@ -273,17 +346,42 @@ class StageNet(nn.Module):
                     "where the two cannot both exist (ROADMAP.md C3)")
             self.fc7 = nn.Conv2d(dim, spec.sa_dim or sa_dim, 1, bias=False)
             dim = spec.sa_dim or sa_dim
+        # tf_v3 names its attention fc8 and its classifier fc8_2
+        attn_name, fc8_name = ("fc8", "fc8_2") if spec.attn_before_fc7 \
+            else ("selfattn", "fc8")
+        attn = None
         if spec.self_attn == "window":
-            self.selfattn = WindowAttention(dim, 8, int(spec.self_attn_ws))
+            if spec.cross_query:
+                # the query's width is the model's sa_dim, x's after fc7
+                self.fc6 = nn.Conv2d(taps[query_tap(spec, taps)], dim, 2,
+                                     stride=2, bias=False)
+            attn = WindowAttention(
+                dim, 8, int(spec.self_attn_ws), talking=spec.talking,
+                cross=spec.cross_query,
+                out_dim=spec.self_attn_out_mult * num_classes)
         elif spec.self_attn == "global":
-            self.selfattn = GlobalSRA(dim, 8, spec.sr_ratio)
+            attn = GlobalSRA(dim, 8, spec.sr_ratio)
+        elif spec.self_attn == "grid":
+            attn = GridAttention(dim, 8, int(spec.self_attn_ws))
+        elif spec.self_attn == "multiwindow":
+            attn = WindowAttention(dim, 8, softmax_query_axis=True)
+        if attn is not None:
+            self.add_module(attn_name, attn)
+            dim = getattr(attn, "dim_out", dim)
+        self.__dict__["_selfattn"] = attn
+        if spec.multi_window_norm:
+            self.attn_conv = nn.Conv2d(dim * len(spec.self_attn_ws), dim, 1,
+                                       bias=False)
+            self.norm = nn.LayerNorm(dim, eps=1e-6)
         if spec.channel_attn:
-            self.caatention = ChannelAttention(dim)
+            self.caatention = ChannelAttention(
+                raw_dim if spec.attn_before_fc7 else dim)
         if spec.spatial_attn:
             self.attention = SpatialAttention()
         out_ch = num_classes if spec.scoring == "softmax" \
             and spec.bg != "const_one" else c1
-        self.fc8 = nn.Conv2d(dim, out_ch, 1, bias=False)
+        self.add_module(fc8_name, nn.Conv2d(dim, out_ch, 1, bias=False))
+        self.__dict__["_fc8"] = getattr(self, fc8_name)
         if spec.refine == "pcm":
             self.f8_3 = nn.Conv2d(taps["conv4"], 64, 1, bias=False)
             self.f8_4 = nn.Conv2d(taps["conv5"], 128, 1, bias=False)
@@ -305,28 +403,79 @@ class StageNet(nn.Module):
 
     def _attend(self, d):
         """Head features before scoring (NHWC): [multi-level concat] ->
-        [fc7] -> [self-attention] -> [channel, spatial attention]; and
+        [fc7] -> [self-attention] -> [channel, spatial attention] (with
+        ``attn_before_fc7`` the channel and spatial attention first); and
         the spatial-attention softmax map (B, h * w) or None."""
         spec = self.spec
         x = _nhwc(d["conv6"])
         if spec.multilevel == "concat":
             x3 = adaptive_max_pool(_nhwc(d[spec.conv3_tap]), x.shape[1:3])
             x = torch.cat([x3, _nhwc(d["conv4"]), x], dim=-1)
+        attn_map = None
+        if spec.attn_before_fc7:
+            x, attn_map = self._casa(x)
         if spec.fc7:
             x = _conv_nhwc(self.fc7, x)
-        if spec.self_attn == "global":
-            x = self.selfattn(x)
-        elif spec.self_attn == "window":
-            ws = int(spec.self_attn_ws)
-            xp, (h, w) = pad_to_multiple(x, ws, ws)
-            x = self.selfattn(xp)[:, :h, :w, :]
+        x = self._self_attention(x, d)
+        if not spec.attn_before_fc7:
+            x, attn_map = self._casa(x)
+        return x, attn_map
+
+    def _casa(self, x):
+        """Channel, then spatial attention, multiplicative or residual
+        (``x + x * a``); and the spatial attention's softmax map."""
+        spec = self.spec
         attn_map = None
         if spec.channel_attn:
-            x = x * self.caatention(x)
+            ca = self.caatention(x)
+            x = x + x * ca if spec.residual_attn else x * ca
         if spec.spatial_attn:
             sw, attn_map = self.attention(x)
-            x = x * sw
+            x = x + x * sw if spec.residual_attn else x * sw
         return x, attn_map
+
+    def _refuse(self, x, ws: int, what: str):
+        raise ValueError(
+            f"NET.MODEL '{self.spec.name}': features of {tuple(x.shape[1:3])}"
+            f" {what} window {ws}; wseg_tpu's forward fails there too (the "
+            "port does not pad around it)")
+
+    def _self_attention(self, x, d):
+        """The spec's self-attention on NHWC ``x`` (``wseg_tpu``'s
+        ``_apply_self_attention``)."""
+        spec = self.spec
+        attn = self._selfattn
+        if not spec.self_attn:
+            return x
+        if spec.self_attn == "global":
+            return attn(x)
+        h, w = x.shape[1], x.shape[2]
+        if spec.self_attn == "grid":
+            g = int(spec.self_attn_ws)
+            return attn(pad_to_multiple(x, g, g)[0])[:, :h, :w, :]
+        if spec.self_attn == "multiwindow":
+            outs = [attn(pad_to_multiple(x, ws, ws)[0], ws=ws)[:, :h, :w, :]
+                    for ws in spec.self_attn_ws]
+            x = x + _conv_nhwc(self.attn_conv, torch.cat(outs, dim=-1))
+            return self.norm(x)
+        ws = int(spec.self_attn_ws)
+        query = None
+        if spec.cross_query:
+            tap = query_tap(spec, self._backbone.TAPS)
+            q = _conv_nhwc(self.fc6, _nhwc(d[tap]))
+            query = resize_bilinear(q, (h, w), align_corners=True)
+        if spec.attn_nopad:
+            if h % ws or w % ws:
+                self._refuse(x, ws, "do not divide by the unpadded")
+            xp, qp = x, query
+        else:
+            xp, _ = pad_to_multiple(x, ws, ws, spec.attn_fullpad_bug)
+            if xp.shape[1] % ws or xp.shape[2] % ws:
+                self._refuse(x, ws, f"padded to {tuple(xp.shape[1:3])} do "
+                             "not divide by the")
+            qp = None if query is None else pad_to_multiple(
+                query, ws, ws, spec.attn_fullpad_bug)[0]
+        return attn(xp, query=qp)[:, :h, :w, :]
 
     def _logits(self, d):
         """Softmax-scored heads: the logits (B, h, w, C) float32 (fc8's,
@@ -340,7 +489,7 @@ class StageNet(nn.Module):
         x = x.permute(0, 3, 1, 2)
         if not spec.mask_branch_relu:
             x = self.dropout2d(x)
-        x = self.fc8(x)
+        x = self._fc8(x)
         if spec.mask_branch_relu:
             x = relu(x)
         x = _nhwc(x).float()
@@ -382,7 +531,8 @@ class StageNet(nn.Module):
         so a gradient can be taken with respect to one; the backbone is
         not run when they hold every tap the head reads."""
         spec = self.spec
-        if taps is not None and required_taps(spec) <= set(taps):
+        if taps is not None and required_taps(
+                spec, self._backbone.TAPS) <= set(taps):
             d = {}
         else:
             with self._autocast(image.device.type):
@@ -547,11 +697,6 @@ def get_model(net_cfg, num_classes: int = 21,
     name = str(net_cfg.MODEL)
     if name == "vgg16":  # reference default config quirk: MODEL 'vgg16'
         name = "bsl"
-    if name in WAITING:
-        raise NotImplementedError(
-            f"Model '{name}' is not ported yet (ROADMAP.md queue A, A5(c): "
-            "tf_v3-tf_v10 wait until C1, the reference-side forward "
-            "mismatch of these nine heads, is explained)")
     if name not in MODEL_SPECS:
         raise NotImplementedError(f"Unknown model '{name}'")
     dstr = str(getattr(net_cfg, "DTYPE", "float32"))

@@ -8,6 +8,8 @@ The port's module names are the reference torch state_dict's, so
 * ``port_name`` maps one parameter path of the JAX tree to its port
   name (``labels_from_jax`` uses it to carry the JAX optimizer's
   ``label_params`` groups over);
+  each takes the registry key of the model it converts, whose head
+  may rename modules (below);
 * ``quant_stats_from_jax`` turns the int8 static mode's
   ``quant_stats`` collection into the port's ``NET.QUANT_STATS``
   contents ({conv name: float32 (cin,) amax});
@@ -23,13 +25,18 @@ Names: the JAX backbone's ``layer{i}_{j}`` / ``downsample_conv`` /
 ``downsample.0`` / ``downsample.1``; the ``ae`` decoder's modules map
 as ``wseg_tpu/utils/torch_convert.py``'s ``_AE_HEAD_MAP``; CAM_MF's
 per-level ``fc8_conv6`` ... ``fc8_conv3`` are the reference's ``fc8_6``
-... ``fc8_3``; every other head module (``fc7``, ``fc8``,
-``selfattn.{qkv,q,kv,sr,norm,proj}``, ``caatention``, ``attention``,
-``f8_3``, ``f8_4``, ``f9``) keeps its name, as ``get_head_map``
-expects.  Layouts: conv kernels HWIO -> OIHW; Dense (in, out) -> (out,
-in); the channel-attention fc1/fc2 Dense -> (out, in, 1, 1) 1x1 conv
-weights; BatchNorm and LayerNorm scale/bias -> weight/bias, BatchNorm
-mean/var -> running_mean/running_var.
+... ``fc8_3``; ``tf_v3`` (a head with ``attn_before_fc7``) names its
+attention ``fc8`` and its classifier ``fc8_2`` where JAX has
+``selfattn`` and ``fc8``; every other head module (``fc6``, ``fc7``,
+``fc8``, ``selfattn.{qkv,qk,v,q,kv,sr,norm,proj}``, ``attn_conv``,
+``norm``, ``caatention``, ``attention``, ``f8_3``, ``f8_4``, ``f9``)
+keeps its name, as ``get_head_map`` expects.  Layouts: conv kernels
+HWIO -> OIHW; Dense (in, out) -> (out, in); the channel-attention
+fc1/fc2 Dense -> (out, in, 1, 1) 1x1 conv weights; BatchNorm and
+LayerNorm scale/bias -> weight/bias, BatchNorm mean/var ->
+running_mean/running_var; the talking-heads mixers, bare (in, out)
+``pre_softmax_proj`` / ``post_softmax_proj`` params, -> the transposed
+``<mixer>.weight`` of a torch ``Linear``.
 """
 
 from __future__ import annotations
@@ -79,6 +86,22 @@ _AE_HEAD = {
 _MF_HEAD = {(f"fc8_conv{i}",): f"fc8_{i}" for i in (3, 4, 5, 6)}
 # Dense layers that the reference implements as 1x1 convs
 _DENSE_AS_CONV1X1 = ("caatention",)
+# bare (in, out) matrices of the talking-heads attention: torch Linear
+# weights (out, in) of the same name
+_MIXERS = ("pre_softmax_proj", "post_softmax_proj")
+
+
+def _head_renames(model: str) -> Dict[tuple, str]:
+    """JAX head module -> reference name, for the heads that rename
+    (``tf_v3``: attention ``fc8``, classifier ``fc8_2``)."""
+    if not model:
+        return {}
+    from wseg_tpu_torch.models.stage_net import MODEL_SPECS
+
+    spec = MODEL_SPECS.get(model)
+    if spec is not None and spec.attn_before_fc7:
+        return {("selfattn",): "fc8", ("fc8",): "fc8_2"}
+    return {}
 
 
 def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, np.ndarray]:
@@ -91,21 +114,28 @@ def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, np.ndarray]:
     return out
 
 
-def port_name(path) -> str:
+def port_name(path, model: str = "") -> str:
     """Port state_dict name of one JAX parameter or batch-statistics
-    path, e.g. ("backbone", "b3", "bn_branch2a", "mean") ->
-    b3.bn_branch2a.running_mean, ("backbone", "layer2_0",
-    "downsample_bn", "scale") -> layer2.0.downsample.1.weight,
-    ("decoder", "last_bn1", "var") -> last_conv.1.running_var."""
+    path of registry key ``model``'s tree, e.g. ("backbone", "b3",
+    "bn_branch2a", "mean") -> b3.bn_branch2a.running_mean, ("backbone",
+    "layer2_0", "downsample_bn", "scale") -> layer2.0.downsample.1.weight,
+    ("decoder", "last_bn1", "var") -> last_conv.1.running_var,
+    ("selfattn", "pre_softmax_proj") -> selfattn.pre_softmax_proj.weight,
+    ("fc8", "kernel") of ``CAM_CASA_WGAP_tf_v3`` -> fc8_2.weight."""
     mods, leaf = tuple(path[:-1]), path[-1]
+    if leaf in _MIXERS:
+        mods, leaf = mods + (leaf,), "kernel"
     if leaf not in _LEAF:
         raise ValueError(f"no port slot for parameter {'/'.join(path)}")
     if mods[:1] == ("backbone",):
         mods = mods[1:]
+    renames = _head_renames(model)
     if mods in _AE_HEAD:
         prefix = _AE_HEAD[mods]
     elif mods in _MF_HEAD:
         prefix = _MF_HEAD[mods]
+    elif mods[:1] in renames:
+        prefix = ".".join((renames[mods[:1]],) + mods[1:])
     else:
         prefix = ".".join(
             _DOWNSAMPLE.get(m, re.sub(r"^(layer\d+)_(\d+)$", r"\1.\2", m))
@@ -113,18 +143,22 @@ def port_name(path) -> str:
     return prefix + "." + _LEAF[leaf]
 
 
-def state_dict_from_jax(variables_np: Mapping) -> Dict[str, torch.Tensor]:
+def state_dict_from_jax(variables_np: Mapping,
+                        model: str = "") -> Dict[str, torch.Tensor]:
     """``wseg_tpu`` variables (``{"params": ..., ["batch_stats": ...]}``
-    or the params tree itself) -> port state_dict of float32 CPU
-    tensors; ``batch_stats`` fill the live BatchNorms' running
-    statistics, and an ``AffineNorm`` (a decoder scale with statistics
-    in neither collection) gets its identity statistics."""
+    or the params tree itself) of registry key ``model`` -> port
+    state_dict of float32 CPU tensors; ``batch_stats`` fill the live
+    BatchNorms' running statistics, and an ``AffineNorm`` (a decoder
+    scale with statistics in neither collection) gets its identity
+    statistics."""
     params = variables_np.get("params", variables_np)
     leaves = _flatten(params)
     leaves.update(_flatten(variables_np.get("batch_stats", {})))
     sd = {}
     for path, v in leaves.items():
-        if path[-1] == "kernel":
+        if path[-1] in _MIXERS:
+            v = v.T
+        elif path[-1] == "kernel":
             if v.ndim == 4:
                 v = np.transpose(v, (3, 2, 0, 1))
             elif v.ndim == 2:
@@ -134,9 +168,10 @@ def state_dict_from_jax(variables_np: Mapping) -> Dict[str, torch.Tensor]:
                     v = v[:, :, None, None]
             else:
                 raise ValueError(f"unexpected kernel rank at {path}")
-        sd[port_name(path)] = torch.from_numpy(np.array(v, np.float32))
+        sd[port_name(path, model)] = torch.from_numpy(
+            np.array(v, np.float32))
     for path, v in leaves.items():
-        prefix = port_name(path)[:-len(".weight")]
+        prefix = port_name(path, model)[:-len(".weight")]
         if (path[-1] == "scale" and path[0] == "decoder"
                 and prefix + ".running_mean" not in sd):
             sd[prefix + ".running_mean"] = torch.zeros(v.shape)
@@ -161,9 +196,9 @@ def quant_stats_from_jax(quant_stats_np: Mapping) -> Dict[str, torch.Tensor]:
     return out
 
 
-def labels_from_jax(labels_tree: Mapping) -> Dict[str, str]:
-    """The JAX optimizer's label tree (``label_params``) -> {port
-    state_dict name: label}."""
+def labels_from_jax(labels_tree: Mapping, model: str = "") -> Dict[str, str]:
+    """The JAX optimizer's label tree (``label_params``) of registry key
+    ``model`` -> {port state_dict name: label}."""
     out = {}
 
     def walk(tree, prefix):
@@ -171,7 +206,7 @@ def labels_from_jax(labels_tree: Mapping) -> Dict[str, str]:
             if isinstance(v, Mapping):
                 walk(v, prefix + (k,))
             else:
-                out[port_name(prefix + (k,))] = v
+                out[port_name(prefix + (k,), model)] = v
 
     walk(labels_tree, ())
     return out
